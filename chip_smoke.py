@@ -8,11 +8,15 @@ exits non-zero:
 1. card: name and power limit from ``nvidia-smi``;
 2. build: both CUDA sources under
    ``style_transfer_visualizer_tpu_torch/csrc/`` with ``nvcc`` for
-   ``sm_90a``;
+   ``sm_90a``, with each library's count of ``HGMMA`` instructions
+   (``wgmma`` on the tensor cores) from ``cuobjdump -sass`` where the
+   toolkit has it;
 3. conv check: the conv kernel against its plain PyTorch version at
    every conv shape of the 512x512 main path (forward fused and
-   unfused, the input gradient, and a batch of 2), max-abs error
-   relative to the reference's largest magnitude <= 1e-4, with times;
+   unfused, the fused-mask input gradient against the plain masked
+   version, the autograd input gradient against cuDNN's, and a batch
+   of 2), max-abs error relative to the reference's largest magnitude
+   <= 1e-4, with times;
 4. Gram check: the same at the five Gram shapes, forward and backward,
    with and without an active clamp;
 5. main path: ``run_style_transfer`` at 512x512 on full-width VGG19
@@ -21,17 +25,24 @@ exits non-zero:
    64x64 run held against the same run on the CPU (plain versions).
 
 The line before the card line is the kernels' JSON record; the last
-line is the run's JSON verdict. Times come from CUDA events on this
-run's card; bounds use the H100 SXM's 67 TFLOP/s fp32 (outside the
-tensor cores) and 3.35 TB/s.
+line is the run's JSON verdict. Times come from CUDA events around
+replays of CUDA graphs of back-to-back calls on this run's card (device
+time; host launch overhead excluded for every version alike). Both
+kernels compute 3xTF32 on the tensor cores, so ``bound_ms`` is the
+larger of three TF32 products per operation at the H100 SXM's 495
+TFLOP/s and the bytes at 3.35 TB/s; ``fp32_bound_ms`` keeps the fp32
+figure (67 TFLOP/s outside the tensor cores).
 """
 from __future__ import annotations
 
+import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
-from functools import partial
+from functools import cache, partial
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -47,24 +58,31 @@ from style_transfer_visualizer_tpu_torch.constants import (
     GRAM_MATRIX_CLAMP_MAX as CLAMP,
 )
 from style_transfer_visualizer_tpu_torch.main import run_style_transfer
-from style_transfer_visualizer_tpu_torch.models.vgg19 import flip_stencil
+from style_transfer_visualizer_tpu_torch.models.vgg19 import (
+    flip_stencil,
+    pack_stencil,
+)
 from style_transfer_visualizer_tpu_torch.native import build
 from style_transfer_visualizer_tpu_torch.ops import conv3x3, gram
 
 PACKAGE = "style_transfer_visualizer_tpu_torch"
 FP32_FLOPS = 67e12
+TF32X3_FLOPS = 495e12 / 3
 HBM_BYTES = 3.35e12
+CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"
 TOL = 1e-4
 STEPS = 20
 LOG_EVERY = 10
 SIZE = 512
-# (H = W, C_in, C_out, convs of this shape up to layer 28) at 512x512.
+# (H = W, C_in, C_out, convs of this shape up to layer 28, of which
+# fused with their ReLU) at 512x512. A tap (layers 0, 5, 10, 19, 21,
+# 28) is not fused, so its backward takes no mask.
 CONV_SHAPES = [
-    (512, 3, 64, 1), (512, 64, 64, 1),
-    (256, 64, 128, 1), (256, 128, 128, 1),
-    (128, 128, 256, 1), (128, 256, 256, 3),
-    (64, 256, 512, 1), (64, 512, 512, 3),
-    (32, 512, 512, 1),
+    (512, 3, 64, 1, 0), (512, 64, 64, 1, 1),
+    (256, 64, 128, 1, 0), (256, 128, 128, 1, 1),
+    (128, 128, 256, 1, 0), (128, 256, 256, 3, 3),
+    (64, 256, 512, 1, 0), (64, 512, 512, 3, 2),
+    (32, 512, 512, 1, 0),
 ]
 # (P, C) of the five style taps at 512x512.
 GRAM_SHAPES = [
@@ -81,19 +99,47 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, reps: int = 10) -> float:
+@cache
+def _timing_stream() -> torch.cuda.Stream:
+    """The one side stream every timing capture runs on.
 
-    for _ in range(2):
-        fn()
+    PyTorch keeps a cuBLAS workspace for each stream that has run a
+    cuBLAS call, for the life of the process; a fresh stream per timing
+    would leave one behind for every timed product.
+    """
+    return torch.cuda.Stream()
+
+
+def _time_ms(fn, reps: int = 10, replays: int = 3) -> float:
+    """Device ms of one call of ``fn``, from a CUDA graph of ``reps`` calls.
+
+    Replaying captured calls times the device work alone: the host's
+    launch overhead (Python, ctypes, PyTorch's dispatcher) is left out
+    of the kernel, the plain version and the library call alike. The
+    wrappers' host time is measured apart (tools/wrapper_host_time.py).
+    """
+    stream = _timing_stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    for _ in range(replays):
+        graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    graph.reset()
+    return start.elapsed_time(end) / (reps * replays)
 
 
 def _times(*fns) -> tuple[float, ...]:
@@ -106,8 +152,16 @@ def _rel_err(ours, ref) -> tuple[float, float]:
     return err, err / max(float(ref.abs().max()), 1e-30)
 
 
-def _bound_s(flops: float, nbytes: float) -> tuple[float, float]:
-    return flops / FP32_FLOPS, nbytes / HBM_BYTES
+def _hgmma_count(library) -> int | None:
+    """``HGMMA`` instructions in a library's SASS; None without the tool."""
+    tool = shutil.which("cuobjdump") or CUOBJDUMP
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run(
+        [tool, "-sass", str(library)],
+        capture_output=True, text=True, check=True, timeout=120,
+    ).stdout
+    return sass.count("HGMMA")
 
 
 class Record:
@@ -120,9 +174,10 @@ class Record:
             "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
             "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
         }
-        self.flops_s = 0.0
+        self.ops_s = 0.0     # 3xTF32 operation time, summed
         self.bytes_s = 0.0
         self.bound_s = 0.0
+        self.fp32_bound_s = 0.0
 
     def err(self, ours, ref, what: str) -> None:
         """Check one comparison against the tolerance and keep its error."""
@@ -134,10 +189,12 @@ class Record:
 
     def add(self, count: int, ms, plain_ms, library_ms, flops, nbytes):
         """Add ``count`` launches per step of one shape to the sums."""
-        ops_s, mem_s = _bound_s(flops, nbytes)
-        self.flops_s += count * ops_s
+        ops_s = flops / TF32X3_FLOPS
+        mem_s = nbytes / HBM_BYTES
+        self.ops_s += count * ops_s
         self.bytes_s += count * mem_s
         self.bound_s += count * max(ops_s, mem_s)
+        self.fp32_bound_s += count * max(flops / FP32_FLOPS, mem_s)
         self.entry["ms"] += count * ms
         self.entry["plain_ms"] += count * plain_ms
         self.entry["library_ms"] += count * library_ms
@@ -147,17 +204,20 @@ class Record:
         out = dict(self.entry, launches=launches)
         out["bound_ms"] = self.bound_s * 1e3
         out["bound_by"] = (
-            "operations" if self.flops_s >= self.bytes_s else "bytes"
+            "operations" if self.ops_s >= self.bytes_s else "bytes"
         )
+        out["fp32_bound_ms"] = self.fp32_bound_s * 1e3
         return out
 
 
+def _bound_ms(flops: float, nbytes: float) -> float:
+    return max(flops / TF32X3_FLOPS, nbytes / HBM_BYTES) * 1e3
+
+
 def _check_conv(rec: Record) -> None:
-
-
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = [(1, *s) for s in CONV_SHAPES] + [(2, 64, 128, 128, 0)]
-    for n, hw, ci, co, count in cases:
+    cases = [(1, *s) for s in CONV_SHAPES] + [(2, 64, 128, 128, 0, 0)]
+    for n, hw, ci, co, count, fused in cases:
         def rand(*shape, scale=1.0):
             return torch.randn(
                 shape, generator=gen, device="cuda",
@@ -168,19 +228,27 @@ def _check_conv(rec: Record) -> None:
         b = rand(co, scale=0.1)
         g = rand(n, hw, hw, co)
         w9f = flip_stencil(w9)
+        wk, wkf = pack_stencil(w9), pack_stencil(w9f)
         w_oihw = w9.reshape(3, 3, ci, co).permute(3, 2, 0, 1).contiguous()
         label = f"{n}x{hw}x{hw} {ci}->{co}"
         for relu in (True, False):
             rec.err(
-                conv3x3.conv3x3_kernel(x, w9, b, relu),
+                conv3x3.conv3x3_kernel(x, wk, b, relu),
                 conv3x3.conv3x3_plain(x, w9, b, relu),
                 f"{label} forward relu={relu}",
             )
-        # Input gradient through the fused ReLU. The reference is
-        # cuDNN's own conv backward on g masked by the kernel's output,
-        # so both sides use one mask.
+        # The fused-mask input gradient: the kernel zeroes g where the
+        # forward's output is not positive as it loads it.
+        out = conv3x3.conv3x3_kernel(x, wk, b, True)
+        rec.err(
+            conv3x3.conv3x3_kernel(g, wkf, None, False, out),
+            conv3x3.conv3x3_plain(g, w9f, None, False, out),
+            f"{label} fused-mask input gradient",
+        )
+        # Through autograd, against cuDNN's own conv backward on g
+        # masked by the kernel's output, so both sides use one mask.
         xk = x.clone().requires_grad_(True)
-        out = conv3x3.conv3x3_bias_relu(xk, w9, w9f, b, True)
+        out = conv3x3.conv3x3_bias_relu(xk, w9, w9f, b, True, wk, wkf)
         out.backward(g)
         xr = x.clone().requires_grad_(True)
         ref = F.conv2d(xr.permute(0, 3, 1, 2), w_oihw, b, padding=1)
@@ -189,36 +257,49 @@ def _check_conv(rec: Record) -> None:
         if not count:
             print(f"conv {label}: ok (batch check)")
             continue
+        out = out.detach()
         x_nchw = x.permute(0, 3, 1, 2)
-        g_nchw = g.permute(0, 3, 1, 2)
+        gm_nchw = torch.where(out > 0, g, 0.0).permute(0, 3, 1, 2)
         wf_oihw = w9f.reshape(3, 3, co, ci).permute(3, 2, 0, 1).contiguous()
         fwd = _times(
-            partial(conv3x3.conv3x3_kernel, x, w9, b, True),
+            partial(conv3x3.conv3x3_kernel, x, wk, b, True),
             partial(conv3x3.conv3x3_plain, x, w9, b, True),
             partial(F.conv2d, x_nchw, w_oihw, b, padding=1),
-        )
-        bwd = _times(
-            partial(conv3x3.conv3x3_kernel, g, w9f, None, False),
-            partial(conv3x3.conv3x3_plain, g, w9f, None, False),
-            partial(F.conv2d, g_nchw, wf_oihw, None, padding=1),
         )
         pix = n * hw * hw
         flops = 2.0 * 9 * pix * ci * co
         nbytes = 4.0 * (pix * (ci + co) + 9 * ci * co)
         rec.add(count, *fwd, flops, nbytes + 4.0 * co)
-        rec.add(count, *bwd, flops, nbytes)
-        bound = max(_bound_s(flops, nbytes)) * 1e3
-        print(
+        line = (
             f"conv {label} x{count}: fwd kernel_ms {fwd[0]:.4f} plain_ms "
-            f"{fwd[1]:.4f} library_ms {fwd[2]:.4f} | bwd kernel_ms "
-            f"{bwd[0]:.4f} plain_ms {bwd[1]:.4f} library_ms {bwd[2]:.4f} "
-            f"| bound_ms {bound:.4f}",
+            f"{fwd[1]:.4f} library_ms {fwd[2]:.4f} "
+            f"bound_ms {_bound_ms(flops, nbytes):.4f}"
         )
+        # The backward as the main path runs it: masked for a conv fused
+        # with its ReLU (it also reads the mask), plain otherwise. The
+        # library yardstick is cuDNN's conv of the already masked g: one
+        # call, the mask not counted.
+        for n_bwd, mask, g_nchw, extra in (
+            (fused, out, gm_nchw, 4.0 * pix * co),
+            (count - fused, None, g.permute(0, 3, 1, 2), 0.0),
+        ):
+            if not n_bwd:
+                continue
+            bwd = _times(
+                partial(conv3x3.conv3x3_kernel, g, wkf, None, False, mask),
+                partial(conv3x3.conv3x3_plain, g, w9f, None, False, mask),
+                partial(F.conv2d, g_nchw, wf_oihw, None, padding=1),
+            )
+            rec.add(n_bwd, *bwd, flops, nbytes + extra)
+            line += (
+                f" | bwd x{n_bwd} mask={mask is not None} kernel_ms "
+                f"{bwd[0]:.4f} plain_ms {bwd[1]:.4f} library_ms "
+                f"{bwd[2]:.4f} bound_ms {_bound_ms(flops, nbytes + extra):.4f}"
+            )
+        print(line)
 
 
 def _check_gram(rec: Record) -> None:
-
-
     gen = torch.Generator(device="cuda").manual_seed(2)
     for p, c in GRAM_SHAPES:
         # Scale 1 leaves the clamp idle; the second scale puts the
@@ -251,11 +332,10 @@ def _check_gram(rec: Record) -> None:
         flops = float(p * c * (c + 1))
         nbytes = 4.0 * (p * c + 2 * c * c)
         rec.add(1, *times, flops, nbytes)
-        bound = max(_bound_s(flops, nbytes)) * 1e3
         print(
             f"gram ({p},{c}): kernel_ms {times[0]:.4f} plain_ms "
             f"{times[1]:.4f} library_ms {times[2]:.4f} bound_ms "
-            f"{bound:.4f}",
+            f"{_bound_ms(flops, nbytes):.4f}",
         )
 
 
@@ -281,7 +361,12 @@ def _images(size: int, seed: int):
 def _main_path() -> tuple[int, int]:
     """20 steps at 512x512; returns the conv and Gram launch counts."""
     content, style = _images(SIZE, 0)
+    # The checks' tensors and graph pools go first: the peak below is
+    # the main path's own.
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     conv3x3.launches.reset()
     gram.launches.reset()
     torch.cuda.synchronize()
@@ -327,7 +412,9 @@ def _main_path() -> tuple[int, int]:
         f"main path {SIZE}x{SIZE} vgg19 L-BFGS {STEPS} steps: "
         f"loss {losses[0]:.6g} -> {losses[-1]:.6g}, logged {logged}, "
         f"ms/step {ms_step:.3f}, run s {t_long:.3f}, "
-        f"max_memory_allocated {peak}, launches conv {conv_n} gram {gram_n}",
+        f"max_memory_allocated {peak}, of which allocated before the run "
+        f"{before} (the run's own {peak - before}), "
+        f"launches conv {conv_n} gram {gram_n}",
     )
     return conv_n, gram_n
 
@@ -373,6 +460,11 @@ def main() -> int:
     built = build.build_all()
     print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
     for kernel in built:
+        hgmma = _hgmma_count(kernel.library)
+        print(f"  {kernel.name}: HGMMA instructions in SASS: {hgmma}")
+        if hgmma == 0:
+            msg = f"{kernel.name}: no wgmma (HGMMA) in the built library"
+            raise AssertionError(msg)
         for line in kernel.ptxas_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {kernel.name}: {line.strip()}")

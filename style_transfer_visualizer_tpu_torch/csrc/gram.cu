@@ -1,153 +1,331 @@
 // Raw Gram matrix F^T F of a (P, C) float32 block, plus the clamped and
-// normalized G = min(raw, clamp) / n, for Hopper.
+// normalized G = min(raw, clamp) / n, on Hopper's tensor cores in
+// 3xTF32 (see tf32x3.cuh), in one launch.
 //
 // Replaces the Pallas TPU kernel `_gram_accumulate_kernel` (with its
 // driver `_raw_gram`) of style_transfer_visualizer_tpu/ops/pallas_gram.py.
 // On the TPU the grid walks the 512-row pixel tiles in order and carries
-// the C x C sum in VMEM scratch from one step to the next. Blocks on a
-// GPU run in parallel and in no order, so the sum over P is split
-// instead, deterministically and without float atomics:
+// the C x C sum in VMEM scratch. Blocks on a GPU run in parallel and in
+// no order, so the sum over P is split, deterministically and without
+// float atomics:
 //
-//   stage 1 (gram_partial_kernel): a grid of (T(T+1)/2, S) blocks for
-//     T = C/64 tiles a side; block (t, s) takes the t-th tile pair
-//     (i <= j) of the upper triangle, sums F[p, i-tile]^T F[p, j-tile]
-//     over the s-th contiguous range of pixel rows into a 64 x 64
-//     register tile (4 x 4 per thread) and writes it to workspace[s]
-//     (S, C, C). G is symmetric, so the tiles below the diagonal are
-//     never computed;
-//   stage 2 (gram_reduce_kernel): each element sums its S partials in
-//     fixed order, reading the mirrored element below the diagonal
-//     tiles, writes raw, and fuses the clamp and the scale into the
-//     write of G. The wrapper keeps raw for the backward's mask.
+//   - block (t, s) of the (T(T+1)/2, S) grid, T = C/64 tiles a side,
+//     takes the t-th 64 x 64 tile pair (i <= j) of the upper triangle
+//     (G is symmetric) and the s-th contiguous range of pixel rows;
+//   - a producer warp streams 32-row slabs of the two 64-channel
+//     column blocks of F into a ring of shared-memory slots with TMA
+//     (one slab when i == j), guarded by mbarriers;
+//   - the consumer warpgroup computes F_i^T F_j: A = F_i^T goes through
+//     the hi/lo split in registers, read transposed from the slot; B
+//     must be K-major (pixels contiguous) for a tf32 wgmma, so one pass
+//     splits and transposes the F_j slab into hi and lo tiles in shared
+//     memory; then three wgmma m64n64k8 per k8 slice (3xTF32);
+//   - each block writes its partial tile to the workspace; the sum of
+//     the S partials is taken in two levels, each in fixed order, so
+//     that no single block reads all S of them: the splits form groups
+//     of `group`; a block takes a ticket from its group's counter, and
+//     the group's last block to arrive sums the group's partials in
+//     split order into a group tile; it then takes a ticket from the
+//     pair's counter, and the last group to arrive sums the group tiles
+//     in group order, writes raw[i, j] and its mirror raw[j, i] (the
+//     same value: raw is bit-symmetric) with the clamp and scale fused
+//     into G. Each last block sets its counter back to 0 for the next
+//     call.
 //
 // Bound on the H100 SXM: the symmetric product needs P*C*(C+1) flops
-// against 4*P*C bytes read, so at the VGG widths (C = 64..512) the
-// kernel is bound by fp32 operations (67 TFLOP/s outside the tensor
-// cores): the five Grams of a 512x512 step are about 4.6 GFLOP, about
-// 0.07 ms. The split over P keeps all 132 SMs busy even at C = 64,
-// where there is one tile pair; 16 pixel rows of both operand tiles are
-// staged in shared memory per stage, so each thread reads 8 values from
-// shared memory per 16 fused multiply-adds.
-#include <cuda_runtime.h>
+// against 4*P*C bytes read: bound by bytes at C <= 128 and by the
+// 3xTF32 rate (495/3 TFLOP/s) at C >= 256.
+#define TF32X3_HOST
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int kT = 64;         // output tile edge
-constexpr int kBK = 16;        // pixel rows per stage
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+using namespace tf32x3;
 
-__global__ void __launch_bounds__(kThreads)
-gram_partial_kernel(const float* __restrict__ f, float* __restrict__ ws,
-                    long long p, int c, long long rows_per_split) {
-  __shared__ __align__(16) float a_s[kBK][kT];
-  __shared__ __align__(16) float b_s[kBK][kT];
+constexpr int kT = 64;            // output tile edge
+constexpr int kKP = 32;           // pixel rows per slot
+constexpr int kConsumers = 128;   // one warpgroup
+constexpr int kThreads = kConsumers + 32;
+constexpr int kSlabBytes = kKP * kT * 4;  // 32 rows x 64 channels
+constexpr int kSubFloats = kKP * kRowFloats;  // one 32 x 32 TMA box
 
+struct GramArgs {
+  float* ws;       // (pairs, splits + groups, 64, 64) partial tiles
+  int* counters;   // (pairs, groups + 1), 0 between calls
+  float* raw;
+  float* g;
+  long long p, rows_per_split;
+  int c, tiles, splits, group, groups, stages;
+  float clamp, norm;
+};
+
+constexpr int kTileFloats = kT * kT;
+constexpr int kVecs = kTileFloats / 4 / kConsumers;  // float4s per thread
+
+// Sum `count` tiles at `src` (kTileFloats apart) in index order; thread
+// t holds float4s t, t + 128, ... of the tile.
+__device__ __forceinline__ void sum_tiles(const float* src, int count,
+                                          float4 (&sum)[kVecs]) {
   const int tid = threadIdx.x;
-  // Tile pair number blockIdx.x -> (bi, bj) with bi <= bj, row by row.
-  const int tiles = (c + kT - 1) / kT;
-  int bi = 0;
-  int rem = static_cast<int>(blockIdx.x);
-  while (rem >= tiles - bi) {
-    rem -= tiles - bi;
-    ++bi;
-  }
-  const int i0 = bi * kT;
-  const int j0 = (bi + rem) * kT;
-  const long long p_begin =
-      static_cast<long long>(blockIdx.y) * rows_per_split;
-  const long long p_end =
-      p_begin + rows_per_split < p ? p_begin + rows_per_split : p;
-
-  const int lr = tid >> 4;        // staged row 0..15
-  const int lc = (tid & 15) * 4;  // staged column 0..60
-  const int ti = tid >> 4;
-  const int tj = tid & 15;
-
-  float acc[4][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int v = 0; v < kVecs; ++v) sum[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 2
+  for (int t = 0; t < count; ++t) {
+    const float4* tile =
+        reinterpret_cast<const float4*>(src + static_cast<long long>(t) *
+                                                  kTileFloats);
 #pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-  }
-
-  for (long long p0 = p_begin; p0 < p_end; p0 += kBK) {
-    const long long r = p0 + lr;
-    const bool row_ok = r < p_end;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int ci = i0 + lc + j;
-      const int cj = j0 + lc + j;
-      a_s[lr][lc + j] = (row_ok && ci < c) ? f[r * c + ci] : 0.f;
-      b_s[lr][lc + j] = (row_ok && cj < c) ? f[r * c + cj] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&a_s[kk][ti * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&b_s[kk][tj * 4]);
-      const float a[4] = {av.x, av.y, av.z, av.w};
-      const float b[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-#pragma unroll
-        for (int y = 0; y < 4; ++y) acc[x][y] = fmaf(a[x], b[y], acc[x][y]);
-      }
-    }
-    __syncthreads();
-  }
-
-  float* dst = ws + static_cast<long long>(blockIdx.y) * c * c;
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const int i = i0 + ti * 4 + x;
-    if (i >= c) continue;
-#pragma unroll
-    for (int y = 0; y < 4; ++y) {
-      const int j = j0 + tj * 4 + y;
-      if (j < c) dst[static_cast<long long>(i) * c + j] = acc[x][y];
+    for (int v = 0; v < kVecs; ++v) {
+      const float4 x = __ldcg(tile + tid + v * kConsumers);
+      sum[v].x += x.x;
+      sum[v].y += x.y;
+      sum[v].z += x.z;
+      sum[v].w += x.w;
     }
   }
 }
 
-__global__ void gram_reduce_kernel(const float* __restrict__ ws,
-                                   float* __restrict__ raw,
-                                   float* __restrict__ g, int c, int splits,
-                                   float clamp, float norm) {
-  const long long cc = static_cast<long long>(c) * c;
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= cc) return;
-  // Stage 1 wrote only the tiles on and above the diagonal.
-  const int i = static_cast<int>(idx / c);
-  const int j = static_cast<int>(idx % c);
-  const long long src = i / kT <= j / kT
-                            ? idx
-                            : static_cast<long long>(j) * c + i;
-  float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += ws[k * cc + src];
-  raw[idx] = s;
-  g[idx] = fminf(s, clamp) / norm;
+// One ticket from `counter` for the consumer warpgroup: true for the
+// block that arrives `expected`-th (and last); it resets the counter.
+__device__ __forceinline__ bool last_to_arrive(int* counter, int expected,
+                                               int* flag) {
+  __threadfence();
+  named_sync(1, kConsumers);
+  if (threadIdx.x == 0) {
+    *flag = atomicAdd(counter, 1) == expected - 1;
+    if (*flag) *counter = 0;
+  }
+  named_sync(1, kConsumers);
+  if (!*flag) return false;
+  __threadfence();
+  return true;
+}
+
+// Element (pixel k, channel m) of a slab: two 32-channel boxes.
+__device__ __forceinline__ int slab_off(int k, int m) {
+  return (m >> 5) * kSubFloats + swz(k, m & 31);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+gram_tf32x3_kernel(const __grid_constant__ CUtensorMap map_f,
+                   const GramArgs args) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  // Offset from the array itself (not via an integer address) so that
+  // the compiler keeps the accesses as shared-memory loads and stores.
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int stages = args.stages;
+  // Slots (F_i slab, F_j slab) then the transposed B hi and lo tiles.
+  float* bt_hi = reinterpret_cast<float*>(smem + stages * 2 * kSlabBytes);
+  float* bt_lo = bt_hi + kT * kRowFloats;
+  uint64_t* full = reinterpret_cast<uint64_t*>(bt_lo + kT * kRowFloats);
+  uint64_t* empty = full + stages;
+  __shared__ int flag;
+
+  int bi = 0;
+  int rem = static_cast<int>(blockIdx.x);
+  while (rem >= args.tiles - bi) {
+    rem -= args.tiles - bi;
+    ++bi;
+  }
+  const int bj = bi + rem;
+  const bool diag = bi == bj;
+  const int i0 = bi * kT;
+  const int j0 = bj * kT;
+  const long long p_begin =
+      static_cast<long long>(blockIdx.y) * args.rows_per_split;
+  const long long p_stop = p_begin + args.rows_per_split;
+  const long long p_end = p_stop < args.p ? p_stop : args.p;
+  const int steps = static_cast<int>((p_end - p_begin + kKP - 1) / kKP);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], kConsumers);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  auto slab_i = [&](int s) {
+    return reinterpret_cast<float*>(smem + s * 2 * kSlabBytes);
+  };
+  auto slab_j = [&](int s) {
+    return diag ? slab_i(s) : slab_i(s) + kT * kKP;
+  };
+
+  if (tid >= kConsumers) {
+    // ---- producer: one thread issues the TMA loads
+    if (tid != kConsumers) return;
+    const uint32_t bytes = (diag ? 1 : 2) * kSlabBytes;
+    for (int s = 0; s < steps; ++s) {
+      const int slot = s % stages;
+      const int round = s / stages;
+      if (round > 0) bar_wait(&empty[slot], (round - 1) & 1);
+      const int p0 = static_cast<int>(p_begin) + s * kKP;
+      bar_arrive_tx(&full[slot], bytes);
+      float* fi = slab_i(slot);
+      tma_2d(fi, &map_f, &full[slot], i0, p0);
+      tma_2d(fi + kSubFloats, &map_f, &full[slot], i0 + 32, p0);
+      if (!diag) {
+        float* fj = slab_j(slot);
+        tma_2d(fj, &map_f, &full[slot], j0, p0);
+        tma_2d(fj + kSubFloats, &map_f, &full[slot], j0 + 32, p0);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int row0 = (tid >> 5) * 16 + g;
+  const int row1 = row0 + 8;
+  const int tn = tid & (kT - 1);  // transpose role: channel n of F_j
+  const int tq = tid >> 6;        // and the k chunks tq, tq + 2, ...
+  float acc[kT / 2];
+  float part[kT / 2];
+#pragma unroll
+  for (int i = 0; i < kT / 2; ++i) acc[i] = 0.f;
+  const uint64_t dhi = desc_k_major(bt_hi);
+  const uint64_t dlo = desc_k_major(bt_lo);
+
+  for (int s = 0; s < steps; ++s) {
+    const int slot = s % stages;
+    bar_wait(&full[slot], (s / stages) & 1);
+    const float* fi = slab_i(slot);
+    const float* fj = slab_j(slot);
+    // B = F_j^T, K-major: bt[n][k] = split(F_j[k][n]), 4 k per store.
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int k = 4 * (tq + 2 * it);
+      uint32_t h[4];
+      uint32_t l[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(fj[slab_off(k + e, tn)], h[e], l[e]);
+      const int off = swz(tn, k);
+      *reinterpret_cast<uint4*>(bt_hi + off) = make_uint4(h[0], h[1], h[2],
+                                                          h[3]);
+      *reinterpret_cast<uint4*>(bt_lo + off) = make_uint4(l[0], l[1], l[2],
+                                                          l[3]);
+    }
+    // A = F_i^T from registers: element (m, k) is F_i[k][m].
+    uint32_t hi[4][4];
+    uint32_t lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int c0 = kk * 8 + tig;
+      const int off[4] = {slab_off(c0, row0), slab_off(c0, row1),
+                          slab_off(c0 + 4, row0), slab_off(c0 + 4, row1)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(fi[off[e]], hi[kk][e], lo[kk][e]);
+    }
+    fence_async_smem();
+    named_sync(1, kConsumers);
+    fence_regs(part);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      mma3<kT>(part, hi[kk], lo[kk], dhi + 2 * kk, dlo + 2 * kk, kk == 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(part);
+    bar_arrive(&empty[slot]);
+    promote(acc, part);
+  }
+
+  // ---- partial tile, then the two-level fixed-order sum
+  const int pair = static_cast<int>(blockIdx.x);
+  const int split = static_cast<int>(blockIdx.y);
+  float* tiles = args.ws + static_cast<long long>(pair) *
+                               (args.splits + args.groups) * kTileFloats;
+  float* mine = tiles + static_cast<long long>(split) * kTileFloats;
+#pragma unroll
+  for (int j = 0; j < kT / 8; ++j) {
+    const int col = 8 * j + 2 * tig;
+    *reinterpret_cast<float2*>(mine + row0 * kT + col) =
+        make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(mine + row1 * kT + col) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  int* counters = args.counters + pair * (args.groups + 1);
+  const int grp = split / args.group;
+  const int first = grp * args.group;
+  const int in_group = min(args.group, args.splits - first);
+  if (!last_to_arrive(&counters[grp], in_group, &flag)) return;
+  float4 sum[kVecs];
+  sum_tiles(tiles + static_cast<long long>(first) * kTileFloats, in_group,
+            sum);
+  float4* gtile = reinterpret_cast<float4*>(
+      tiles + static_cast<long long>(args.splits + grp) * kTileFloats);
+#pragma unroll
+  for (int v = 0; v < kVecs; ++v) gtile[tid + v * kConsumers] = sum[v];
+  if (!last_to_arrive(&counters[args.groups], args.groups, &flag)) return;
+  sum_tiles(tiles + static_cast<long long>(args.splits) * kTileFloats,
+            args.groups, sum);
+#pragma unroll
+  for (int v = 0; v < kVecs; ++v) {
+    const float vals[4] = {sum[v].x, sum[v].y, sum[v].z, sum[v].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int idx = 4 * (tid + v * kConsumers) + e;
+      const int r = idx / kT;
+      const int cc = idx % kT;
+      const int i = i0 + r;
+      const int j = j0 + cc;
+      if ((diag && r > cc) || i >= args.c || j >= args.c) continue;
+      const float gv = fminf(vals[e], args.clamp) / args.norm;
+      const long long ij = static_cast<long long>(i) * args.c + j;
+      const long long ji = static_cast<long long>(j) * args.c + i;
+      args.raw[ij] = vals[e];
+      args.raw[ji] = vals[e];
+      args.g[ij] = gv;
+      args.g[ji] = gv;
+    }
+  }
 }
 
 }  // namespace
 
-// Launch both stages on `stream` (two kernel launches); returns
-// cudaGetLastError() (0 on success). `ws` holds `splits` * c * c
-// floats; the split ranges are `rows_per_split` rows long and must
-// cover all p rows.
-extern "C" int gram_forward(const float* f, float* ws, float* raw, float* g,
-                            long long p, int c, int splits,
-                            long long rows_per_split, float clamp,
-                            float norm, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned tiles = static_cast<unsigned>((c + kT - 1) / kT);
-  const dim3 grid(tiles * (tiles + 1) / 2, static_cast<unsigned>(splits));
-  gram_partial_kernel<<<grid, kThreads, 0, s>>>(f, ws, p, c, rows_per_split);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long cc = static_cast<long long>(c) * c;
-  const unsigned blocks = static_cast<unsigned>((cc + 255) / 256);
-  gram_reduce_kernel<<<blocks, 256, 0, s>>>(ws, raw, g, c, splits, clamp,
-                                            norm);
+// Launch on `stream` (one kernel launch); returns 0, a cudaError_t, or
+// tf32x3::kTensorMapError + a driver code. `ws` holds pairs * (splits +
+// groups) * 64 * 64 floats; `counters` holds pairs * (groups + 1)
+// zeroed ints and is left zeroed. The split ranges are
+// `rows_per_split` rows long (a multiple of 32) and cover all p rows;
+// groups = ceil(splits / group); c % 4 == 0 (TMA row stride). The
+// plan comes from ops/gram.py's gram_plan.
+extern "C" int gram_forward(const float* f, float* ws, int* counters,
+                            float* raw, float* g, long long p, int c,
+                            int splits, long long rows_per_split, int group,
+                            int stages, int smem_bytes, float clamp,
+                            float norm, int device, void* stream) {
+  // The calling thread may have no current context yet; the
+  // tensor-map encoder needs one.
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int tiles = (c + kT - 1) / kT;
+  const int groups = (splits + group - 1) / group;
+  GramArgs args{ws,     counters, raw,    g,      p,     rows_per_split,
+                c,      tiles,    splits, group,  groups, stages,
+                clamp,  norm};
+  CUtensorMap map{};
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(c),
+                              static_cast<cuuint64_t>(p)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(c) * 4};
+  const cuuint32_t box[2] = {kRowFloats, kKP};
+  const int rc = make_map(&map, f, 2, dims, strides, box);
+  if (rc != 0) return rc;
+  // The opt-in to more than 48 KB of dynamic shared memory is made once
+  // (the plan's size does not change).
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      gram_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  const dim3 grid(static_cast<unsigned>(tiles * (tiles + 1) / 2),
+                  static_cast<unsigned>(splits));
+  gram_tf32x3_kernel<<<grid, kThreads, smem_bytes,
+                       static_cast<cudaStream_t>(stream)>>>(map, args);
   return static_cast<int>(cudaGetLastError());
 }

@@ -50,6 +50,7 @@ def _conv(params: Params, idx: int, x: torch.Tensor, fuse: bool):
     layer = params[idx]
     return conv3x3_bias_relu(
         x, layer["w9"], layer["w9_flip"], layer["b"], fuse,
+        (layer["wk_hi"], layer["wk_lo"]), (layer["wkf_hi"], layer["wkf_lo"]),
     )
 
 

@@ -4,10 +4,16 @@ A layer's parameters are the conv kernel as a ``(9, C_in, C_out)``
 stencil (HWIO reshaped row-major over ``(ky, kx)``, the layout of the
 JAX package's ``pallas_conv.hwio_to_stencil``), its backward stencil
 ``w9_flip`` (rot180 + channel transpose, ``(9, C_out, C_in)``) and the
-bias. The backbone is frozen: only pixels are optimized, so the
-flipped copy is made once when the weights are loaded.
+bias. For the tensor-core kernel each stencil is also packed K-major,
+``(C_out, Kp)`` with ``K = tap * C_in + c`` zero-padded to ``Kp``, a
+multiple of 32, and split into tf32 hi and lo halves (``ops/tf32.py``):
+``wk_hi``/``wk_lo`` from ``w9`` for the forward, ``wkf_hi``/``wkf_lo``
+from ``w9_flip`` for the input gradient. The backbone is frozen: only
+pixels are optimized, so the flipped and packed copies are made once
+when the weights are loaded, never per step.
 
-Params: ``{layer_index: {"w9": ..., "w9_flip": ..., "b": ...}}``.
+Params: ``{layer_index: {"w9", "w9_flip", "b", "wk_hi", "wk_lo",
+"wkf_hi", "wkf_lo"}}``.
 """
 from __future__ import annotations
 
@@ -22,6 +28,8 @@ from style_transfer_visualizer_tpu_torch.models.arch import (
     VGG19,
     Architecture,
 )
+from style_transfer_visualizer_tpu_torch.ops.conv3x3 import K_STEP
+from style_transfer_visualizer_tpu_torch.ops.tf32 import split_tf32
 from style_transfer_visualizer_tpu_torch.utils.logging import logger
 
 Params = dict[int, dict[str, torch.Tensor]]
@@ -31,6 +39,32 @@ HostParams = dict[int, dict[str, np.ndarray]]
 def flip_stencil(w9: torch.Tensor) -> torch.Tensor:
     """rot180 + channel transpose: the stencil of the input gradient."""
     return torch.flip(w9, dims=(0,)).transpose(1, 2).contiguous()
+
+
+def pack_stencil(w9: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K-major tf32 ``(hi, lo)`` of a ``(9, C_in, C_out)`` stencil.
+
+    Each is ``(C_out, Kp)``: column ``tap * C_in + c`` holds ``w9[tap,
+    c]``, columns from ``9 * C_in`` up to ``Kp`` (a multiple of
+    ``K_STEP``) are zero.
+    """
+    nine, c_in, c_out = w9.shape
+    k = nine * c_in
+    wk = torch.zeros(
+        (c_out, -(-k // K_STEP) * K_STEP), dtype=w9.dtype, device=w9.device,
+    )
+    wk[:, :k] = w9.reshape(k, c_out).T
+    return split_tf32(wk)
+
+
+def _layer(w9: torch.Tensor, b: torch.Tensor) -> dict[str, torch.Tensor]:
+    w9_flip = flip_stencil(w9)
+    wk_hi, wk_lo = pack_stencil(w9)
+    wkf_hi, wkf_lo = pack_stencil(w9_flip)
+    return {
+        "w9": w9, "w9_flip": w9_flip, "b": b, "wk_hi": wk_hi,
+        "wk_lo": wk_lo, "wkf_hi": wkf_hi, "wkf_lo": wkf_lo,
+    }
 
 
 def init_random_host_params(
@@ -65,7 +99,8 @@ def params_from_numpy(
     """Carry HWIO ``{"w", "b"}`` arrays (numpy or JAX) onto ``device``.
 
     Each ``(3, 3, C_in, C_out)`` kernel becomes the ``(9, C_in,
-    C_out)`` stencil plus its flipped backward stencil.
+    C_out)`` stencil, its flipped backward stencil and the packed tf32
+    halves of both.
     """
     params: Params = {}
     for idx, layer in host.items():
@@ -78,7 +113,7 @@ def params_from_numpy(
         b = torch.tensor(
             np.asarray(layer["b"], dtype=np.float32), device=device,
         )
-        params[int(idx)] = {"w9": w9, "w9_flip": flip_stencil(w9), "b": b}
+        params[int(idx)] = _layer(w9, b)
     return params
 
 

@@ -3,8 +3,10 @@
 Each source becomes its own shared library with a plain C interface,
 built for ``sm_90a`` into ``build/kernels/`` inside the package, next
 to ``csrc/``, so a checkout and an installed copy each build in their
-own tree. A library's file name carries a hash of its source and flags,
-so an edited source is rebuilt and an unchanged one is reused. All
+own tree. A library's file name carries a hash of its source, of every
+``csrc/`` header the source includes (directly or through another
+header) and of the flags, so an edited source or header is rebuilt and
+an unchanged one is reused. All
 sources build in parallel (one ``nvcc`` process each). A build that
 fails raises; nothing falls back to the plain PyTorch versions.
 
@@ -14,8 +16,10 @@ machines without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,6 +36,10 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 _CUDA_NVCC = Path("/usr/local/cuda/bin/nvcc")
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+# tf32x3::kTensorMapError of csrc/tf32x3.cuh.
+_TENSOR_MAP_ERROR = 10000
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -56,12 +64,26 @@ def _nvcc() -> str:
     raise RuntimeError(msg)
 
 
+def local_headers(src: Path) -> list[Path]:
+    """The ``csrc/`` headers ``src`` includes, directly or not, in order."""
+    found: list[Path] = []
+    todo = [src]
+    while todo:
+        for inc in _LOCAL_INCLUDE.findall(todo.pop().read_bytes()):
+            header = CSRC / inc.decode()
+            if header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode(),
-    ).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256(src.read_bytes())
+    for header in local_headers(src):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names: tuple[str, ...] = SOURCES) -> list[BuiltKernel]:
@@ -116,8 +138,50 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``, asked once.
+
+    The launch plans size their grids by it.
+    """
+    import torch  # noqa: PLC0415 - the build itself needs no torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_counters: dict[int, object] = {}
+
+
+def arrival_counters(device, count: int):
+    """Zeroed int32 arrival counters on a CUDA device, kept between calls.
+
+    The kernels that sum split partials take a ticket from a counter
+    per output tile; the last block to arrive sets it back to 0, so the
+    counters need no clearing launch between calls. One buffer per
+    device serves every kernel: launches on one stream do not overlap.
+    """
+    import torch  # noqa: PLC0415
+
+    index = torch.device(device).index or 0
+    # Autograd runs the backward's launches on a thread of its own.
+    with _lock:
+        have = _counters.get(index)
+        if have is None or have.numel() < count:
+            have = torch.zeros(
+                max(count, 4096), dtype=torch.int32, device=device,
+            )
+            _counters[index] = have
+        return have
+
+
 def check(status: int, what: str) -> None:
     """Raise if a C entry point returned a non-zero ``cudaError_t``."""
+    if status >= _TENSOR_MAP_ERROR:
+        msg = (
+            f"{what}: TMA tensor map refused (CUresult "
+            f"{status - _TENSOR_MAP_ERROR})"
+        )
+        raise RuntimeError(msg)
     if status != 0:
         msg = f"{what} launch failed with cudaError {status}"
         raise RuntimeError(msg)

@@ -5,20 +5,23 @@ The port of the JAX package's ``ops/pallas_gram.py`` (the Pallas kernel
 c1] F[p, c2]`` over all batch and spatial positions, clamped per
 element at ``GRAM_MATRIX_CLAMP_MAX`` *before* dividing by B*H*W*C.
 
-On a CUDA tensor the raw Gram and G come from the hand-written kernel
-``csrc/gram.cu``; on a CPU tensor from the plain version,
-``F.T @ F``. Any other device raises. The backward is the JAX
-package's: with ``S = (M . dG + (M . dG)^T) / n`` and ``M = raw <=
-clamp``, ``dF = F S``, one ``torch.matmul`` outside the kernel (it lies
-outside the Pallas kernel in the JAX package too).
+On a CUDA tensor the raw Gram and G come from the hand-written 3xTF32
+tensor-core kernel ``csrc/gram.cu``, one launch per call; on a CPU
+tensor from the plain version, ``F.T @ F``. Any other device raises.
+The backward is the JAX package's: with ``S = (M . dG + (M . dG)^T) /
+n`` and ``M = raw <= clamp``, ``dF = F S``, one ``torch.matmul``
+outside the kernel (it lies outside the Pallas kernel in the JAX
+package too).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F  # noqa: N812
 
 from style_transfer_visualizer_tpu_torch.constants import (
     GRAM_MATRIX_CLAMP_MAX,
@@ -28,11 +31,27 @@ from style_transfer_visualizer_tpu_torch.native import build
 #: Launches of ``csrc/gram.cu`` made by :func:`gram_kernel`.
 launches = build.LaunchCounter("gram")
 
-# Tile edge and pixel rows per stage of the kernel's first stage.
+# Tile edge and pixel rows per ring slot of the kernel.
 _TILE = 64
-_ROWS = 16
-# Blocks aimed for per SM when the pixel sum is split.
-_BLOCKS_PER_SM = 4
+_ROWS = 32
+# Blocks per SM the kernel's shared memory and registers allow.
+_BLOCKS_PER_SM = 2
+_STAGES = 4
+_SLOT_BYTES = 2 * _ROWS * _TILE * 4   # the F_i and F_j slabs
+_ALIGN = 1024
+
+
+@dataclass(frozen=True)
+class GramPlan:
+    """How ``csrc/gram.cu`` covers one ``(P, C)`` block."""
+
+    pairs: int
+    splits: int
+    rows: int
+    group: int
+    groups: int
+    stages: int
+    smem_bytes: int
 
 
 def gram_plain(
@@ -49,9 +68,9 @@ def gram_plain(
 def _entry():
     fn = build.load("gram").gram_forward
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        *[ctypes.c_void_p] * 5, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_longlong, *[ctypes.c_int] * 3,
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -60,16 +79,37 @@ def _entry():
 def split_rows(p: int, c: int, n_sm: int) -> tuple[int, int]:
     """``(splits, rows_per_split)`` of the kernel's split over P.
 
-    Enough splits to give every SM a few blocks, each a whole number of
-    staged row groups; the splits cover all ``p`` rows. Each split has
-    one block per tile pair on or above the diagonal.
+    Enough splits to give every SM its blocks, each a whole number of
+    32-row slots; the splits cover all ``p`` rows. Each split has one
+    block per tile pair on or above the diagonal.
     """
     side = math.ceil(c / _TILE)
-    tiles = side * (side + 1) // 2
+    pairs = side * (side + 1) // 2
     groups = max(1, math.ceil(p / _ROWS))
-    splits = max(1, min(groups, (_BLOCKS_PER_SM * n_sm) // tiles))
+    cap = max(1, (_BLOCKS_PER_SM * n_sm) // pairs)
+    splits = max(1, min(groups, cap))
     rows = math.ceil(groups / splits) * _ROWS
     return math.ceil(p / rows) if p else 1, rows
+
+
+@functools.cache
+def gram_plan(p: int, c: int, n_sm: int) -> GramPlan:
+    """The kernel's launch plan for a ``(p, c)`` block (``c % 4 == 0``).
+
+    The partial tiles of the splits are summed in groups of ``group``
+    (about the square root of ``splits``), then the group sums, so no
+    block reads more than about ``2 * sqrt(splits)`` tiles.
+    """
+    side = math.ceil(c / _TILE)
+    splits, rows = split_rows(p, c, n_sm)
+    group = math.isqrt(splits - 1) + 1
+    return GramPlan(
+        pairs=side * (side + 1) // 2, splits=splits, rows=rows,
+        group=group, groups=math.ceil(splits / group), stages=_STAGES,
+        smem_bytes=(
+            _ALIGN + (_STAGES + 1) * _SLOT_BYTES + 16 * _STAGES
+        ),
+    )
 
 
 def gram_kernel(
@@ -79,8 +119,10 @@ def gram_kernel(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/gram.cu`` on a CUDA ``(P, C)`` block: ``(raw, G)``.
 
-    One call launches the kernel's two stages (the partial tiles, then
-    their fixed-order sum) and counts once.
+    One call is one kernel launch: the split partial tiles and their
+    fixed-order sum, with the clamp and scale fused. A ``C`` that is
+    not a multiple of 4 (TMA's 16-byte row stride) is padded with zero
+    channels, which add nothing, and cut off again.
     """
     if flat.device.type != "cuda" or flat.dtype != torch.float32:
         msg = "gram kernel takes a float32 CUDA tensor"
@@ -89,15 +131,28 @@ def gram_kernel(
         msg = f"gram kernel takes a contiguous (P, C) block: {flat.shape}"
         raise ValueError(msg)
     p, c = flat.shape
-    n_sm = torch.cuda.get_device_properties(flat.device).multi_processor_count
-    splits, rows = split_rows(p, c, n_sm)
-    ws = torch.empty((splits, c, c), device=flat.device, dtype=flat.dtype)
-    raw = torch.empty((c, c), device=flat.device, dtype=flat.dtype)
-    g = torch.empty_like(raw)
+    if c % 4:
+        raw, g = gram_kernel(F.pad(flat, (0, -c % 4)), clamp_max, norm)
+        return raw[:c, :c].contiguous(), g[:c, :c].contiguous()
+    dev = flat.device
+    plan = gram_plan(p, c, build.sm_count(dev.index))
+    # raw and the partial tiles' workspace in one allocation: raw lives
+    # only until the backward; G, which a style target keeps for the
+    # whole run, has its own.
+    cc = c * c
+    buf = torch.empty(
+        cc + plan.pairs * (plan.splits + plan.groups) * _TILE * _TILE,
+        device=dev, dtype=flat.dtype,
+    )
+    raw = buf[:cc].view(c, c)
+    g = torch.empty((c, c), device=dev, dtype=flat.dtype)
     status = _entry()(
-        flat.data_ptr(), ws.data_ptr(), raw.data_ptr(), g.data_ptr(),
-        p, c, splits, rows, clamp_max, norm,
-        torch.cuda.current_stream(flat.device).cuda_stream,
+        flat.data_ptr(), buf[cc:].data_ptr(),
+        build.arrival_counters(dev, plan.pairs * (plan.groups + 1)).data_ptr(),
+        raw.data_ptr(), g.data_ptr(), p, c, plan.splits, plan.rows,
+        plan.group, plan.stages, plan.smem_bytes, clamp_max, norm,
+        dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(status, "gram")
     launches.count += 1

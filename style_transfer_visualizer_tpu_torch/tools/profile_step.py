@@ -38,13 +38,19 @@ from style_transfer_visualizer_tpu_torch.models.vgg19 import (
 
 
 # Device kernels of csrc/, listed by name whatever their rank.
-_PORT_KERNELS = (
-    "conv3x3_kernel", "gram_partial_kernel", "gram_reduce_kernel",
-)
+_PORT_KERNELS = ("conv3x3_tf32x3_kernel", "gram_tf32x3_kernel")
 
 
 def _emit(line: str) -> None:
     sys.stdout.write(line + "\n")
+
+
+def _peak_and_reset() -> int:
+    """Peak allocated device bytes since the last reset; then reset."""
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    return peak
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -87,12 +93,26 @@ def main(argv: list[str] | None = None) -> int:
         )
         for _ in range(2)
     )
+    # Peak device memory of each phase of the main path, in order.
+    peaks: dict[str, int] = {}
+    torch.cuda.reset_peak_memory_stats()
     params = init_random_params(opt.seed, dev)
+    packed = sum(
+        t.numel() * t.element_size()
+        for layer in params.values() for k, t in layer.items()
+        if k.startswith("wk")
+    )
+    _emit(
+        f"weights on the card: {torch.cuda.memory_allocated()} bytes, of "
+        f"which the packed tf32 stencils {packed}",
+    )
+    peaks["weights"] = _peak_and_reset()
     style_layers = tuple(opt.style_layers)
     content_layers = tuple(opt.content_layers)
     targets = compute_targets(
         params, style, content, style_layers, content_layers,
     )
+    peaks["targets"] = _peak_and_reset()
     bundle = build_update_step(
         params, targets, tuple(content.shape), lr=opt.lr,
         style_w=opt.style_w, content_w=opt.content_w,
@@ -104,9 +124,16 @@ def main(argv: list[str] | None = None) -> int:
     gen = torch.Generator(device=dev).manual_seed(opt.seed)
     image = initialize_input(content, opt.init_method, gen)
     state = bundle.opt_state
-    for _ in range(3):
+    peaks["optimizer set-up"] = _peak_and_reset()
+    for i in range(3):
         image, state, _ = bundle.update_fn(image, state)
-    torch.cuda.synchronize()
+        if i == 0:
+            peaks["first step"] = _peak_and_reset()
+    peaks["steps 2-3"] = _peak_and_reset()
+    _emit(
+        "max_memory_allocated by phase: "
+        + ", ".join(f"{k} {v}" for k, v in peaks.items()),
+    )
 
     holder = {"image": image, "state": state}
 
@@ -128,15 +155,18 @@ def main(argv: list[str] | None = None) -> int:
     def direction():
         optimizers._compact_direction(grad, holder["state"])  # noqa: SLF001
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     step_ms = _event_ms(step, args.steps)
     host_ms = (time.perf_counter() - t0) / args.steps * 1e3
+    peak = torch.cuda.max_memory_allocated()
     vag_ms = _event_ms(loss_and_grad, args.steps)
     dir_ms = _event_ms(direction, args.steps)
     _emit(
         f"{args.size}x{args.size}: step_ms {step_ms:.3f} (host clock "
         f"{host_ms:.3f}), loss_and_grad_ms {vag_ms:.3f}, "
-        f"compact_direction_ms {dir_ms:.3f}",
+        f"compact_direction_ms {dir_ms:.3f}, max_memory_allocated over "
+        f"the steps {peak}",
     )
 
     out = Path(args.out)
@@ -157,10 +187,16 @@ def main(argv: list[str] | None = None) -> int:
         e.self_device_time_total for e in events
         if e.device_type == torch.autograd.DeviceType.CUDA
     )
+    # The profiler slows the host, so the traced window's busy share is
+    # low whenever the host issues slower than the device runs; the
+    # device time per step over the untraced step time is the share
+    # without the profiler.
+    busy_ms_step = busy_us / args.steps / 1e3
     _emit(
         f"traced {args.steps} steps: wall_ms {wall_us / 1e3:.3f}, "
         f"device kernel time ms {busy_us / 1e3:.3f}, device busy share "
-        f"{busy_us / wall_us:.3f}",
+        f"{busy_us / wall_us:.3f} traced, {busy_ms_step / step_ms:.3f} of "
+        f"the untraced step ({busy_ms_step:.3f} ms/step)",
     )
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA and any(

@@ -16,7 +16,10 @@ from style_transfer_visualizer_tpu.ops.pallas_conv import (
     conv3x3_bias_relu as jax_conv,
     hwio_to_stencil,
 )
-from style_transfer_visualizer_tpu_torch.models.vgg19 import flip_stencil
+from style_transfer_visualizer_tpu_torch.models.vgg19 import (
+    flip_stencil,
+    pack_stencil,
+)
 from style_transfer_visualizer_tpu_torch.ops import conv3x3
 
 RTOL = 1e-5
@@ -38,9 +41,11 @@ def _close(ours: np.ndarray, ref: np.ndarray) -> None:
 
 def _torch_conv(x, wt, b, relu):
     w9 = torch.from_numpy(wt.reshape(9, *wt.shape[2:]))
+    w9f = flip_stencil(w9)
     xt = torch.from_numpy(x).requires_grad_(True)
     out = conv3x3.conv3x3_bias_relu(
-        xt, w9, flip_stencil(w9), torch.from_numpy(b), relu,
+        xt, w9, w9f, torch.from_numpy(b), relu, pack_stencil(w9),
+        pack_stencil(w9f),
     )
     return xt, out
 
@@ -90,6 +95,7 @@ def test_kernel_wrapper_rejects_cpu_tensors() -> None:
     x, wt, b, _ = _inputs(3, 8, 8, 4, 4)
     with pytest.raises(ValueError, match="CUDA"):
         conv3x3.conv3x3_kernel(
-            torch.from_numpy(x), torch.from_numpy(wt.reshape(9, 4, 4)),
+            torch.from_numpy(x),
+            pack_stencil(torch.from_numpy(wt.reshape(9, 4, 4))),
             torch.from_numpy(b), True,
         )

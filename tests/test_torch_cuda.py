@@ -8,10 +8,12 @@ and without the JAX test environment, run:
         tests/test_torch_cuda.py
 
 Shapes are small and ragged (odd widths, channel counts that fill no
-tile, a batch of 2) to reach the kernels' bounds checks. Tolerance:
-float32, max-abs error 1e-4 relative to the reference's largest
-magnitude (sums in different orders). cuDNN's TF32 is off for the
-plain conv.
+tile, C_in = 3 and C_out = 3 as in the first layer, a batch of 2) to
+reach the kernels' bounds checks, and both ways of loading A (TMA when
+C_in is a multiple of 32, gathered otherwise). Tolerance: float32,
+max-abs error 1e-4 relative to the reference's largest magnitude (the
+kernels compute 3xTF32, about 21 mantissa bits, and sum in another
+order). cuDNN's TF32 is off for the plain conv.
 """
 from __future__ import annotations
 
@@ -22,7 +24,10 @@ import torch
 from style_transfer_visualizer_tpu_torch.constants import (
     GRAM_MATRIX_CLAMP_MAX,
 )
-from style_transfer_visualizer_tpu_torch.models.vgg19 import flip_stencil
+from style_transfer_visualizer_tpu_torch.models.vgg19 import (
+    flip_stencil,
+    pack_stencil,
+)
 from style_transfer_visualizer_tpu_torch.ops import conv3x3, gram
 
 pytestmark = pytest.mark.cuda
@@ -50,21 +55,35 @@ def _rand(seed: int, *shape: int, scale: float = 1.0) -> torch.Tensor:
     )
 
 
+_CONV_SHAPES = [
+    (1, 7, 13, 3, 64), (2, 9, 9, 17, 70), (1, 16, 40, 64, 5),
+    (1, 12, 12, 64, 3), (2, 10, 9, 32, 128),
+]
+
+
 @pytest.mark.parametrize("relu", [True, False])
-@pytest.mark.parametrize(
-    ("n", "h", "w", "ci", "co"),
-    [(1, 7, 13, 3, 64), (2, 9, 9, 17, 70), (1, 16, 40, 64, 5)],
-)
+@pytest.mark.parametrize(("n", "h", "w", "ci", "co"), _CONV_SHAPES)
 def test_conv_kernel_matches_plain(cuda, n, h, w, ci, co, relu) -> None:
     x = _rand(0, n, h, w, ci)
     w9 = _rand(1, 9, ci, co, scale=0.2)
     b = _rand(2, co)
     before = conv3x3.launches.count
     _close(
-        conv3x3.conv3x3_kernel(x, w9, b, relu),
+        conv3x3.conv3x3_kernel(x, pack_stencil(w9), b, relu),
         conv3x3.conv3x3_plain(x, w9, b, relu),
     )
     assert conv3x3.launches.count == before + 1
+
+
+@pytest.mark.parametrize(("n", "h", "w", "ci", "co"), _CONV_SHAPES)
+def test_conv_kernel_mask_matches_plain(cuda, n, h, w, ci, co) -> None:
+    x = _rand(11, n, h, w, ci)
+    mask = _rand(12, n, h, w, ci)
+    w9 = _rand(13, 9, ci, co, scale=0.2)
+    _close(
+        conv3x3.conv3x3_kernel(x, pack_stencil(w9), None, False, mask),
+        conv3x3.conv3x3_plain(x, w9, None, False, mask),
+    )
 
 
 def test_conv_input_gradient_matches_cudnn(cuda) -> None:
@@ -73,7 +92,10 @@ def test_conv_input_gradient_matches_cudnn(cuda) -> None:
     b = _rand(5, 24)
     g = _rand(6, 2, 11, 10, 24)
     xk = x.clone().requires_grad_(True)
-    out = conv3x3.conv3x3_bias_relu(xk, w9, flip_stencil(w9), b, True)
+    w9f = flip_stencil(w9)
+    out = conv3x3.conv3x3_bias_relu(
+        xk, w9, w9f, b, True, pack_stencil(w9), pack_stencil(w9f),
+    )
     out.backward(g)
     xr = x.clone().requires_grad_(True)
     ref = conv3x3.conv3x3_plain(xr, w9, b, False)
@@ -100,6 +122,6 @@ def test_wrappers_reject_non_contiguous_input(cuda) -> None:
     x = _rand(8, 1, 8, 8, 4).transpose(1, 2)
     w9 = _rand(9, 9, 4, 4)
     with pytest.raises(ValueError, match="contiguous"):
-        conv3x3.conv3x3_kernel(x, w9, None, False)
+        conv3x3.conv3x3_kernel(x, pack_stencil(w9), None, False)
     with pytest.raises(ValueError, match="contiguous"):
         gram.gram_kernel(_rand(10, 8, 16).T, GRAM_MATRIX_CLAMP_MAX, 1.0)

@@ -69,7 +69,7 @@ def test_clamp_is_active_in_the_large_case() -> None:
 )
 def test_split_covers_every_row(p, c, n_sm) -> None:
     splits, rows = gram.split_rows(p, c, n_sm)
-    assert rows % 16 == 0
+    assert rows % 32 == 0
     assert splits * rows >= p
     assert (splits - 1) * rows < p
 
