@@ -20,9 +20,23 @@ exits non-zero:
 4. Gram check: the same at the five Gram shapes, forward and backward,
    with and without an active clamp;
 5. main path: ``run_style_transfer`` at 512x512 on full-width VGG19
-   (seeded weights, shipped defaults) for 20 L-BFGS steps, with the
-   launch counts set to 0 just before and read just after; then a
-   64x64 run held against the same run on the CPU (plain versions).
+   (seeded weights, shipped defaults) for 20 L-BFGS steps through the
+   port's runner (no progress bar), with the launch counts set to 0
+   just before and read just after;
+6. timelapse: the port's runner on the main path's configuration with
+   ``save_every=1`` into an in-memory frame sink (20 frames through the
+   pinned-buffer frame stream), launch counts again 0 just before and
+   read just after; the frames in step order, (512, 512, 3) uint8, the
+   last one bit-equal to the packed final image; the largest difference
+   from the same run with synchronous frames; ms/step with frames off,
+   at ``save_every=20`` and at ``save_every=1``, the spread of the last
+   over the first round by round, and each mode's mean interval
+   between steps 3 to 20. Where ``ffmpeg`` is on
+   PATH and Pillow imports, also ``main.style_transfer`` at the shipped
+   video defaults (realtime MP4, intro, outro) with ``save_every=2`` on
+   512x512 PNGs, with the MP4's size and frame count; otherwise the
+   line says which is missing;
+7. a 64x64 run held against the same run on the CPU (plain versions).
 
 The line before the card line is the kernels' JSON record; the last
 line is the run's JSON verdict. Times come from CUDA events around
@@ -36,8 +50,11 @@ figure (67 TFLOP/s outside the tensor cores).
 from __future__ import annotations
 
 import gc
+import importlib.util
 import json
+import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -48,22 +65,35 @@ import numpy as np
 import torch
 import torch.nn.functional as F  # noqa: N812
 
+from style_transfer_visualizer_tpu_torch import image_io
 from style_transfer_visualizer_tpu_torch.config import (
     HardwareConfig,
     OptimizationConfig,
     OutputConfig,
     StyleTransferConfig,
+    VideoConfig,
 )
 from style_transfer_visualizer_tpu_torch.constants import (
     GRAM_MATRIX_CLAMP_MAX as CLAMP,
 )
-from style_transfer_visualizer_tpu_torch.main import run_style_transfer
+from style_transfer_visualizer_tpu_torch.engine.runner import (
+    OptimizationCallbacks,
+    OptimizationRunner,
+)
+from style_transfer_visualizer_tpu_torch.main import (
+    prepare_model_and_input,
+    run_style_transfer,
+    style_transfer,
+)
+from style_transfer_visualizer_tpu_torch.media import segments
 from style_transfer_visualizer_tpu_torch.models.vgg19 import (
     flip_stencil,
+    load_pretrained_params,
     pack_stencil,
 )
 from style_transfer_visualizer_tpu_torch.native import build
 from style_transfer_visualizer_tpu_torch.ops import conv3x3, gram
+from style_transfer_visualizer_tpu_torch.type_defs import InputPaths
 
 PACKAGE = "style_transfer_visualizer_tpu_torch"
 FP32_FLOPS = 67e12
@@ -73,6 +103,7 @@ CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"
 TOL = 1e-4
 STEPS = 20
 LOG_EVERY = 10
+TIMELAPSE_ROUNDS = 16
 SIZE = 512
 # (H = W, C_in, C_out, convs of this shape up to layer 28, of which
 # fused with their ReLU) at 512x512. A tap (layers 0, 5, 10, 19, 21,
@@ -423,6 +454,258 @@ def _finite(v: float) -> bool:
     return v == v and abs(v) != float("inf")
 
 
+class _FrameSink:
+    """An in-memory frame sink: keeps every delivered array."""
+
+    def __init__(self) -> None:
+        """Start empty."""
+        self.frames: list[np.ndarray] = []
+        self._size = None
+
+    def append_data(self, frame: np.ndarray) -> None:
+        """Keep one frame."""
+        self.frames.append(frame)
+
+    def close(self) -> None:
+        """Nothing to release."""
+
+
+class _Progress:
+    """The script's own progress reporter: counts steps, prints nothing."""
+
+    def __init__(self) -> None:
+        """Start at step 0."""
+        self.steps = 0
+
+    def update(self, n: int = 1) -> None:
+        """Count ``n`` steps."""
+        self.steps += n
+
+    def set_postfix(self, *args, **kwargs) -> None:
+        """Ignore the loss display."""
+        del args, kwargs
+
+    def close(self) -> None:
+        """Nothing to release."""
+
+
+def _timelapse_run(
+    content, style, params, steps: int, save_every: int | None, *,
+    async_frames: bool = True,
+):
+    """The runner on the main path's configuration, frames in memory.
+
+    Returns the final working image, the loss history, the frames, the
+    step of each frame, the runner's wall seconds (device synced
+    before and after) and the host clock at the end of each step.
+    ``save_every=None`` attaches no sink.
+    """
+    config = _config(steps, "cuda")
+    config.video.save_every = save_every or steps + 1
+    bundle, input_img = prepare_model_and_input(
+        content, style, config, params=params,
+    )
+    sink = _FrameSink() if save_every else None
+    frame_steps: list[int] = []
+    step_ends: list[float] = []
+    progress = _Progress()
+    runner = OptimizationRunner(
+        bundle.update_fn, bundle.opt_state, input_img, config,
+        progress_bar=progress,
+        # The step-end callback makes every mode run single steps.
+        callbacks=OptimizationCallbacks(
+            on_step_end=lambda _m: step_ends.append(time.perf_counter()),
+            on_video_frame=lambda _f, step: frame_steps.append(step),
+        ),
+        video_writer=sink,
+        async_frames=async_frames,
+        chunked_update_fn=bundle.chunked_update_fn,
+    )
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    image, history, _ = runner.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if progress.steps != steps:
+        msg = f"progress saw {progress.steps} steps, expected {steps}"
+        raise AssertionError(msg)
+    frames = sink.frames if sink else []
+    return image, history, frames, frame_steps, seconds, step_ends
+
+
+def _timelapse() -> None:
+    """20 frames through the frame stream; ms/step with and without."""
+    content, style = _images(SIZE, 0)
+    params = load_pretrained_params(
+        torch.device("cuda"), allow_random=True, seed=0,
+    )
+    conv3x3.launches.reset()
+    gram.launches.reset()
+    image, history, frames, steps_seen, _, _ = _timelapse_run(
+        content, style, params, STEPS, 1,
+    )
+    conv_n, gram_n = conv3x3.launches.count, gram.launches.count
+    want = (26 * STEPS + 23, 5 * STEPS + 5)
+    if (conv_n, gram_n) != want:
+        msg = f"timelapse launches conv/gram {conv_n}/{gram_n}, want {want}"
+        raise AssertionError(msg)
+    if steps_seen != list(range(1, STEPS + 1)) or len(frames) != STEPS:
+        msg = f"frames at steps {steps_seen}, {len(frames)} delivered"
+        raise AssertionError(msg)
+    for frame in frames:
+        if frame.shape != (SIZE, SIZE, 3) or frame.dtype != np.uint8:
+            msg = f"bad frame {frame.shape} {frame.dtype}"
+            raise AssertionError(msg)
+    final = image_io.pack_uint8_frame(
+        image_io.prepare_image_for_output(image, normalize=True),
+    ).cpu().numpy()
+    if not np.array_equal(frames[-1], final):
+        msg = "last frame differs from the packed final image"
+        raise AssertionError(msg)
+    if len({id(f) for f in frames}) != STEPS or not all(
+        map(_finite, history["total_loss"]),
+    ):
+        msg = "frames share memory or losses are not finite"
+        raise AssertionError(msg)
+    _, _, sync_frames, _, _, _ = _timelapse_run(
+        content, style, params, STEPS, 1, async_frames=False,
+    )
+    sync_diff = max(
+        int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+        for a, b in zip(frames, sync_frames, strict=True)
+    )
+
+    # ms/step per mode: the difference of a 20-step and a 10-step run of
+    # the runner, the least of TIMELAPSE_ROUNDS rounds, modes
+    # interleaved (the host's noise is of the order of the frames'
+    # cost). The spread of the same ratio taken round by round shows
+    # that noise. The mean interval between steps 3 to 20 of the same
+    # runs is a second reading, free of each run's start and end.
+    modes = {"frames off": None, "save_every=20": 20, "save_every=1": 1}
+    rounds: dict[tuple[str, int], list[float]] = {
+        (name, steps): []
+        for name in modes for steps in (STEPS // 2, STEPS)
+    }
+    gaps: dict[str, list[float]] = {name: [] for name in modes}
+    for _ in range(TIMELAPSE_ROUNDS):
+        for name, every in modes.items():
+            for steps in (STEPS // 2, STEPS):
+                run = _timelapse_run(content, style, params, steps, every)
+                rounds[name, steps].append(run[4])
+                if steps == STEPS:
+                    gaps[name].extend(np.diff(run[5][2:]) * 1e3)
+    gap_ms = {name: float(np.mean(v)) for name, v in gaps.items()}
+
+    def per_step_ms(name: str, pick) -> float:
+        return (
+            pick(rounds[name, STEPS]) - pick(rounds[name, STEPS // 2])
+        ) / (STEPS // 2) * 1e3
+
+    ms = {name: per_step_ms(name, min) for name in modes}
+    ratio = ms["save_every=1"] / ms["frames off"]
+    per_round = sorted(
+        per_step_ms("save_every=1", lambda v, i=i: v[i])
+        / per_step_ms("frames off", lambda v, i=i: v[i])
+        for i in range(TIMELAPSE_ROUNDS)
+    )
+    print(
+        f"timelapse {SIZE}x{SIZE} {STEPS} steps save_every=1: "
+        f"{len(frames)} frames in step order, last frame equal to the "
+        f"final image, async vs sync frames max abs diff {sync_diff}, "
+        f"launches conv {conv_n} gram {gram_n}; ms/step "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f", save_every=1 over frames off {ratio:.4f}; the same ratio "
+        f"round by round: median {statistics.median(per_round):.4f}, "
+        f"least {per_round[0]:.4f}, greatest {per_round[-1]:.4f}; mean "
+        f"step interval ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in gap_ms.items())
+        + f", save_every=1 over frames off "
+        f"{gap_ms['save_every=1'] / gap_ms['frames off']:.4f}",
+    )
+    _full_timelapse()
+
+
+def _mp4_frames(path: Path) -> int:
+    """Frames in an MP4's video stream, counted by ffmpeg."""
+    out = subprocess.run(
+        ["ffmpeg", "-hide_banner", "-i", str(path), "-map", "0:v:0",  # noqa: S607
+         "-c", "copy", "-f", "null", "-"],
+        capture_output=True, text=True, check=True, timeout=120,
+    )
+    counts = re.findall(r"frame=\s*(\d+)", out.stderr)
+    if not counts:
+        msg = f"no frame count from ffmpeg: {out.stderr[-300:]}"
+        raise AssertionError(msg)
+    return int(counts[-1])
+
+
+def _full_timelapse() -> None:
+    """``main.style_transfer`` at the shipped video defaults, if it can."""
+    missing = []
+    if shutil.which("ffmpeg") is None:
+        missing.append("ffmpeg not on PATH")
+    if importlib.util.find_spec("PIL") is None:
+        missing.append("Pillow not importable")
+    if missing:
+        print(f"timelapse full run: not run: {'; '.join(missing)}")
+        return
+    from PIL import Image  # noqa: PLC0415 - optional on this machine
+
+    root = Path(__file__).resolve().parent / PACKAGE / "build" / "timelapse"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    paths = []
+    for name, arr in zip(("content", "style"), _images(SIZE, 3)):
+        path = root / f"{name}.png"
+        Image.fromarray(np.round(arr[0] * 255).astype(np.uint8)).save(path)
+        paths.append(str(path))
+    steps, every = STEPS, 2
+    config = StyleTransferConfig(
+        output=OutputConfig(output=str(root / "out"), log_every=LOG_EVERY),
+        optimization=OptimizationConfig(
+            steps=steps, allow_random_weights=True,
+        ),
+        video=VideoConfig(save_every=every),
+        hardware=HardwareConfig(device="cuda"),
+    )
+    video = config.video
+    t0 = time.perf_counter()
+    style_transfer(
+        InputPaths(*paths), config, progress_bar=_Progress(),
+    )
+    seconds = time.perf_counter() - t0
+    mp4 = root / "out" / "timelapse_content_x_style.mp4"
+    if not mp4.is_file() or mp4.stat().st_size == 0:
+        msg = f"no MP4 at {mp4}"
+        raise AssertionError(msg)
+    fps = video.fps
+    expected = (
+        max(1, min(round(fps * segments.INTRO_FADE_IN_SECONDS),
+                   segments.INTRO_MAX_FADE_FRAMES))
+        + round(fps * video.intro_duration_seconds)
+        + max(1, min(round(fps * segments.INTRO_CROSSFADE_SECONDS),
+                     segments.INTRO_MAX_CROSSFADE_FRAMES))
+        + steps // every
+        + max(segments.FINAL_TIMELAPSE_MIN_FRAMES,
+              round(fps * segments.FINAL_TIMELAPSE_HOLD_SECONDS))
+        + max(1, min(round(fps * segments.OUTRO_CROSSFADE_SECONDS),
+                     segments.OUTRO_MAX_CROSSFADE_FRAMES))
+        + max(segments.FINAL_COMPARISON_MIN_FRAMES,
+              round(fps * video.outro_duration_seconds))
+    )
+    frames = _mp4_frames(mp4)
+    if frames != expected:
+        msg = f"MP4 has {frames} frames, expected {expected}"
+        raise AssertionError(msg)
+    written = sorted(p.name for p in (root / "out").iterdir())
+    print(
+        f"timelapse full run: style_transfer {SIZE}x{SIZE} {steps} steps "
+        f"save_every={every}, realtime MP4 with intro and outro: "
+        f"{mp4.stat().st_size} bytes, {frames} frames (expected "
+        f"{expected}), {seconds:.2f} s; wrote {written}",
+    )
+
+
 def _small_reference() -> None:
     """A 64x64, 3-step run on the card against the same run on the CPU.
 
@@ -480,6 +763,7 @@ def main() -> int:
     )
     _check_gram(gram_rec)
     conv_n, gram_n = _main_path()
+    _timelapse()
     _small_reference()
 
     kernels = [conv.finish(conv_n), gram_rec.finish(gram_n)]

@@ -13,10 +13,15 @@ from dataclasses import dataclass, field
 from typing import get_args
 
 from style_transfer_visualizer_tpu_torch import config_defaults as d
+from style_transfer_visualizer_tpu_torch.constants import (
+    VIDEO_QUALITY_MAX,
+    VIDEO_QUALITY_MIN,
+)
 from style_transfer_visualizer_tpu_torch.type_defs import (
     DirectionName,
     HistoryDtypeName,
     InitMethod,
+    VideoMode,
 )
 
 
@@ -92,11 +97,59 @@ class HardwareConfig:
 
 
 @dataclass
+class VideoConfig:
+    """Timelapse video/GIF output settings."""
+
+    save_every: int = d.DEFAULT_SAVE_EVERY
+    fps: int = d.DEFAULT_FPS
+    quality: int = d.DEFAULT_VIDEO_QUALITY
+    create_video: bool = d.DEFAULT_CREATE_VIDEO
+    final_only: bool = d.DEFAULT_FINAL_ONLY
+    intro_enabled: bool = d.DEFAULT_VIDEO_INTRO_ENABLED
+    intro_duration_seconds: float = d.DEFAULT_VIDEO_INTRO_DURATION
+    metadata_title: str | None = None
+    metadata_artist: str | None = None
+    final_frame_compare: bool = d.DEFAULT_VIDEO_FINAL_FRAME_COMPARE
+    outro_duration_seconds: float = d.DEFAULT_VIDEO_OUTRO_DURATION
+    mode: VideoMode = d.DEFAULT_VIDEO_MODE
+    create_gif: bool = d.DEFAULT_CREATE_GIF
+    gif_include_intro: bool = d.DEFAULT_GIF_INCLUDE_INTRO
+    gif_include_outro: bool = d.DEFAULT_GIF_INCLUDE_OUTRO
+    # Set when the user picked the mode explicitly, which disables the
+    # auto realtime->postprocess promotion heuristic.
+    mode_override: bool = field(default=False, repr=False)
+
+    def __post_init__(self) -> None:
+        self.validate()
+
+    def validate(self) -> None:
+        """Raise ``ValueError`` on a value outside its bounds."""
+        _check(self.save_every >= 1, "save_every must be >= 1")
+        _check(1 <= self.fps <= 60, "fps must be in [1, 60]")  # noqa: PLR2004
+        _check(
+            VIDEO_QUALITY_MIN <= self.quality <= VIDEO_QUALITY_MAX,
+            f"quality must be in [{VIDEO_QUALITY_MIN}, "
+            f"{VIDEO_QUALITY_MAX}]",
+        )
+        _check(
+            self.intro_duration_seconds >= 0,
+            "intro_duration_seconds must be >= 0",
+        )
+        _check(
+            self.outro_duration_seconds >= 0,
+            "outro_duration_seconds must be >= 0",
+        )
+        _check_choice("mode", self.mode, VideoMode)
+
+
+@dataclass
 class OutputConfig:
-    """Output directory and loss-logging cadence."""
+    """Output directory, loss-logging cadence, CSV and plot."""
 
     output: str = d.DEFAULT_OUTPUT_DIR
     log_every: int = d.DEFAULT_LOG_EVERY
+    log_loss: str | None = None
+    plot_losses: bool = True
 
     def __post_init__(self) -> None:
         self.validate()
@@ -114,9 +167,11 @@ class StyleTransferConfig:
     optimization: OptimizationConfig = field(
         default_factory=OptimizationConfig,
     )
+    video: VideoConfig = field(default_factory=VideoConfig)
     hardware: HardwareConfig = field(default_factory=HardwareConfig)
 
     def validate(self) -> None:
         """Check every section's bounds."""
         self.output.validate()
         self.optimization.validate()
+        self.video.validate()

@@ -9,11 +9,12 @@ from style_transfer_visualizer_tpu_torch.type_defs import (
     DirectionName,
     HistoryDtypeName,
     InitMethod,
+    VideoMode,
 )
 
 # --- Output ---------------------------------------------------------------
 DEFAULT_OUTPUT_DIR = "out"
-# Host-sync cadence for loss scalars.
+# Host-sync cadence for loss scalars (and CSV row cadence).
 DEFAULT_LOG_EVERY = 10
 
 # --- Hardware ---------------------------------------------------------
@@ -38,3 +39,18 @@ DEFAULT_CONTENT_LAYERS: tuple[int, ...] = (21,)
 DEFAULT_LBFGS_HISTORY_SIZE = 100
 DEFAULT_LBFGS_HISTORY_DTYPE: HistoryDtypeName = "bfloat16"
 DEFAULT_LBFGS_DIRECTION: DirectionName = "compact"
+
+# --- Video ------------------------------------------------------------
+DEFAULT_CREATE_VIDEO = True
+DEFAULT_VIDEO_MODE: VideoMode = "realtime"
+DEFAULT_SAVE_EVERY = 20
+DEFAULT_FPS = 10
+DEFAULT_VIDEO_QUALITY = 10
+DEFAULT_FINAL_ONLY = False
+DEFAULT_VIDEO_INTRO_ENABLED = True
+DEFAULT_VIDEO_INTRO_DURATION = 10.0
+DEFAULT_VIDEO_OUTRO_DURATION = 10.0
+DEFAULT_VIDEO_FINAL_FRAME_COMPARE = True
+DEFAULT_CREATE_GIF = False
+DEFAULT_GIF_INCLUDE_INTRO = False
+DEFAULT_GIF_INCLUDE_OUTRO = False

@@ -19,4 +19,21 @@ GRAM_MATRIX_CLAMP_MAX = 5e5
 MIN_DIMENSION = 64       # hard error below this
 MAX_DIMENSION = 3000     # soft warning above this
 
+# --- Video encoding ---------------------------------------------------
+VIDEO_CODEC = "libx264"
+ENCODING_BLOCK_SIZE = 16         # output dims padded to this macroblock size
+VIDEO_QUALITY_MIN = 1
+VIDEO_QUALITY_MAX = 10
+
+# --- Palette ----------------------------------------------------------
 COLOR_MODE_RGB = "RGB"
+COLOR_BLACK = (0, 0, 0)
+COLOR_WHITE = (255, 255, 255)
+COLOR_BEIGE = (240, 236, 226)
+COLOR_GREY = (60, 67, 74)
+
+# --- Loss logging -----------------------------------------------------
+CSV_LOGGING_RECOMMENDED_STEPS = 2000
+
+# --- Canvas -----------------------------------------------------------
+RESOLUTION_FULL_HD = (1920, 1080)

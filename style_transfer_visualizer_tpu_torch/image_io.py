@@ -10,6 +10,7 @@ files, so the rest of the port runs where Pillow is absent.
 """
 from __future__ import annotations
 
+from functools import cache
 from typing import TYPE_CHECKING
 
 import numpy as np
@@ -29,8 +30,20 @@ if TYPE_CHECKING:
 
 
 def _stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+    return _stats_on(x.dtype, x.device)
+
+
+@cache
+def _stats_on(
+    dtype: torch.dtype, device: torch.device,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ImageNet statistics on ``device``, made once per device.
+
+    Making them per call would copy from pageable host memory, which
+    waits for the device's stream: the timelapse frame path must not.
+    """
+    mean = torch.tensor(IMAGENET_MEAN, dtype=dtype, device=device)
+    std = torch.tensor(IMAGENET_STD, dtype=dtype, device=device)
     return mean, std
 
 
@@ -110,6 +123,16 @@ def pack_uint8_frame(x: torch.Tensor) -> torch.Tensor:
     """
     frame = torch.round(x[0] * 255.0)
     return torch.clamp(frame, 0, 255).to(torch.uint8)
+
+
+def array_to_uint8_frame(
+    x: torch.Tensor,
+    *,
+    normalize: bool,
+) -> np.ndarray:
+    """Produce a host-side HWC uint8 frame from a working image tensor."""
+    prepared = prepare_image_for_output(x, normalize=normalize)
+    return pack_uint8_frame(prepared).cpu().numpy()
 
 
 def save_array_as_image(x: torch.Tensor, path: str | Path) -> None:

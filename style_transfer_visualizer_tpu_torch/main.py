@@ -1,22 +1,38 @@
-"""Entry points of the port: files in, stylized PNG out.
+"""Entry points of the port: files in, stylized PNG and timelapse out.
 
-:func:`style_transfer` loads the two image files, runs the array-level
-core :func:`run_style_transfer` and saves the final PNG (final-only:
-no timelapse). The core loads the weights, computes the targets,
-builds the L-BFGS step, initializes the image, runs the step loop and
-returns the final image in [0, 1] with the loss history. Both run on
-``config.hardware.device``, CUDA unless the caller asks for the CPU.
+The port of the JAX package's ``main.py`` for the single-style run:
+
+- :func:`style_transfer` validates the inputs, applies the final-only
+  cascade, loads the two image files, picks the video mode, prepares
+  the model and the starting image, and hands the step loop to
+  :func:`run_with_artifacts`;
+- :func:`run_with_artifacts` owns the artifact contract: the timelapse
+  MP4 and GIF sinks with the intro and outro gallery segments, the loss
+  CSV or in-memory history feeding the loss plot, and the final PNG,
+  which is saved even when a sink fails to close (every sink is closed,
+  the PNG is saved, then the first close error is raised);
+- :func:`run_style_transfer` is the array-level core without media:
+  arrays in, final image and loss history out.
+
+All run on ``config.hardware.device``, CUDA unless the caller asks for
+the CPU.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from pathlib import Path
 from typing import TYPE_CHECKING
+
+import numpy as np
 
 from style_transfer_visualizer_tpu_torch import image_io
 from style_transfer_visualizer_tpu_torch.engine.runner import (
     OptimizationRunner,
+    SilentProgress,
 )
 from style_transfer_visualizer_tpu_torch.engine.step import build_update_step
+from style_transfer_visualizer_tpu_torch.media import encode, segments
+from style_transfer_visualizer_tpu_torch.media.modes import select_video_mode
 from style_transfer_visualizer_tpu_torch.models.features import (
     compute_targets,
     initialize_input,
@@ -29,43 +45,51 @@ from style_transfer_visualizer_tpu_torch.runtime.device import (
     setup_random_seed,
 )
 from style_transfer_visualizer_tpu_torch.runtime.output import (
-    save_final_image,
+    save_outputs,
     setup_output_directory,
-    stylized_image_path_from_paths,
+    stylized_image_path_from_names,
 )
+from style_transfer_visualizer_tpu_torch.runtime.validation import (
+    validate_input_paths,
+    validate_parameters,
+)
+from style_transfer_visualizer_tpu_torch.type_defs import SaveOptions
+from style_transfer_visualizer_tpu_torch.utils.logging import logger
 
 if TYPE_CHECKING:
-    import numpy as np
     import torch
 
     from style_transfer_visualizer_tpu_torch.config import (
         StyleTransferConfig,
+        VideoConfig,
     )
+    from style_transfer_visualizer_tpu_torch.engine.runner import (
+        ProgressReporter,
+    )
+    from style_transfer_visualizer_tpu_torch.engine.step import StepBundle
+    from style_transfer_visualizer_tpu_torch.media.sinks import (
+        VideoFrameSink,
+    )
+    from style_transfer_visualizer_tpu_torch.models.vgg19 import Params
     from style_transfer_visualizer_tpu_torch.type_defs import (
         InputPaths,
         LossHistory,
     )
 
 
-def run_style_transfer(
+def prepare_model_and_input(
     content: np.ndarray,
     style: np.ndarray,
     config: StyleTransferConfig,
-) -> tuple[torch.Tensor, LossHistory]:
-    """Stylize ``content`` with ``style``; both (1, H, W, 3) in [0, 1].
+    *,
+    params: Params | None = None,
+) -> tuple[StepBundle, torch.Tensor]:
+    """Weights, targets, the L-BFGS step and the starting image.
 
-    Returns the final (1, H, W, 3) image in [0, 1] on the run's device
-    and the per-step loss history.
+    ``content`` and ``style`` are (1, H, W, 3) host arrays in [0, 1].
+    ``params`` reuses weights already on the run's device; by default
+    they are loaded (or made from the seed).
     """
-    image, history, _ = _run(content, style, config)
-    return image, history
-
-
-def _run(
-    content: np.ndarray,
-    style: np.ndarray,
-    config: StyleTransferConfig,
-) -> tuple[torch.Tensor, LossHistory, float]:
     config.validate()
     opt = config.optimization
     device = setup_device(config.hardware.device)
@@ -76,9 +100,10 @@ def _run(
     style_img = image_io.host_array_to_device(
         style, device, normalize=opt.normalize,
     )
-    params = load_pretrained_params(
-        device, allow_random=opt.allow_random_weights, seed=opt.seed,
-    )
+    if params is None:
+        params = load_pretrained_params(
+            device, allow_random=opt.allow_random_weights, seed=opt.seed,
+        )
     targets = compute_targets(
         params, style_img, content_img,
         tuple(opt.style_layers), tuple(opt.content_layers),
@@ -99,28 +124,263 @@ def _run(
         lbfgs_direction=opt.lbfgs_direction,
     )
     input_img = initialize_input(content_img, opt.init_method, generator)
-    image, history, elapsed = OptimizationRunner(
-        bundle, input_img, config,
+    return bundle, input_img
+
+
+def run_style_transfer(
+    content: np.ndarray,
+    style: np.ndarray,
+    config: StyleTransferConfig,
+) -> tuple[torch.Tensor, LossHistory]:
+    """Stylize ``content`` with ``style``; both (1, H, W, 3) in [0, 1].
+
+    Returns the final (1, H, W, 3) image in [0, 1] on the run's device
+    and the loss history (``{}`` when a loss CSV owns the series). No
+    media and no progress bar: frames, plot and PNG belong to
+    :func:`style_transfer`.
+    """
+    bundle, input_img = prepare_model_and_input(content, style, config)
+    image, history, _ = OptimizationRunner(
+        bundle.update_fn, bundle.opt_state, input_img, config,
+        progress_bar=SilentProgress(),
+        chunked_update_fn=bundle.chunked_update_fn,
     ).run()
-    final = image_io.prepare_image_for_output(image, normalize=opt.normalize)
-    return final, history, elapsed
+    final = image_io.prepare_image_for_output(
+        image, normalize=config.optimization.normalize,
+    )
+    return final, history
 
 
 def style_transfer(
     paths: InputPaths,
     config: StyleTransferConfig,
+    *,
+    progress_bar: ProgressReporter | None = None,
 ) -> torch.Tensor:
-    """Run the pipeline on two image files; return the final image.
+    """Run the full pipeline on two image files; return the final image.
 
-    The final PNG goes to ``config.output.output`` under the canonical
-    ``stylized_{content}_x_{style}.png`` name.
+    The final image is (1, H, W, 3) in [0, 1] on the run's device. The
+    final PNG, the timelapse MP4/GIF, the loss CSV or plot go to
+    ``config.output.output`` under the JAX package's names.
     """
+    validate_input_paths(paths.content_path, paths.style_path)
+    validate_parameters(config.video.quality)
+
+    # Final-only mode disables all timelapse outputs.
+    if config.video.final_only:
+        config.video.create_video = False
+        config.video.create_gif = False
+        config.video.save_every = config.optimization.steps + 1
+
     content = image_io.load_image_to_host_array(paths.content_path)
     style = image_io.load_image_to_host_array(paths.style_path)
-    image, _, elapsed = _run(content, style, config)
-    output_dir = setup_output_directory(config.output.output)
-    final_path = stylized_image_path_from_paths(
-        output_dir, Path(paths.content_path), Path(paths.style_path),
+
+    if config.video.create_video:
+        height, width = content.shape[1:3]
+        effective_mode, reason, frame_estimate = select_video_mode(
+            config.video,
+            frame_size=(int(width), int(height)),
+            total_steps=config.optimization.steps,
+        )
+        config.video.mode = effective_mode
+        if reason is not None:
+            logger.info(
+                "Auto-selected postprocess video mode (%s). "
+                "Estimated frames: %d.",
+                reason, frame_estimate,
+            )
+
+    bundle, input_img = prepare_model_and_input(content, style, config)
+    result = run_with_artifacts(
+        bundle.update_fn,
+        bundle.chunked_update_fn,
+        bundle.opt_state,
+        input_img,
+        config,
+        content_path=Path(paths.content_path),
+        style_path=Path(paths.style_path),
+        progress_bar=progress_bar,
     )
-    save_final_image(image, final_path, elapsed)
-    return image
+    return result.image
+
+
+@dataclass(slots=True)
+class ArtifactRunResult:
+    """What the artifact-contract loop hands back to its caller."""
+
+    #: Prepared final image in [0, 1].
+    image: torch.Tensor
+    #: Path of the saved final PNG.
+    final_path: Path
+    #: Exported loss history (empty when CSV logging owned the series).
+    loss_history: LossHistory
+    #: Optimization wall-clock seconds.
+    elapsed: float
+    #: Last host-synced total loss (NaN when no row ever synced).
+    final_total_loss: float
+
+
+def run_with_artifacts(
+    update_fn,
+    chunked_update_fn,
+    opt_state,
+    input_img: torch.Tensor,
+    config: StyleTransferConfig,
+    *,
+    content_path: Path,
+    style_path: Path,
+    progress_bar: ProgressReporter | None = None,
+) -> ArtifactRunResult:
+    """Drive a prepared update loop with the full artifact contract.
+
+    Timelapse MP4/GIF sinks with intro/outro gallery segments, the loss
+    CSV or in-memory history feeding the loss plot, artifact survival on
+    sink failure, and the final PNG. The input stems name the
+    artifacts (``stylized_{content}_x_{style}.png``,
+    ``timelapse_{content}_x_{style}.mp4``); ``content_path`` and
+    ``style_path`` also feed the intro/outro gallery panels.
+    """
+    opt_cfg = config.optimization
+    output_path = setup_output_directory(config.output.output)
+    content_name = content_path.stem
+    style_name = style_path.stem
+    video_name = f"timelapse_{content_name}_x_{style_name}.mp4"
+    gif_name = f"timelapse_{content_name}_x_{style_name}.gif"
+
+    video_writer = encode.setup_video_writer(
+        config.video, output_path, video_name,
+    )
+    gif_collector = encode.setup_gif_collector(
+        config.video, output_path, gif_name,
+    )
+    gif_segment_options = segments.GifSegmentOptions(
+        sink=gif_collector,
+        include_intro=config.video.gif_include_intro,
+        include_outro=config.video.gif_include_outro,
+    )
+
+    intro_last_frame = None
+    intro_crossfade_frames = 0
+    gif_intro_requested = (
+        gif_collector is not None and config.video.gif_include_intro
+    )
+    if video_writer is not None or gif_intro_requested:
+        intro_info = segments.prepare_intro_segment(
+            config.video,
+            video_writer,
+            (content_path, style_path),
+            gif_options=gif_segment_options,
+        )
+        if intro_info is not None:
+            intro_last_frame, intro_crossfade_frames = intro_info
+
+    runner = OptimizationRunner(
+        update_fn,
+        opt_state,
+        input_img,
+        config,
+        progress_bar=progress_bar,
+        video_writer=video_writer,
+        gif_collector=gif_collector,
+        intro_last_frame=intro_last_frame,
+        intro_crossfade_frames=intro_crossfade_frames,
+        chunked_update_fn=chunked_update_fn,
+    )
+    # The optimized image must survive late media failures: every sink
+    # is closed even when one fails, and the final PNG is saved before
+    # any close error is re-raised. Close errors are kept per sink so a
+    # failed GIF encode does not mislabel a fine MP4 (or vice versa).
+    close_errors: dict[str, Exception] = {}
+    try:
+        input_img, loss_metrics, elapsed = runner.run()
+        _maybe_append_final_segments(
+            config.video,
+            video_writer,
+            gif_segment_options,
+            content_path,
+            style_path,
+            input_img,
+            normalize=opt_cfg.normalize,
+        )
+    finally:
+        for sink_name, sink in (
+            ("video", video_writer),
+            ("gif", gif_collector),
+        ):
+            if not sink:
+                continue
+            try:
+                sink.close()
+            except Exception as exc:  # noqa: BLE001
+                logger.error(
+                    "Error closing %s media sink: %s", sink_name, exc,
+                )
+                close_errors[sink_name] = exc
+
+    save_opts = SaveOptions(
+        content_name=content_name,
+        style_name=style_name,
+        video_name=video_name if video_writer else None,
+        gif_name=gif_name if gif_collector else None,
+        normalize=opt_cfg.normalize,
+        video_created=video_writer is not None
+        and "video" not in close_errors,
+        gif_created=gif_collector is not None and "gif" not in close_errors,
+        plot_losses=config.output.plot_losses,
+    )
+    save_outputs(input_img, loss_metrics, output_path, elapsed, save_opts)
+    if close_errors:
+        raise next(iter(close_errors.values()))
+
+    if loss_metrics.get("total_loss"):
+        final_total = float(loss_metrics["total_loss"][-1])
+    elif runner.latest_logged is not None:
+        final_total = runner.latest_logged.total_loss
+    else:
+        final_total = float("nan")
+    final_path = stylized_image_path_from_names(
+        output_path, content_name, style_name,
+    )
+    return ArtifactRunResult(
+        image=image_io.prepare_image_for_output(
+            input_img, normalize=opt_cfg.normalize,
+        ),
+        final_path=final_path,
+        loss_history=loss_metrics,
+        elapsed=elapsed,
+        final_total_loss=final_total,
+    )
+
+
+def _maybe_append_final_segments(
+    video_config: VideoConfig,
+    video_writer: VideoFrameSink | None,
+    gif_options: segments.GifSegmentOptions | None,
+    content_path: Path,
+    style_path: Path,
+    input_img: torch.Tensor,
+    *,
+    normalize: bool,
+) -> None:
+    """Append outro comparison frames to active sinks when configured."""
+    gif_outro_requested = bool(
+        gif_options and gif_options.sink and gif_options.include_outro,
+    )
+    if not video_config.final_frame_compare:
+        return
+    if video_writer is None and not gif_outro_requested:
+        return
+
+    final_frame = np.ascontiguousarray(
+        image_io.array_to_uint8_frame(input_img, normalize=normalize),
+    )
+    kwargs = {}
+    if gif_options is not None and gif_options.sink is not None:
+        kwargs["gif_options"] = gif_options
+    segments.append_final_comparison_frame(
+        video_config,
+        video_writer,
+        (content_path, style_path),
+        final_frame,
+        **kwargs,
+    )

@@ -17,6 +17,12 @@ HistoryDtypeName = Literal["float32", "bfloat16"]
 #: L-BFGS direction computation.
 DirectionName = Literal["two-loop", "compact"]
 
+#: Gallery-wall arrangements rendered by the compositing subsystem.
+LayoutName = Literal["gallery-stacked-left", "gallery-two-across"]
+
+#: Encoding strategy: stream frames live, or spill and encode at the end.
+VideoMode = Literal["realtime", "postprocess"]
+
 #: Loss-series mapping produced by the runner for plotting.
 LossHistory = dict[str, list[float]]
 
@@ -29,3 +35,25 @@ class InputPaths:
     content_path: str
     #: Path to the style image file.
     style_path: str
+
+
+@dataclass(slots=True)
+class SaveOptions:
+    """Everything the final persistence step needs to know."""
+
+    #: Stem of the content image (drives canonical output names).
+    content_name: str
+    #: Stem of the style image.
+    style_name: str
+    #: Timelapse MP4 filename, when a video sink was active.
+    video_name: str | None = None
+    #: GIF filename, when GIF export was active.
+    gif_name: str | None = None
+    #: Whether the working image is in ImageNet-normalized space.
+    normalize: bool = True
+    #: Whether an MP4 was produced (controls the saved-video log line).
+    video_created: bool = True
+    #: Whether a GIF was produced.
+    gif_created: bool = False
+    #: Whether to render the matplotlib loss plot.
+    plot_losses: bool = True

@@ -2,8 +2,8 @@
 
 The port stands alone: it imports neither JAX nor the JAX package (not
 even that package's JAX-free modules), and it imports Pillow, pydantic,
-tqdm and imageio only inside functions, since the machine with the
-card is not known to have them. The docstring, line-length and
+tqdm, imageio and matplotlib only inside functions, since the machine
+with the card is not known to have them. The docstring, line-length and
 exception checks of ``tests/test_code_quality.py`` apply here too.
 """
 from __future__ import annotations
@@ -19,7 +19,7 @@ PACKAGE = ROOT / "style_transfer_visualizer_tpu_torch"
 CHIP_SMOKE = ROOT / "chip_smoke.py"
 MAX_LINE = 79
 _JAX_PACKAGE = re.compile(r"^style_transfer_visualizer_tpu(\.|$)")
-_FUNCTION_ONLY = {"PIL", "pydantic", "tqdm", "imageio"}
+_FUNCTION_ONLY = {"PIL", "pydantic", "tqdm", "imageio", "matplotlib"}
 
 
 def _package_sources() -> list[Path]:

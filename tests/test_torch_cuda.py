@@ -1,4 +1,4 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels and frame stream, on the card.
 
 Marked ``cuda``: each test skips where no CUDA device is present (it is
 decided inside the fixture, never at import). On a machine with a card
@@ -13,7 +13,9 @@ reach the kernels' bounds checks, and both ways of loading A (TMA when
 C_in is a multiple of 32, gathered otherwise). Tolerance: float32,
 max-abs error 1e-4 relative to the reference's largest magnitude (the
 kernels compute 3xTF32, about 21 mantissa bits, and sum in another
-order). cuDNN's TF32 is off for the plain conv.
+order). cuDNN's TF32 is off for the plain conv. The frame stream's
+pinned-buffer path delivers every frame, in order, into arrays of its
+own (bit-equal).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 from style_transfer_visualizer_tpu_torch.constants import (
     GRAM_MATRIX_CLAMP_MAX,
 )
+from style_transfer_visualizer_tpu_torch.media.stream import AsyncFrameStream
 from style_transfer_visualizer_tpu_torch.models.vgg19 import (
     flip_stencil,
     pack_stencil,
@@ -125,3 +128,44 @@ def test_wrappers_reject_non_contiguous_input(cuda) -> None:
         conv3x3.conv3x3_kernel(x, pack_stencil(w9), None, False)
     with pytest.raises(ValueError, match="contiguous"):
         gram.gram_kernel(_rand(10, 8, 16).T, GRAM_MATRIX_CLAMP_MAX, 1.0)
+
+
+def test_stream_pinned_path_on_the_card(cuda) -> None:
+    stream = AsyncFrameStream(max_queue=2)
+    got: list[np.ndarray] = []
+    src = torch.arange(64 * 48 * 3, device=cuda).reshape(64, 48, 3)
+    for i in range(12):
+        stream.submit(((src + i) % 256).to(torch.uint8), got.append)
+    stream.close()
+    assert stream._pool is not None  # noqa: SLF001
+    assert stream._pool.shape == (64, 48, 3)  # noqa: SLF001
+    want = src.cpu().numpy()
+    for i, frame in enumerate(got):
+        np.testing.assert_array_equal(
+            frame, ((want + i) % 256).astype(np.uint8),
+        )
+    assert len({id(f) for f in got}) == 12
+
+
+def test_stream_batches_on_the_card(cuda) -> None:
+    stream = AsyncFrameStream()  # batches of 4, 9 pinned buffers
+    got: list[tuple[int, np.ndarray]] = []
+    src = torch.arange(32 * 16 * 3, device=cuda).reshape(32, 16, 3)
+    for i in range(20):
+        stream.submit(
+            ((src + i) % 256).to(torch.uint8),
+            lambda f, i=i: got.append((i, f)),
+        )
+        if i == 12:
+            stream.drain()  # delivers the staged frames too
+            assert [j for j, _ in got] == list(range(13))
+    stream.close()
+    assert [i for i, _ in got] == list(range(20))
+    want = src.cpu().numpy()
+    for i, frame in got:
+        np.testing.assert_array_equal(
+            frame, ((want + i) % 256).astype(np.uint8),
+        )
+        assert frame.flags.writeable
+    got[0][1][:] = 0  # a sink's write reaches no other frame
+    assert all(f.any() for _, f in got[1:])

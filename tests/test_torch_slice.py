@@ -32,6 +32,7 @@ from style_transfer_visualizer_tpu_torch.config import (
     OptimizationConfig,
     OutputConfig,
     StyleTransferConfig,
+    VideoConfig,
 )
 from style_transfer_visualizer_tpu_torch.engine import optimizers
 from style_transfer_visualizer_tpu_torch.engine.step import build_update_step
@@ -198,6 +199,8 @@ def _cpu_config(tmp_path, steps: int, init: str = "random"):
         optimization=OptimizationConfig(
             steps=steps, allow_random_weights=True, init_method=init,
         ),
+        # No MP4: the CPU test machine has no ffmpeg.
+        video=VideoConfig(create_video=False),
         hardware=HardwareConfig(device="cpu"),
     )
 
