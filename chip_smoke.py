@@ -12,13 +12,17 @@ exits non-zero:
    (``wgmma`` on the tensor cores) from ``cuobjdump -sass`` where the
    toolkit has it;
 3. conv check: the conv kernel against its plain PyTorch version at
-   every conv shape of the 512x512 main path (forward fused and
-   unfused, the fused-mask input gradient against the plain masked
-   version, the autograd input gradient against cuDNN's, and a batch
-   of 2), max-abs error relative to the reference's largest magnitude
-   <= 1e-4, with times;
-4. Gram check: the same at the five Gram shapes, forward and backward,
-   with and without an active clamp;
+   every conv shape of the 512x512 main path and of the objective
+   phase's 1024x1024 steps (forward fused and unfused, the fused-mask
+   input gradient against the plain masked version, the autograd input
+   gradient against cuDNN's), max-abs error relative to the reference's
+   largest magnitude <= 1e-4, with times; checked only: a batch of 2,
+   and VGG19's stack at a 528x960 coarse level (a 1080x1920 content's;
+   widths that are not powers of two). VGG16's 512x512 shapes are
+   confirmed to be among the checked ones;
+4. Gram check: the same at the five Gram shapes of each size (P up to
+   1,048,576 at 1024x1024), forward and backward, with and without an
+   active clamp;
 5. main path: ``run_style_transfer`` at 512x512 on full-width VGG19
    (seeded weights, shipped defaults) for 20 L-BFGS steps through the
    port's runner (no progress bar), with the launch counts set to 0
@@ -36,9 +40,23 @@ exits non-zero:
    video defaults (realtime MP4, intro, outro) with ``save_every=2`` on
    512x512 PNGs, with the MP4's size and frame count; otherwise the
    line says which is missing;
-7. a 64x64 run held against the same run on the CPU (plain versions).
+7. objective: ``run_style_transfer`` at 1024x1024 on full-width VGG19,
+   two styles blended 0.7/0.3, TV and Laplacian terms, per-layer style
+   weights, ``preserve_color="luminance"``, 20 L-BFGS steps with the
+   auto warm start (4 steps at 512x512 first): the warm start ran (its
+   log lines), finite and decreasing losses, launch counts equal to
+   those worked out from the code (``_launches_wanted``), the output's
+   chrominance equal to the content's where nothing is clipped;
+   ms/step at full size and the peak memory;
+8. Adam on full-width VGG16 at 512x512, 20 steps: launches, a loss
+   that decreases, finite output, ms/step;
+9. a 64x64 run held against the same run on the CPU (plain versions),
+   then the same for Adam with every term above and a 2-step warm
+   start at 32x32.
 
-The line before the card line is the kernels' JSON record; the last
+The line before the card line is the kernels' JSON record (each
+kernel's launches in each driven path, and its times summed over a
+step at 512x512 and, under ``at_1024``, at 1024x1024); the last
 line is the run's JSON verdict. Times come from CUDA events around
 replays of CUDA graphs of back-to-back calls on this run's card (device
 time; host launch overhead excluded for every version alike). Both
@@ -52,6 +70,7 @@ from __future__ import annotations
 import gc
 import importlib.util
 import json
+import logging
 import re
 import shutil
 import statistics
@@ -76,6 +95,7 @@ from style_transfer_visualizer_tpu_torch.config import (
 from style_transfer_visualizer_tpu_torch.constants import (
     GRAM_MATRIX_CLAMP_MAX as CLAMP,
 )
+from style_transfer_visualizer_tpu_torch.engine.coarse import plan_pyramid
 from style_transfer_visualizer_tpu_torch.engine.runner import (
     OptimizationCallbacks,
     OptimizationRunner,
@@ -86,14 +106,17 @@ from style_transfer_visualizer_tpu_torch.main import (
     style_transfer,
 )
 from style_transfer_visualizer_tpu_torch.media import segments
+from style_transfer_visualizer_tpu_torch.models.arch import VGG16, VGG19
 from style_transfer_visualizer_tpu_torch.models.vgg19 import (
     flip_stencil,
     load_pretrained_params,
     pack_stencil,
 )
 from style_transfer_visualizer_tpu_torch.native import build
+from style_transfer_visualizer_tpu_torch.ops.color import RGB_TO_YIQ
 from style_transfer_visualizer_tpu_torch.ops import conv3x3, gram
 from style_transfer_visualizer_tpu_torch.type_defs import InputPaths
+from style_transfer_visualizer_tpu_torch.utils.logging import logger
 
 PACKAGE = "style_transfer_visualizer_tpu_torch"
 FP32_FLOPS = 67e12
@@ -101,6 +124,9 @@ TF32X3_FLOPS = 495e12 / 3
 HBM_BYTES = 3.35e12
 CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"
 TOL = 1e-4
+# YIQ chrominance of a luminance-restored output against the content's,
+# where no channel is clipped: float32 matrices, float64 check.
+CHROMA_TOL = 1e-5
 STEPS = 20
 LOG_EVERY = 10
 TIMELAPSE_ROUNDS = 16
@@ -119,6 +145,14 @@ CONV_SHAPES = [
 GRAM_SHAPES = [
     (262144, 64), (65536, 128), (16384, 256), (4096, 512), (1024, 512),
 ]
+# The objective phase: 1024x1024 content, whose auto warm start runs a
+# 512x512 level first (the main path's shapes); then the same taps at
+# twice the side. VGG16's stack at 512x512 has the main path's width
+# pairs (fewer repeats), checked by ``_vgg16_shapes_covered``. A
+# 1080x1920 content's coarse level, 528x960 (a width that is not a
+# power of two), is checked through the whole VGG19 stack.
+OBJECTIVE_SIZE = 1024
+NON_SQUARE = (528, 960)
 
 
 def _card() -> str:
@@ -230,38 +264,94 @@ class Record:
         self.entry["plain_ms"] += count * plain_ms
         self.entry["library_ms"] += count * library_ms
 
-    def finish(self, launches: int) -> dict:
-        """The JSON entry, with this run's main-path launch count."""
-        out = dict(self.entry, launches=launches)
-        out["bound_ms"] = self.bound_s * 1e3
-        out["bound_by"] = (
-            "operations" if self.ops_s >= self.bytes_s else "bytes"
+    def finish(self, launches: dict[str, int], at_1024: Record) -> dict:
+        """The JSON entry: the main path's launches and per-step sums.
+
+        ``launches`` maps each driven path to its launch count; the
+        main path's is the entry's ``launches``. ``at_1024`` holds the
+        same sums over a step of the objective phase at full size.
+        """
+        out = dict(
+            self.entry, launches=launches["main path"],
+            launches_by_phase=launches,
         )
-        out["fp32_bound_ms"] = self.fp32_bound_s * 1e3
+        out.update(self._bounds())
+        out["at_1024"] = {
+            k: at_1024.entry[k] for k in ("ms", "plain_ms", "library_ms")
+        } | at_1024._bounds()  # noqa: SLF001 - same class
         return out
+
+    def _bounds(self) -> dict:
+        return {
+            "bound_ms": self.bound_s * 1e3,
+            "bound_by": (
+                "operations" if self.ops_s >= self.bytes_s else "bytes"
+            ),
+            "fp32_bound_ms": self.fp32_bound_s * 1e3,
+        }
 
 
 def _bound_ms(flops: float, nbytes: float) -> float:
     return max(flops / TF32X3_FLOPS, nbytes / HBM_BYTES) * 1e3
 
 
-def _check_conv(rec: Record) -> None:
+def _conv_cases(rec: Record, rec_1024: Record):
+    """``(n, h, w, C_in, C_out, per step, of which fused, record)``.
+
+    The main path's shapes and twice their side (the objective phase
+    at full size) are timed into ``rec`` and ``rec_1024``; a batch of 2
+    and the 528x960 coarse level's stack are checked only.
+    """
+    cases = [
+        (1, hw, hw, ci, co, n, f, rec) for hw, ci, co, n, f in CONV_SHAPES
+    ]
+    cases += [
+        (1, 2 * hw, 2 * hw, ci, co, n, f, rec_1024)
+        for hw, ci, co, n, f in CONV_SHAPES
+    ]
+    cases.append((2, 64, 64, 128, 128, 0, 0, None))
+    h, w = NON_SQUARE
+    for hw, ci, co, _, _ in CONV_SHAPES:
+        scale = SIZE // hw
+        cases.append((1, h // scale, w // scale, ci, co, 0, 0, None))
+    return cases
+
+
+def _vgg16_shapes_covered() -> None:
+    """VGG16's conv shapes at 512x512 are among the checked ones."""
+    table = VGG16.layer_table
+    last = max(VGG16.default_style_layers + VGG16.default_content_layers)
+    pools = 0
+    shapes = set()
+    for idx in range(last + 1):
+        kind, ci, co = table[idx]
+        if kind == "pool":
+            pools += 1
+        elif kind == "conv":
+            shapes.add((SIZE >> pools, ci, co))
+    checked = {(hw, ci, co) for hw, ci, co, _, _ in CONV_SHAPES}
+    if not shapes <= checked:
+        msg = f"VGG16 conv shapes not checked: {sorted(shapes - checked)}"
+        raise AssertionError(msg)
+    print(f"conv vgg16 {SIZE}x{SIZE}: its {len(shapes)} shapes are checked")
+
+
+def _check_conv(rec: Record, rec_1024: Record) -> None:
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = [(1, *s) for s in CONV_SHAPES] + [(2, 64, 128, 128, 0, 0)]
-    for n, hw, ci, co, count, fused in cases:
+    for n, h, w, ci, co, count, fused, into in _conv_cases(rec, rec_1024):
         def rand(*shape, scale=1.0):
             return torch.randn(
                 shape, generator=gen, device="cuda",
             ) * scale
 
-        x = rand(n, hw, hw, ci)
+        x = rand(n, h, w, ci)
         w9 = rand(9, ci, co, scale=(2.0 / (9 * ci)) ** 0.5)
         b = rand(co, scale=0.1)
-        g = rand(n, hw, hw, co)
+        g = rand(n, h, w, co)
         w9f = flip_stencil(w9)
         wk, wkf = pack_stencil(w9), pack_stencil(w9f)
         w_oihw = w9.reshape(3, 3, ci, co).permute(3, 2, 0, 1).contiguous()
-        label = f"{n}x{hw}x{hw} {ci}->{co}"
+        label = f"{n}x{h}x{w} {ci}->{co}"
         for relu in (True, False):
             rec.err(
                 conv3x3.conv3x3_kernel(x, wk, b, relu),
@@ -286,7 +376,7 @@ def _check_conv(rec: Record) -> None:
         ref.backward((g * (out.detach() > 0)).permute(0, 3, 1, 2))
         rec.err(xk.grad, xr.grad, f"{label} input gradient")
         if not count:
-            print(f"conv {label}: ok (batch check)")
+            print(f"conv {label}: ok (check only)")
             continue
         out = out.detach()
         x_nchw = x.permute(0, 3, 1, 2)
@@ -297,10 +387,10 @@ def _check_conv(rec: Record) -> None:
             partial(conv3x3.conv3x3_plain, x, w9, b, True),
             partial(F.conv2d, x_nchw, w_oihw, b, padding=1),
         )
-        pix = n * hw * hw
+        pix = n * h * w
         flops = 2.0 * 9 * pix * ci * co
         nbytes = 4.0 * (pix * (ci + co) + 9 * ci * co)
-        rec.add(count, *fwd, flops, nbytes + 4.0 * co)
+        into.add(count, *fwd, flops, nbytes + 4.0 * co)
         line = (
             f"conv {label} x{count}: fwd kernel_ms {fwd[0]:.4f} plain_ms "
             f"{fwd[1]:.4f} library_ms {fwd[2]:.4f} "
@@ -321,7 +411,7 @@ def _check_conv(rec: Record) -> None:
                 partial(conv3x3.conv3x3_plain, g, w9f, None, False, mask),
                 partial(F.conv2d, g_nchw, wf_oihw, None, padding=1),
             )
-            rec.add(n_bwd, *bwd, flops, nbytes + extra)
+            into.add(n_bwd, *bwd, flops, nbytes + extra)
             line += (
                 f" | bwd x{n_bwd} mask={mask is not None} kernel_ms "
                 f"{bwd[0]:.4f} plain_ms {bwd[1]:.4f} library_ms "
@@ -330,9 +420,12 @@ def _check_conv(rec: Record) -> None:
         print(line)
 
 
-def _check_gram(rec: Record) -> None:
+def _check_gram(rec: Record, rec_1024: Record) -> None:
+    """The main path's Gram shapes, then the objective phase's (P x 4)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for p, c in GRAM_SHAPES:
+    cases = [(p, c, rec) for p, c in GRAM_SHAPES]
+    cases += [(4 * p, c, rec_1024) for p, c in GRAM_SHAPES]
+    for p, c, into in cases:
         # Scale 1 leaves the clamp idle; the second scale puts the
         # diagonal near 1e6, above the 5e5 clamp.
         for scale in (1.0, (1e6 / p) ** 0.5):
@@ -362,7 +455,7 @@ def _check_gram(rec: Record) -> None:
         # G is symmetric: c(c+1)/2 distinct entries, 2p flops each.
         flops = float(p * c * (c + 1))
         nbytes = 4.0 * (p * c + 2 * c * c)
-        rec.add(1, *times, flops, nbytes)
+        into.add(1, *times, flops, nbytes)
         print(
             f"gram ({p},{c}): kernel_ms {times[0]:.4f} plain_ms "
             f"{times[1]:.4f} library_ms {times[2]:.4f} bound_ms "
@@ -389,65 +482,95 @@ def _images(size: int, seed: int):
     )
 
 
-def _main_path() -> tuple[int, int]:
-    """20 steps at 512x512; returns the conv and Gram launch counts."""
-    content, style = _images(SIZE, 0)
-    # The checks' tensors and graph pools go first: the peak below is
-    # the main path's own.
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated()
+def _counted_run(run):
+    """``run()`` with the launch counts set to 0 just before and read
+    just after; returns its result, its seconds and the counts."""
     conv3x3.launches.reset()
     gram.launches.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    image, history = run_style_transfer(
-        content, style, _config(STEPS, "cuda"),
-    )
+    out = run()
     torch.cuda.synchronize()
-    t_long = time.perf_counter() - t0
-    conv_n, gram_n = conv3x3.launches.count, gram.launches.count
-    peak = torch.cuda.max_memory_allocated()
+    seconds = time.perf_counter() - t0
+    return out, seconds, (conv3x3.launches.count, gram.launches.count)
 
-    losses = history["total_loss"]
-    logged = [losses[i - 1] for i in range(LOG_EVERY, STEPS + 1, LOG_EVERY)]
+
+def _check_run(label: str, image, losses, launches, want, size: int):
+    """Finite, decreasing losses, one a step; the launches worked out."""
     if len(losses) != STEPS or not all(map(_finite, losses)):
-        msg = f"non-finite or missing losses: {losses}"
+        msg = f"{label}: non-finite or missing losses {losses}"
         raise AssertionError(msg)
-    if not losses[-1] < losses[0] or not logged[-1] < logged[0]:
-        msg = f"loss did not decrease: {losses}"
+    if not losses[-1] < losses[0]:
+        msg = f"{label}: loss did not decrease: {losses}"
         raise AssertionError(msg)
-    if tuple(image.shape) != (1, SIZE, SIZE, 3) or not bool(
+    if tuple(image.shape) != (1, size, size, 3) or not bool(
         torch.isfinite(image).all(),
     ):
-        msg = f"bad output image {tuple(image.shape)}"
+        msg = f"{label}: bad output image {tuple(image.shape)}"
         raise AssertionError(msg)
-    want = (26 * STEPS + 23, 5 * STEPS + 5)
-    if (conv_n, gram_n) != want:
-        msg = f"launches conv/gram {conv_n}/{gram_n}, expected {want}"
+    if launches != want:
+        msg = f"{label}: launches conv/gram {launches}, expected {want}"
         raise AssertionError(msg)
 
-    # Per-step time: the difference of a 20-step and a 10-step run made
-    # after the counted one, so weights, targets and one-time library
-    # set-up cancel out.
-    t_run = {}
+
+def _ms_per_step(run_steps) -> float:
+    """ms/step as the difference of a 20-step and a 10-step run.
+
+    Made after the counted run, so weights, targets and one-time
+    library set-up cancel out.
+    """
+    seconds = {}
     for steps in (STEPS // 2, STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run_style_transfer(content, style, _config(steps, "cuda"))
+        run_steps(steps)
         torch.cuda.synchronize()
-        t_run[steps] = time.perf_counter() - t0
-    ms_step = (t_run[STEPS] - t_run[STEPS // 2]) / (STEPS // 2) * 1e3
+        seconds[steps] = time.perf_counter() - t0
+    return (seconds[STEPS] - seconds[STEPS // 2]) / (STEPS // 2) * 1e3
+
+
+def _fresh_peak() -> int:
+    """Free the checks' tensors and graph pools; reset the peak.
+
+    Returns the bytes still allocated, so a phase's own peak is the
+    peak less these.
+    """
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _main_path() -> tuple[int, int]:
+    """20 steps at 512x512; returns the conv and Gram launch counts."""
+    content, style = _images(SIZE, 0)
+    config = _config(STEPS, "cuda")
+    before = _fresh_peak()
+    (image, history), t_long, launches = _counted_run(
+        lambda: run_style_transfer(content, style, config),
+    )
+    peak = torch.cuda.max_memory_allocated()
+    losses = history["total_loss"]
+    _check_run(
+        "main path", image, losses, launches,
+        _launches_wanted(VGG19, config.optimization, SIZE, 1), SIZE,
+    )
+    logged = [losses[i - 1] for i in range(LOG_EVERY, STEPS + 1, LOG_EVERY)]
+    if not logged[-1] < logged[0]:
+        msg = f"main path: logged loss did not decrease: {logged}"
+        raise AssertionError(msg)
+    ms_step = _ms_per_step(
+        lambda n: run_style_transfer(content, style, _config(n, "cuda")),
+    )
     print(
         f"main path {SIZE}x{SIZE} vgg19 L-BFGS {STEPS} steps: "
         f"loss {losses[0]:.6g} -> {losses[-1]:.6g}, logged {logged}, "
         f"ms/step {ms_step:.3f}, run s {t_long:.3f}, "
         f"max_memory_allocated {peak}, of which allocated before the run "
         f"{before} (the run's own {peak - before}), "
-        f"launches conv {conv_n} gram {gram_n}",
+        f"launches conv {launches[0]} gram {launches[1]}",
     )
-    return conv_n, gram_n
+    return launches
 
 
 def _finite(v: float) -> bool:
@@ -533,7 +656,7 @@ def _timelapse_run(
     return image, history, frames, frame_steps, seconds, step_ends
 
 
-def _timelapse() -> None:
+def _timelapse() -> tuple[int, int]:
     """20 frames through the frame stream; ms/step with and without."""
     content, style = _images(SIZE, 0)
     params = load_pretrained_params(
@@ -545,7 +668,9 @@ def _timelapse() -> None:
         content, style, params, STEPS, 1,
     )
     conv_n, gram_n = conv3x3.launches.count, gram.launches.count
-    want = (26 * STEPS + 23, 5 * STEPS + 5)
+    want = _launches_wanted(
+        VGG19, _config(STEPS, "cuda").optimization, SIZE, 1,
+    )
     if (conv_n, gram_n) != want:
         msg = f"timelapse launches conv/gram {conv_n}/{gram_n}, want {want}"
         raise AssertionError(msg)
@@ -623,6 +748,7 @@ def _timelapse() -> None:
         f"{gap_ms['save_every=1'] / gap_ms['frames off']:.4f}",
     )
     _full_timelapse()
+    return conv_n, gram_n
 
 
 def _mp4_frames(path: Path) -> int:
@@ -726,7 +852,198 @@ def _small_reference() -> None:
     )
     print(f"small reference 64x64 3 steps: cuda {gpu} cpu {cpu} "
           f"image max abs diff {img_err:.3g}")
+    # The whole objective: Adam with the TV and Laplacian terms, style
+    # weights, a two-style blend, luminance color preservation, and a
+    # 2-step warm start at 32x32.
+    extra = _images(64, 5)[0]
+    runs = {
+        d: run_style_transfer(
+            content, style,
+            _config(
+                3, d, init_method="content", optimizer="adam", lr=0.1,
+                tv_w=1e-2, lap_w=1e2, coarse_steps=2,
+                style_layer_weights=[1, 1, 0.5, 0.25, 0.25],
+                preserve_color="luminance",
+            ),
+            style_blend=[(style, 0.7), (extra, 0.3)],
+        )
+        for d in ("cuda", "cpu")
+    }
+    gpu, cpu = (runs[d][1]["total_loss"] for d in ("cuda", "cpu"))
+    np.testing.assert_allclose(gpu, cpu, rtol=1e-3)
+    img_err = float(
+        (runs["cuda"][0].cpu() - runs["cpu"][0]).abs().max(),
+    )
+    print(f"small reference 64x64 whole objective, Adam, 2 coarse steps "
+          f"at 32x32, 3 steps: cuda {gpu} cpu {cpu} image max abs diff "
+          f"{img_err:.3g}")
 
+
+class _LogLines(logging.Handler):
+    """Keeps the port logger's messages while a phase runs."""
+
+    def __init__(self) -> None:
+        """Start empty."""
+        super().__init__()
+        self.lines: list[str] = []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        """Keep one message."""
+        self.lines.append(record.getMessage())
+
+
+def _convs_through(arch, last: int) -> int:
+    return sum(1 for i in arch.conv_indices if i <= last)
+
+
+def _launches_wanted(arch, opt, size: int, styles: int) -> tuple[int, int]:
+    """Conv and Gram launches of a run, worked out from the code.
+
+    ``opt`` is the run's optimization config as the run left it (its
+    ``coarse_steps`` resolved), ``size`` the content's side and
+    ``styles`` the number of styles blended.
+
+    Targets: each style's sweep to the deepest style tap (one Gram per
+    style tap) and one content sweep to the deepest content tap
+    (``targets_maybe_blended``: the content layers ride with the first
+    style only), at full size and again at each coarse level. A step
+    with one evaluation (L-BFGS ``max_iter=1`` or Adam): the sweep to
+    the deepest tap, every conv's input gradient (the image is the
+    leaf), and one Gram per style tap.
+    """
+    plan = plan_pyramid(size, size, opt.coarse_steps, opt.pyramid_levels)
+    style_convs = _convs_through(arch, max(opt.style_layers))
+    content_convs = _convs_through(arch, max(opt.content_layers))
+    step_convs = 2 * _convs_through(
+        arch, max(opt.style_layers + opt.content_layers),
+    )
+    n_style = len(opt.style_layers)
+    resolutions = 1 + len(plan)
+    total_steps = opt.steps + sum(level[2] for level in plan)
+    conv = (
+        resolutions * (styles * style_convs + content_convs)
+        + step_convs * total_steps
+    )
+    gram = resolutions * styles * n_style + n_style * total_steps
+    return conv, gram
+
+
+def _chroma_error(image: torch.Tensor, content: np.ndarray) -> float:
+    """Largest YIQ chrominance difference where no channel is clipped."""
+    out = image[0].double().cpu().numpy()
+    unclipped = ((out > 1e-6) & (out < 1 - 1e-6)).all(axis=-1)
+    if unclipped.mean() < 0.5:  # noqa: PLR2004
+        msg = f"only {unclipped.mean():.3f} of the pixels are unclipped"
+        raise AssertionError(msg)
+    to_iq = RGB_TO_YIQ[1:].T
+    diff = np.abs(out @ to_iq - content[0].astype(np.float64) @ to_iq)
+    return float(diff[unclipped].max())
+
+
+def _objective() -> tuple[int, int]:
+    """The whole objective at 1024x1024 through ``run_style_transfer``.
+
+    Full-width VGG19 (seeded), two 1024x1024 styles (numpy seeds 2 and
+    3) blended 0.7/0.3, TV and Laplacian terms, per-layer style
+    weights, luminance color preservation, the shipped L-BFGS for 20
+    steps with the warm start left at auto: 4 steps at 512x512 first.
+    """
+    size = OBJECTIVE_SIZE
+    content = _images(size, 1)[0]
+    styles = [_images(size, seed)[0] for seed in (2, 3)]
+    blend = list(zip(styles, (0.7, 0.3), strict=True))
+
+    def config(n_steps: int, coarse_steps: int = -1):
+        return _config(
+            n_steps, "cuda", tv_w=1e-2, lap_w=1e2,
+            style_layer_weights=[1, 1, 0.5, 0.25, 0.25],
+            preserve_color="luminance", coarse_steps=coarse_steps,
+        )
+
+    before = _fresh_peak()
+    logs = _LogLines()
+    logger.addHandler(logs)
+    counted = config(STEPS)
+    try:
+        (image, history), run_s, launches = _counted_run(
+            lambda: run_style_transfer(
+                content, styles[0], counted, style_blend=blend,
+            ),
+        )
+    finally:
+        logger.removeHandler(logs)
+    peak = torch.cuda.max_memory_allocated()
+
+    coarse_steps = counted.optimization.coarse_steps
+    half = size // 2
+    started = f"Coarse warm start: {coarse_steps} steps at {half}x{half}"
+    done = f"Coarse level {half}x{half} done"
+    if coarse_steps != STEPS // 5 or not all(
+        any(line.startswith(want) for line in logs.lines)
+        for want in (started, done)
+    ):
+        msg = f"coarse warm start did not run: {logs.lines}"
+        raise AssertionError(msg)
+    losses = history["total_loss"]
+    want = _launches_wanted(
+        VGG19, counted.optimization, size, len(blend),
+    )
+    _check_run("objective", image, losses, launches, want, size)
+    chroma = _chroma_error(image, content)
+    if not chroma <= CHROMA_TOL:
+        msg = f"objective: chrominance off by {chroma:.3g} > {CHROMA_TOL}"
+        raise AssertionError(msg)
+    # The timed runs keep the counted run's coarse budget, so the warm
+    # start cancels out with the targets.
+    ms_step = _ms_per_step(
+        lambda n: run_style_transfer(
+            content, styles[0], config(n, coarse_steps), style_blend=blend,
+        ),
+    )
+    print(
+        f"objective {size}x{size} vgg19 L-BFGS {STEPS} steps, blend "
+        f"0.7/0.3, tv_w 1e-2, lap_w 1e2, style weights 1,1,0.5,0.25,0.25,"
+        f" luminance: coarse warm start {coarse_steps} steps at "
+        f"{half}x{half} ran; loss {losses[0]:.6g} -> {losses[-1]:.6g}; "
+        f"launches conv {launches[0]} gram {launches[1]} (expected "
+        f"{want}); chrominance max abs diff {chroma:.3g} (tol "
+        f"{CHROMA_TOL}); ms/step at {size}x{size} {ms_step:.3f}; run s "
+        f"{run_s:.3f}; max_memory_allocated {peak}, of which allocated "
+        f"before the run {before} (the run's own {peak - before})",
+    )
+    return launches
+
+
+def _adam_vgg16() -> tuple[int, int]:
+    """Adam on full-width VGG16 (seeded) at 512x512, 20 steps.
+
+    ``lr`` 0.1, the rate the golden corpus runs Adam at (the shipped
+    1.0 is L-BFGS's step scale).
+    """
+    content, style = _images(SIZE, 4)
+
+    def config(n_steps: int):
+        return _config(
+            n_steps, "cuda", model="vgg16", optimizer="adam", lr=0.1,
+        )
+
+    counted = config(STEPS)
+    (image, history), run_s, launches = _counted_run(
+        lambda: run_style_transfer(content, style, counted),
+    )
+    losses = history["total_loss"]
+    want = _launches_wanted(VGG16, counted.optimization, SIZE, 1)
+    _check_run("adam vgg16", image, losses, launches, want, SIZE)
+    ms_step = _ms_per_step(
+        lambda n: run_style_transfer(content, style, config(n)),
+    )
+    print(
+        f"adam vgg16 {SIZE}x{SIZE} {STEPS} steps lr 0.1: loss "
+        f"{losses[0]:.6g} -> {losses[-1]:.6g}; launches conv "
+        f"{launches[0]} gram {launches[1]} (expected {want}); ms/step "
+        f"{ms_step:.3f}; run s {run_s:.3f}",
+    )
+    return launches
 
 def main() -> int:
     """Run every phase; return 0 when all pass (failures raise)."""
@@ -752,21 +1069,31 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {kernel.name}: {line.strip()}")
 
-    conv = Record(
-        "conv3x3", f"{PACKAGE}/csrc/conv3x3.cu",
-        "style_transfer_visualizer_tpu/ops/pallas_conv.py:63",
-    )
-    _check_conv(conv)
-    gram_rec = Record(
-        "gram", f"{PACKAGE}/csrc/gram.cu",
-        "style_transfer_visualizer_tpu/ops/pallas_gram.py:40",
-    )
-    _check_gram(gram_rec)
-    conv_n, gram_n = _main_path()
-    _timelapse()
+    records = {}
+    for name, source, replaces in (
+        ("conv3x3", "csrc/conv3x3.cu", "ops/pallas_conv.py:63"),
+        ("gram", "csrc/gram.cu", "ops/pallas_gram.py:40"),
+    ):
+        records[name] = tuple(
+            Record(
+                name, f"{PACKAGE}/{source}",
+                f"style_transfer_visualizer_tpu/{replaces}",
+            )
+            for _ in range(2)
+        )
+    _check_conv(*records["conv3x3"])
+    _vgg16_shapes_covered()
+    _check_gram(*records["gram"])
+    phases = {"main path": _main_path()}
+    phases["timelapse"] = _timelapse()
+    phases["objective"] = _objective()
+    phases["adam vgg16"] = _adam_vgg16()
     _small_reference()
 
-    kernels = [conv.finish(conv_n), gram_rec.finish(gram_n)]
+    kernels = [
+        rec.finish({k: v[i] for k, v in phases.items()}, rec_1024)
+        for i, (rec, rec_1024) in enumerate(records.values())
+    ]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({

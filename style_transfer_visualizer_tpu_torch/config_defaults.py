@@ -6,9 +6,12 @@ field the port reads, except the device, which is ``cuda`` here.
 from __future__ import annotations
 
 from style_transfer_visualizer_tpu_torch.type_defs import (
+    ColorPreservation,
     DirectionName,
     HistoryDtypeName,
     InitMethod,
+    ModelName,
+    OptimizerName,
     VideoMode,
 )
 
@@ -25,6 +28,14 @@ DEFAULT_STEPS = 1500
 DEFAULT_LEARNING_RATE = 1.0
 DEFAULT_STYLE_WEIGHT = 1e5
 DEFAULT_CONTENT_WEIGHT = 1.0
+# Total-variation weight (0 = the style + content loss alone).
+DEFAULT_TV_WEIGHT = 0.0
+# Laplacian detail-preservation weight and its pooling size (Lapstyle,
+# Li et al. 2017 arXiv:1707.01253; 0 = the style + content loss alone).
+DEFAULT_LAP_WEIGHT = 0.0
+DEFAULT_LAP_POOL = 4
+# Color preservation ("off": the output inherits the style's palette).
+DEFAULT_PRESERVE_COLOR: ColorPreservation = "off"
 DEFAULT_SEED = 0
 DEFAULT_INIT_METHOD: InitMethod = "random"
 DEFAULT_NORMALIZE = True
@@ -36,6 +47,15 @@ DEFAULT_LBFGS_MAX_EVAL = 1
 # content.
 DEFAULT_STYLE_LAYERS: tuple[int, ...] = (0, 5, 10, 19, 28)
 DEFAULT_CONTENT_LAYERS: tuple[int, ...] = (21,)
+# Feature backbone. With another model and the layer lists left at the
+# VGG19 defaults above, config validation remaps them to that model's
+# own standard taps (models/arch.py).
+DEFAULT_MODEL: ModelName = "vgg19"
+DEFAULT_OPTIMIZER: OptimizerName = "lbfgs"
+# Coarse-to-fine warm start: -1 is auto (on for content of at least
+# 1 MP, with a budget of steps // 5), 0 off, N > 0 that many steps.
+DEFAULT_COARSE_STEPS = -1
+DEFAULT_PYRAMID_LEVELS = 2
 DEFAULT_LBFGS_HISTORY_SIZE = 100
 DEFAULT_LBFGS_HISTORY_DTYPE: HistoryDtypeName = "bfloat16"
 DEFAULT_LBFGS_DIRECTION: DirectionName = "compact"

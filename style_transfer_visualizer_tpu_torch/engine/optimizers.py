@@ -1,7 +1,12 @@
-"""L-BFGS for pixel-space optimization, without host syncs.
+"""L-BFGS and Adam for pixel-space optimization, without host syncs.
 
-The port of the JAX package's ``engine/optimizers.py`` L-BFGS
-(``torch.optim.LBFGS`` semantics without a line search): one step runs
+The port of the JAX package's ``engine/optimizers.py``. Adam
+(:func:`adam_step`) has ``torch.optim.Adam``'s defaults with eps outside
+the square root, its moments in the image's own shape and its step
+count a device int32, so the bias corrections are tensor ops too.
+
+L-BFGS (``torch.optim.LBFGS`` semantics without a line search): one
+step runs
 up to ``max_iter`` inner iterations bounded by ``max_eval`` function
 evaluations; the first-ever iteration uses steepest descent with step
 ``min(1, 1/|g|_1) * lr``; curvature pairs are kept in a ring of
@@ -310,3 +315,67 @@ def lbfgs_step(
         loss=loss, style_score=style, content_score=content, n_evals=evals,
     )
     return x, st, aux
+
+
+_ADAM_B1 = 0.9
+_ADAM_B2 = 0.999
+_ADAM_EPS = 1e-8
+
+
+@dataclass
+class AdamState:
+    """Adam moment estimates and the step count, all on the device."""
+
+    mu: torch.Tensor     # first moment, the parameter's shape
+    nu: torch.Tensor     # second moment, the parameter's shape
+    count: torch.Tensor  # int32, steps taken
+
+
+def adam_init(
+    shape: tuple[int, ...],
+    device: torch.device | str,
+) -> AdamState:
+    """Zero moments for a parameter of ``shape`` on ``device``.
+
+    Adam is elementwise, so the moments keep the image's NHWC shape and
+    the step never flattens it.
+    """
+    return AdamState(
+        mu=torch.zeros(shape, dtype=torch.float32, device=device),
+        nu=torch.zeros(shape, dtype=torch.float32, device=device),
+        count=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def _adam_update_math(
+    grad: torch.Tensor,
+    state: AdamState,
+    lr: float,
+) -> tuple[torch.Tensor, AdamState]:
+    """The update ``delta`` and the new state, with no host read."""
+    count = state.count + 1
+    mu = _ADAM_B1 * state.mu + (1 - _ADAM_B1) * grad
+    nu = _ADAM_B2 * state.nu + (1 - _ADAM_B2) * torch.square(grad)
+    steps = count.to(torch.float32)
+    mu_hat = mu / (1 - torch.pow(_ADAM_B1, steps))
+    nu_hat = nu / (1 - torch.pow(_ADAM_B2, steps))
+    delta = -lr * mu_hat / (torch.sqrt(nu_hat) + _ADAM_EPS)
+    return delta, AdamState(mu=mu, nu=nu, count=count)
+
+
+def adam_step(
+    vag: ValueAndGrad,
+    x: torch.Tensor,
+    state: AdamState,
+    lr: float,
+) -> tuple[torch.Tensor, AdamState, StepAux]:
+    """One Adam step on ``x``: one evaluation, ``n_evals`` of one."""
+    (loss, (style, content)), grad = vag(x)
+    delta, state = _adam_update_math(grad, state, lr)
+    aux = StepAux(
+        loss=loss,
+        style_score=style,
+        content_score=content,
+        n_evals=torch.ones((), dtype=torch.int64, device=x.device),
+    )
+    return x + delta, state, aux

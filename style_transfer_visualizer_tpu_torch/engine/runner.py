@@ -49,6 +49,10 @@ from style_transfer_visualizer_tpu_torch.media.segments import (
     append_crossfade,
 )
 from style_transfer_visualizer_tpu_torch.media.stream import AsyncFrameStream
+from style_transfer_visualizer_tpu_torch.ops.color import (
+    maybe_restore_color,
+    yiq_matrices,
+)
 from style_transfer_visualizer_tpu_torch.utils.logging import logger
 
 # Upper bound on steps per chunk (the progress granularity).
@@ -80,10 +84,12 @@ if TYPE_CHECKING:
         StyleTransferConfig,
     )
     from style_transfer_visualizer_tpu_torch.engine.optimizers import (
-        LbfgsState,
         StepAux,
     )
-    from style_transfer_visualizer_tpu_torch.engine.step import UpdateFn
+    from style_transfer_visualizer_tpu_torch.engine.step import (
+        OptState,
+        UpdateFn,
+    )
     from style_transfer_visualizer_tpu_torch.media.sinks import (
         VideoFrameSink,
     )
@@ -174,7 +180,7 @@ class OptimizationRunner:
     def __init__(
         self,
         update_fn: UpdateFn,
-        opt_state: LbfgsState,
+        opt_state: OptState,
         input_img: torch.Tensor,
         config: StyleTransferConfig,
         *,
@@ -187,12 +193,16 @@ class OptimizationRunner:
         async_frames: bool = True,
         frame_stream: AsyncFrameStream | None = None,
         chunked_update_fn: Callable | None = None,
+        chroma_source: torch.Tensor | None = None,
     ) -> None:
         """Set up the loop; nothing runs until :meth:`run`.
 
         ``frame_stream`` carries frames to the sinks when
         ``async_frames`` is on (by default one is made at the first
         frame); the runner closes it at the end of the run.
+        ``chroma_source`` (the content image, (1, H, W, 3) in [0,1] on
+        the run's device) recolors every frame by luminance transfer
+        on the device before the pack.
         """
         self.update_fn = update_fn
         self.chunked_update_fn = chunked_update_fn
@@ -212,6 +222,11 @@ class OptimizationRunner:
 
         self._async_frames = async_frames
         self._frame_stream = frame_stream
+        self._chroma_source = chroma_source
+        if chroma_source is not None:
+            # The YIQ matrices go to the device now: made at the first
+            # frame, their copy would wait for the step's stream.
+            yiq_matrices(chroma_source.device)
 
         self._step_index = 0
 
@@ -291,10 +306,14 @@ class OptimizationRunner:
     # internals
 
     def _fetch_frame(self, image: torch.Tensor) -> torch.Tensor:
-        # Denorm, scrub and uint8 packing run on the device; only H*W*3
+        # Denorm, scrub, the luminance transfer and uint8 packing run on
+        # the device, on this thread, with no host copy; only H*W*3
         # bytes cross to the host.
-        prepared = image_io.prepare_image_for_output(
-            image, normalize=self.config.optimization.normalize,
+        prepared = maybe_restore_color(
+            image_io.prepare_image_for_output(
+                image, normalize=self.config.optimization.normalize,
+            ),
+            self._chroma_source,
         )
         return image_io.pack_uint8_frame(prepared)
 

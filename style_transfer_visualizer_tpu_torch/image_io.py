@@ -23,6 +23,10 @@ from style_transfer_visualizer_tpu_torch.constants import (
     MAX_DIMENSION,
     MIN_DIMENSION,
 )
+from style_transfer_visualizer_tpu_torch.ops.color import (
+    match_color_distribution,
+    maybe_restore_color,
+)
 from style_transfer_visualizer_tpu_torch.utils.logging import logger
 
 if TYPE_CHECKING:
@@ -105,6 +109,38 @@ def host_array_to_device(
     return normalize_image(arr) if normalize else arr
 
 
+def style_array_to_device(
+    host: np.ndarray,
+    device: torch.device | str,
+    *,
+    normalize: bool = False,
+    match_to: np.ndarray | None = None,
+) -> torch.Tensor:
+    """Place a style host array on ``device``, color-matched if asked.
+
+    ``match_to``, a (1, H, W, 3) [0,1] host array (the content image),
+    remaps the style's pixel statistics onto it on the host first: the
+    ``preserve_color="match"`` path.
+    """
+    if match_to is not None:
+        host = match_color_distribution(host, match_to)
+    return host_array_to_device(host, device, normalize=normalize)
+
+
+def load_style_image_to_array(
+    path: str | Path,
+    device: torch.device | str,
+    *,
+    normalize: bool = False,
+    match_to: np.ndarray | None = None,
+) -> torch.Tensor:
+    """Load a style image file, as :func:`style_array_to_device` places it."""
+    return style_array_to_device(
+        load_image_to_host_array(path), device,
+        normalize=normalize, match_to=match_to,
+    )
+
+
 def prepare_image_for_output(
     x: torch.Tensor,
     *,
@@ -129,9 +165,17 @@ def array_to_uint8_frame(
     x: torch.Tensor,
     *,
     normalize: bool,
+    chroma_source: torch.Tensor | None = None,
 ) -> np.ndarray:
-    """Produce a host-side HWC uint8 frame from a working image tensor."""
-    prepared = prepare_image_for_output(x, normalize=normalize)
+    """Produce a host-side HWC uint8 frame from a working image tensor.
+
+    ``chroma_source`` (a (1, H, W, 3) [0,1] RGB tensor, the content
+    image) recolors the frame by luminance-only transfer before the
+    pack: the ``preserve_color="luminance"`` path.
+    """
+    prepared = maybe_restore_color(
+        prepare_image_for_output(x, normalize=normalize), chroma_source,
+    )
     return pack_uint8_frame(prepared).cpu().numpy()
 
 

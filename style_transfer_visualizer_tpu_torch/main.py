@@ -1,9 +1,12 @@
 """Entry points of the port: files in, stylized PNG and timelapse out.
 
-The port of the JAX package's ``main.py`` for the single-style run:
+The port of the JAX package's ``main.py`` for the single run, one
+style or a weighted blend of several, with the whole objective (TV and
+Laplacian terms, per-layer style weights, color preservation, L-BFGS
+or Adam, VGG19 or VGG16) and the coarse-to-fine warm start:
 
 - :func:`style_transfer` validates the inputs, applies the final-only
-  cascade, loads the two image files, picks the video mode, prepares
+  cascade, loads the image files, picks the video mode, prepares
   the model and the starting image, and hands the step loop to
   :func:`run_with_artifacts`;
 - :func:`run_with_artifacts` owns the artifact contract: the timelapse
@@ -26,6 +29,10 @@ from typing import TYPE_CHECKING
 import numpy as np
 
 from style_transfer_visualizer_tpu_torch import image_io
+from style_transfer_visualizer_tpu_torch.engine.coarse import (
+    coarse_init,
+    resolve_coarse_steps,
+)
 from style_transfer_visualizer_tpu_torch.engine.runner import (
     OptimizationRunner,
     SilentProgress,
@@ -33,13 +40,17 @@ from style_transfer_visualizer_tpu_torch.engine.runner import (
 from style_transfer_visualizer_tpu_torch.engine.step import build_update_step
 from style_transfer_visualizer_tpu_torch.media import encode, segments
 from style_transfer_visualizer_tpu_torch.media.modes import select_video_mode
+from style_transfer_visualizer_tpu_torch.models.arch import get_architecture
 from style_transfer_visualizer_tpu_torch.models.features import (
     compute_targets,
     initialize_input,
+    targets_maybe_blended,
 )
 from style_transfer_visualizer_tpu_torch.models.vgg19 import (
     load_pretrained_params,
 )
+from style_transfer_visualizer_tpu_torch.ops.color import maybe_restore_color
+from style_transfer_visualizer_tpu_torch.ops.lap import lap_response
 from style_transfer_visualizer_tpu_torch.runtime.device import (
     setup_device,
     setup_random_seed,
@@ -83,12 +94,19 @@ def prepare_model_and_input(
     config: StyleTransferConfig,
     *,
     params: Params | None = None,
+    style_blend: list[tuple[np.ndarray, float]] | None = None,
 ) -> tuple[StepBundle, torch.Tensor]:
-    """Weights, targets, the L-BFGS step and the starting image.
+    """Weights, targets, the optimizer step and the starting image.
 
     ``content`` and ``style`` are (1, H, W, 3) host arrays in [0, 1].
-    ``params`` reuses weights already on the run's device; by default
-    they are loaded (or made from the seed).
+    ``style_blend``, one ``(style array, weight)`` per style, blends
+    the styles' Gram targets (``models.features.blend_targets``); the
+    weights are used as given. With ``preserve_color="match"`` every
+    style is color-matched to the content on the host first. The
+    coarse warm start's auto mode is resolved here, against the
+    content's size, and written back to ``config``. ``params`` reuses
+    weights already on the run's device; by default they are loaded
+    (or made from the seed) for ``config.optimization.model``.
     """
     config.validate()
     opt = config.optimization
@@ -97,56 +115,151 @@ def prepare_model_and_input(
     content_img = image_io.host_array_to_device(
         content, device, normalize=opt.normalize,
     )
-    style_img = image_io.host_array_to_device(
-        style, device, normalize=opt.normalize,
-    )
+    match_to = content if opt.preserve_color == "match" else None
+
+    def style_on_device(host: np.ndarray) -> torch.Tensor:
+        return image_io.style_array_to_device(
+            host, device, normalize=opt.normalize, match_to=match_to,
+        )
+
+    style_img = style_on_device(style)
+    blend_imgs = None
+    if style_blend:
+        blend_imgs = [
+            (style_on_device(host), float(weight))
+            for host, weight in style_blend
+        ]
+    _resolve_auto_coarse(config, content_img)
     if params is None:
         params = load_pretrained_params(
-            device, allow_random=opt.allow_random_weights, seed=opt.seed,
+            device, arch=get_architecture(opt.model),
+            allow_random=opt.allow_random_weights, seed=opt.seed,
         )
-    targets = compute_targets(
-        params, style_img, content_img,
-        tuple(opt.style_layers), tuple(opt.content_layers),
+    style_layers = tuple(opt.style_layers)
+    content_layers = tuple(opt.content_layers)
+
+    def one_targets(s_img: torch.Tensor, layers: tuple[int, ...]):
+        return compute_targets(
+            params, s_img, content_img, style_layers, layers,
+        )
+
+    targets = targets_maybe_blended(
+        one_targets, style_img, content_layers, blend_imgs,
+    )
+    lap_target = (
+        lap_response(content_img, opt.lap_pool) if opt.lap_w else None
     )
     bundle = build_update_step(
         params,
         targets,
         tuple(content_img.shape),
+        optimizer=opt.optimizer,
         lr=opt.lr,
         style_w=opt.style_w,
         content_w=opt.content_w,
-        style_layers=tuple(opt.style_layers),
-        content_layers=tuple(opt.content_layers),
+        tv_w=opt.tv_w,
+        lap_w=opt.lap_w,
+        lap_pool=opt.lap_pool,
+        lap_target=lap_target,
+        style_layers=style_layers,
+        content_layers=content_layers,
+        style_weights=opt.style_weights_tuple(),
         lbfgs_max_iter=opt.lbfgs_max_iter,
         lbfgs_max_eval=opt.lbfgs_max_eval,
         lbfgs_history_size=opt.lbfgs_history_size,
         lbfgs_history_dtype=opt.lbfgs_history_dtype,
         lbfgs_direction=opt.lbfgs_direction,
     )
-    input_img = initialize_input(content_img, opt.init_method, generator)
+    input_img = _initial_image(
+        params, content_img, style_img, config, generator,
+        blend_imgs=blend_imgs,
+    )
     return bundle, input_img
+
+
+def _resolve_auto_coarse(
+    config: StyleTransferConfig,
+    content_img: torch.Tensor,
+) -> None:
+    """Resolve ``coarse_steps=-1`` (auto) against the content size.
+
+    The resolved value is written back, so every later
+    ``coarse_steps > 0`` gate keeps its meaning.
+    """
+    opt = config.optimization
+    opt.coarse_steps = resolve_coarse_steps(
+        opt.coarse_steps,
+        int(content_img.shape[1]),
+        int(content_img.shape[2]),
+        opt.steps,
+    )
+
+
+def _initial_image(
+    params: Params,
+    content_img: torch.Tensor,
+    style_img: torch.Tensor,
+    config: StyleTransferConfig,
+    generator: torch.Generator,
+    *,
+    blend_imgs: list[tuple[torch.Tensor, float]] | None,
+) -> torch.Tensor:
+    """The coarse warm start when it runs, else ``init_method``."""
+    if config.optimization.coarse_steps > 0:
+        warm = coarse_init(
+            params, content_img, style_img, config, generator,
+            blend_imgs=blend_imgs,
+        )
+        if warm is not None:
+            return warm
+    return initialize_input(
+        content_img, config.optimization.init_method, generator,
+    )
+
+
+def _chroma_source(
+    content: np.ndarray,
+    config: StyleTransferConfig,
+    device: torch.device,
+) -> torch.Tensor | None:
+    """The raw content image on ``device`` for ``preserve_color="luminance"``.
+
+    Not normalized: luminance transfer works on [0,1] RGB.
+    """
+    if config.optimization.preserve_color != "luminance":
+        return None
+    return image_io.host_array_to_device(content, device)
 
 
 def run_style_transfer(
     content: np.ndarray,
     style: np.ndarray,
     config: StyleTransferConfig,
+    *,
+    style_blend: list[tuple[np.ndarray, float]] | None = None,
 ) -> tuple[torch.Tensor, LossHistory]:
     """Stylize ``content`` with ``style``; both (1, H, W, 3) in [0, 1].
 
-    Returns the final (1, H, W, 3) image in [0, 1] on the run's device
+    ``style_blend`` as in :func:`prepare_model_and_input`. Returns the
+    final (1, H, W, 3) image in [0, 1] on the run's device, recolored
+    with the content's chrominance under ``preserve_color="luminance"``,
     and the loss history (``{}`` when a loss CSV owns the series). No
     media and no progress bar: frames, plot and PNG belong to
     :func:`style_transfer`.
     """
-    bundle, input_img = prepare_model_and_input(content, style, config)
+    bundle, input_img = prepare_model_and_input(
+        content, style, config, style_blend=style_blend,
+    )
     image, history, _ = OptimizationRunner(
         bundle.update_fn, bundle.opt_state, input_img, config,
         progress_bar=SilentProgress(),
         chunked_update_fn=bundle.chunked_update_fn,
     ).run()
-    final = image_io.prepare_image_for_output(
-        image, normalize=config.optimization.normalize,
+    final = maybe_restore_color(
+        image_io.prepare_image_for_output(
+            image, normalize=config.optimization.normalize,
+        ),
+        _chroma_source(content, config, image.device),
     )
     return final, history
 
@@ -155,15 +268,22 @@ def style_transfer(
     paths: InputPaths,
     config: StyleTransferConfig,
     *,
+    style_blend: list[tuple[str, float]] | None = None,
     progress_bar: ProgressReporter | None = None,
 ) -> torch.Tensor:
-    """Run the full pipeline on two image files; return the final image.
+    """Run the full pipeline on image files; return the final image.
 
     The final image is (1, H, W, 3) in [0, 1] on the run's device. The
     final PNG, the timelapse MP4/GIF, the loss CSV or plot go to
     ``config.output.output`` under the JAX package's names.
+    ``style_blend``, one ``(style path, weight)`` per style, makes one
+    stylization from the styles' blended Gram targets, named with the
+    joined style stems; ``paths.style_path`` then only fronts the intro
+    and outro panels.
     """
     validate_input_paths(paths.content_path, paths.style_path)
+    for blend_path, _ in style_blend or ():
+        validate_input_paths(paths.content_path, blend_path)
     validate_parameters(config.video.quality)
 
     # Final-only mode disables all timelapse outputs.
@@ -174,6 +294,12 @@ def style_transfer(
 
     content = image_io.load_image_to_host_array(paths.content_path)
     style = image_io.load_image_to_host_array(paths.style_path)
+    blend_arrays = None
+    if style_blend:
+        blend_arrays = [
+            (image_io.load_image_to_host_array(path), weight)
+            for path, weight in style_blend
+        ]
 
     if config.video.create_video:
         height, width = content.shape[1:3]
@@ -190,7 +316,13 @@ def style_transfer(
                 reason, frame_estimate,
             )
 
-    bundle, input_img = prepare_model_and_input(content, style, config)
+    bundle, input_img = prepare_model_and_input(
+        content, style, config, style_blend=blend_arrays,
+    )
+    style_name = None
+    if style_blend:
+        # Blended outputs name every contributing style, in user order.
+        style_name = "+".join(Path(path).stem for path, _ in style_blend)
     result = run_with_artifacts(
         bundle.update_fn,
         bundle.chunked_update_fn,
@@ -199,6 +331,8 @@ def style_transfer(
         config,
         content_path=Path(paths.content_path),
         style_path=Path(paths.style_path),
+        style_name=style_name,
+        chroma_source=_chroma_source(content, config, input_img.device),
         progress_bar=progress_bar,
     )
     return result.image
@@ -229,6 +363,8 @@ def run_with_artifacts(
     *,
     content_path: Path,
     style_path: Path,
+    style_name: str | None = None,
+    chroma_source: torch.Tensor | None = None,
     progress_bar: ProgressReporter | None = None,
 ) -> ArtifactRunResult:
     """Drive a prepared update loop with the full artifact contract.
@@ -237,13 +373,18 @@ def run_with_artifacts(
     CSV or in-memory history feeding the loss plot, artifact survival on
     sink failure, and the final PNG. The input stems name the
     artifacts (``stylized_{content}_x_{style}.png``,
-    ``timelapse_{content}_x_{style}.mp4``); ``content_path`` and
+    ``timelapse_{content}_x_{style}.mp4``); ``style_name`` overrides
+    the style stem (a blend joins its stems). ``content_path`` and
     ``style_path`` also feed the intro/outro gallery panels.
+    ``chroma_source`` (the raw content image on the run's device)
+    recolors every frame, the outro, the PNG and the returned image
+    with the content's chrominance.
     """
     opt_cfg = config.optimization
     output_path = setup_output_directory(config.output.output)
     content_name = content_path.stem
-    style_name = style_path.stem
+    if style_name is None:
+        style_name = style_path.stem
     video_name = f"timelapse_{content_name}_x_{style_name}.mp4"
     gif_name = f"timelapse_{content_name}_x_{style_name}.gif"
 
@@ -285,6 +426,7 @@ def run_with_artifacts(
         intro_last_frame=intro_last_frame,
         intro_crossfade_frames=intro_crossfade_frames,
         chunked_update_fn=chunked_update_fn,
+        chroma_source=chroma_source,
     )
     # The optimized image must survive late media failures: every sink
     # is closed even when one fails, and the final PNG is saved before
@@ -301,6 +443,7 @@ def run_with_artifacts(
             style_path,
             input_img,
             normalize=opt_cfg.normalize,
+            chroma_source=chroma_source,
         )
     finally:
         for sink_name, sink in (
@@ -327,6 +470,7 @@ def run_with_artifacts(
         and "video" not in close_errors,
         gif_created=gif_collector is not None and "gif" not in close_errors,
         plot_losses=config.output.plot_losses,
+        chroma_source=chroma_source,
     )
     save_outputs(input_img, loss_metrics, output_path, elapsed, save_opts)
     if close_errors:
@@ -342,8 +486,11 @@ def run_with_artifacts(
         output_path, content_name, style_name,
     )
     return ArtifactRunResult(
-        image=image_io.prepare_image_for_output(
-            input_img, normalize=opt_cfg.normalize,
+        image=maybe_restore_color(
+            image_io.prepare_image_for_output(
+                input_img, normalize=opt_cfg.normalize,
+            ),
+            chroma_source,
         ),
         final_path=final_path,
         loss_history=loss_metrics,
@@ -361,6 +508,7 @@ def _maybe_append_final_segments(
     input_img: torch.Tensor,
     *,
     normalize: bool,
+    chroma_source: torch.Tensor | None = None,
 ) -> None:
     """Append outro comparison frames to active sinks when configured."""
     gif_outro_requested = bool(
@@ -372,7 +520,9 @@ def _maybe_append_final_segments(
         return
 
     final_frame = np.ascontiguousarray(
-        image_io.array_to_uint8_frame(input_img, normalize=normalize),
+        image_io.array_to_uint8_frame(
+            input_img, normalize=normalize, chroma_source=chroma_source,
+        ),
     )
     kwargs = {}
     if gif_options is not None and gif_options.sink is not None:

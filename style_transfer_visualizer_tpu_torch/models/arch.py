@@ -1,11 +1,12 @@
 """VGG layer tables with torchvision-compatible numbering.
 
-The port's own copy of the JAX package's ``models/arch.py`` registry,
-cut to what the port runs: VGG19. An :class:`Architecture` carries the
-conv/relu/pool layer table (indices match
-``torchvision.models.vgg19().features``) and the literature-standard
-style/content taps. Code that has parameters in hand derives the table
-from them (:func:`layer_table_from_params`).
+The port's own copy of the JAX package's ``models/arch.py`` registry:
+VGG19 and VGG16. An :class:`Architecture` carries the conv/relu/pool
+layer table (indices match ``torchvision.models.<name>().features``)
+and the literature-standard style/content taps. Code that has
+parameters in hand derives the table from them
+(:func:`layer_table_from_params`); code that runs before the weights
+exist looks the model up by name (:func:`get_architecture`).
 """
 from __future__ import annotations
 
@@ -98,3 +99,31 @@ VGG19 = Architecture(
     default_content_layers=(21,),
     cache_filename="vgg19_imagenet.npz",
 )
+
+VGG16 = Architecture(
+    name="vgg16",
+    cfg=(
+        64, 64, "M",
+        128, 128, "M",
+        256, 256, 256, "M",
+        512, 512, 512, "M",
+        512, 512, 512, "M",
+    ),
+    # The same named taps on VGG16's flat numbering: conv1_1=0,
+    # conv2_1=5, conv3_1=10, conv4_1=17, conv5_1=24; content conv4_2=19.
+    default_style_layers=(0, 5, 10, 17, 24),
+    default_content_layers=(19,),
+    cache_filename="vgg16_imagenet.npz",
+)
+
+ARCHITECTURES: dict[str, Architecture] = {a.name: a for a in (VGG19, VGG16)}
+
+
+def get_architecture(name: str) -> Architecture:
+    """Look up an architecture by name with a helpful error."""
+    try:
+        return ARCHITECTURES[name]
+    except KeyError:
+        known = ", ".join(sorted(ARCHITECTURES))
+        msg = f"Unknown model architecture {name!r}; known: {known}"
+        raise ValueError(msg) from None

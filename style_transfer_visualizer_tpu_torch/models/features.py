@@ -9,6 +9,7 @@ through ``ops.gram``. Activations are ``(N, H, W, C)`` contiguous.
 """
 from __future__ import annotations
 
+from collections.abc import Callable
 from dataclasses import dataclass
 
 import torch
@@ -37,6 +38,55 @@ class Targets:
 
     style_grams: dict[int, torch.Tensor]
     content_feats: dict[int, torch.Tensor]
+
+
+def blend_targets(
+    targets_seq: list[Targets],
+    weights: list[float],
+) -> Targets:
+    """Weighted blend of style Gram targets (multi-style interpolation).
+
+    A convex combination of per-style Grams is the target of a style
+    mixture. Content targets come from the first entry; every entry was
+    computed against the same content image, and the style-only extras
+    (``content_layers=()``) carry none.
+    """
+    if len(targets_seq) != len(weights) or not targets_seq:
+        msg = "blend_targets needs one weight per Targets entry"
+        raise ValueError(msg)
+    grams: dict[int, torch.Tensor] = {}
+    for idx in targets_seq[0].style_grams:
+        acc = weights[0] * targets_seq[0].style_grams[idx]
+        for t, w in zip(targets_seq[1:], weights[1:], strict=True):
+            acc = acc + w * t.style_grams[idx]
+        grams[idx] = acc.detach()
+    return Targets(
+        style_grams=grams,
+        content_feats=targets_seq[0].content_feats,
+    )
+
+
+def targets_maybe_blended(
+    one_targets: Callable[[torch.Tensor, tuple[int, ...]], Targets],
+    style_img: torch.Tensor,
+    content_layers: tuple[int, ...],
+    blend_imgs: list[tuple[torch.Tensor, float]] | None,
+) -> Targets:
+    """Single-style targets, or the weighted multi-style Gram blend.
+
+    ``one_targets(style_image, content_layers)`` is the caller's own
+    target computation (full resolution or a coarse level). A blend
+    calls it with the content layers for the first style and with none
+    (``()``, no content sweep) for the rest, then mixes the Grams by
+    weight (:func:`blend_targets`).
+    """
+    if blend_imgs is None:
+        return one_targets(style_img, content_layers)
+    first = one_targets(blend_imgs[0][0], content_layers)
+    extras = [one_targets(img, ()) for img, _ in blend_imgs[1:]]
+    return blend_targets(
+        [first, *extras], [weight for _, weight in blend_imgs],
+    )
 
 
 def _validate_layers(indices: tuple[int, ...], table: LayerTable) -> None:
@@ -115,19 +165,49 @@ def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.square(a - b))
 
 
+def _resolve_style_weights(
+    style_weights: tuple[float, ...] | None,
+    style_layers: tuple[int, ...],
+) -> tuple[float, ...]:
+    """Validated per-layer style weights (all 1.0 when unset)."""
+    if style_weights is None:
+        return (1.0,) * len(style_layers)
+    if len(style_weights) != len(style_layers):
+        msg = (
+            f"style_weights has {len(style_weights)} entries for "
+            f"{len(style_layers)} style layers"
+        )
+        raise ValueError(msg)
+    return tuple(float(w) for w in style_weights)
+
+
+def _weighted(w: float, term: torch.Tensor) -> torch.Tensor:
+    """``w * term``; a weight of 1.0 leaves the term as it is.
+
+    So the default weights give the unweighted loss bit for bit.
+    """
+    return term if w == 1.0 else w * term
+
+
 def style_content_losses(
     params: Params,
     x: torch.Tensor,
     targets: Targets,
     style_layers: tuple[int, ...],
     content_layers: tuple[int, ...],
+    style_weights: tuple[float, ...] | None = None,
 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
-    """Per-layer style (Gram MSE) and content (feature MSE) losses."""
+    """Per-layer style (Gram MSE) and content (feature MSE) losses.
+
+    ``style_weights`` scales each style layer's Gram MSE, one weight
+    per entry of ``style_layers``; ``None`` weighs every layer 1.0.
+    """
+    weights = _resolve_style_weights(style_weights, style_layers)
     taps = tuple(sorted(set(style_layers) | set(content_layers)))
     acts = extract_features(params, x, taps)
     style_losses = [
-        _mse(gram_matrix(acts[idx]), targets.style_grams[idx])
-        for idx in style_layers
+        _weighted(w, _mse(gram_matrix(acts[idx]), targets.style_grams[idx]))
+        for idx, w in zip(style_layers, weights, strict=True)
     ]
     content_losses = [
         _mse(acts[idx], targets.content_feats[idx]) for idx in content_layers
@@ -143,13 +223,15 @@ def total_loss(
     content_w: float,
     style_layers: tuple[int, ...],
     content_layers: tuple[int, ...],
+    style_weights: tuple[float, ...] | None = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Weighted total loss plus (style_score, content_score).
 
-    Empty layer lists contribute a zero scalar.
+    Empty layer lists contribute a zero scalar; ``style_weights`` as in
+    :func:`style_content_losses`.
     """
     style_losses, content_losses = style_content_losses(
-        params, x, targets, style_layers, content_layers,
+        params, x, targets, style_layers, content_layers, style_weights,
     )
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     style_score = torch.stack(style_losses).sum() if style_losses else zero

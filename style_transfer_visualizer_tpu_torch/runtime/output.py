@@ -11,6 +11,7 @@ from pathlib import Path
 from typing import TYPE_CHECKING
 
 from style_transfer_visualizer_tpu_torch import image_io
+from style_transfer_visualizer_tpu_torch.ops.color import maybe_restore_color
 from style_transfer_visualizer_tpu_torch.utils.logging import logger
 from style_transfer_visualizer_tpu_torch.visualization.metrics import (
     plot_loss_curves,
@@ -75,13 +76,17 @@ def save_outputs(
     elapsed: float,
     opts: SaveOptions,
 ) -> None:
-    """Persist the final image, optional loss plot, and summary logs."""
+    """Persist the final image, optional loss plot, and summary logs.
+
+    With ``opts.chroma_source`` the PNG keeps the content's chrominance.
+    """
     output_dir = setup_output_directory(str(output_dir))
     final_path = stylized_image_path_from_names(
         output_dir, opts.content_name, opts.style_name,
     )
-    final_img = image_io.prepare_image_for_output(
-        input_img, normalize=opts.normalize,
+    final_img = maybe_restore_color(
+        image_io.prepare_image_for_output(input_img, normalize=opts.normalize),
+        opts.chroma_source,
     )
     image_io.save_array_as_image(final_img, final_path)
 

@@ -1,16 +1,19 @@
-"""Where one L-BFGS step of the main path spends its time, on the card.
+"""Where one optimizer step spends its time, on the card.
 
     python -m style_transfer_visualizer_tpu_torch.tools.profile_step \\
-        [--size 512] [--steps 5] [--out chiprun_out/profile]
+        [--size 512] [--steps 5] [--model vgg19] [--optimizer lbfgs] \\
+        [--objective] [--out DIR]
 
-Builds the main path as ``main.run_style_transfer`` does (seeded VGG19
-weights, shipped defaults), runs 3 warm-up steps, then times ``--steps``
-steps with CUDA events, split into the loss-and-gradient evaluation
-and the L-BFGS direction, and traces them with ``torch.profiler``. It
-prints the card, the times, the device-busy share of the traced window,
-each ``csrc/`` kernel's launches and share of device time, and the
-operators by device time, and writes the Chrome trace under
-``--out``. Needs a CUDA device.
+Builds the step as ``main.run_style_transfer`` does (seeded weights of
+``--model``, shipped defaults, ``--optimizer``; ``--objective`` adds
+``chip_smoke.py``'s objective terms: TV 1e-2, Laplacian 1e2 at pool 4,
+style weights 1,1,0.5,0.25,0.25), runs 3 warm-up steps, then times
+``--steps`` steps with CUDA events, split into the VGG loss-and-gradient
+evaluation and (for L-BFGS) the direction, and traces them with
+``torch.profiler``. It prints the card, the times, the device-busy
+share of the traced window, each ``csrc/`` kernel's launches and share
+of device time, and the operators by device time, and writes the Chrome
+trace under ``--out``. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from style_transfer_visualizer_tpu_torch import image_io
 from style_transfer_visualizer_tpu_torch.config import OptimizationConfig
 from style_transfer_visualizer_tpu_torch.engine import optimizers
 from style_transfer_visualizer_tpu_torch.engine.step import build_update_step
+from style_transfer_visualizer_tpu_torch.models.arch import get_architecture
 from style_transfer_visualizer_tpu_torch.models.features import (
     compute_targets,
     initialize_input,
@@ -35,6 +39,7 @@ from style_transfer_visualizer_tpu_torch.models.features import (
 from style_transfer_visualizer_tpu_torch.models.vgg19 import (
     init_random_params,
 )
+from style_transfer_visualizer_tpu_torch.ops.lap import lap_response
 
 
 # Device kernels of csrc/, listed by name whatever their rank.
@@ -69,6 +74,14 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--size", type=int, default=512)
     p.add_argument("--steps", type=int, default=5)
+    p.add_argument("--model", default="vgg19", choices=("vgg19", "vgg16"))
+    p.add_argument(
+        "--optimizer", default="lbfgs", choices=("lbfgs", "adam"),
+    )
+    p.add_argument(
+        "--objective", action="store_true",
+        help="add the TV and Laplacian terms and per-layer style weights",
+    )
     p.add_argument("--out", default="chiprun_out/profile")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -82,7 +95,13 @@ def main(argv: list[str] | None = None) -> int:
     _emit(f"card: {card}")
 
     dev = torch.device("cuda")
-    opt = OptimizationConfig()
+    terms = {
+        "tv_w": 1e-2, "lap_w": 1e2,
+        "style_layer_weights": [1, 1, 0.5, 0.25, 0.25],
+    } if args.objective else {}
+    opt = OptimizationConfig(
+        model=args.model, optimizer=args.optimizer, **terms,
+    )
     rng = np.random.default_rng(0)
     content, style = (
         image_io.host_array_to_device(
@@ -96,7 +115,9 @@ def main(argv: list[str] | None = None) -> int:
     # Peak device memory of each phase of the main path, in order.
     peaks: dict[str, int] = {}
     torch.cuda.reset_peak_memory_stats()
-    params = init_random_params(opt.seed, dev)
+    params = init_random_params(
+        opt.seed, dev, get_architecture(opt.model),
+    )
     packed = sum(
         t.numel() * t.element_size()
         for layer in params.values() for k, t in layer.items()
@@ -114,9 +135,14 @@ def main(argv: list[str] | None = None) -> int:
     )
     peaks["targets"] = _peak_and_reset()
     bundle = build_update_step(
-        params, targets, tuple(content.shape), lr=opt.lr,
-        style_w=opt.style_w, content_w=opt.content_w,
+        params, targets, tuple(content.shape), optimizer=opt.optimizer,
+        lr=opt.lr, style_w=opt.style_w, content_w=opt.content_w,
+        tv_w=opt.tv_w, lap_w=opt.lap_w, lap_pool=opt.lap_pool,
+        lap_target=(
+            lap_response(content, opt.lap_pool) if opt.lap_w else None
+        ),
         style_layers=style_layers, content_layers=content_layers,
+        style_weights=opt.style_weights_tuple(),
         lbfgs_history_size=opt.lbfgs_history_size,
         lbfgs_history_dtype=opt.lbfgs_history_dtype,
         lbfgs_direction=opt.lbfgs_direction,
@@ -146,7 +172,7 @@ def main(argv: list[str] | None = None) -> int:
         x = holder["image"].detach().requires_grad_(True)
         total, _ = total_loss(
             params, x, targets, opt.style_w, opt.content_w,
-            style_layers, content_layers,
+            style_layers, content_layers, opt.style_weights_tuple(),
         )
         torch.autograd.grad(total, x)
 
@@ -161,12 +187,16 @@ def main(argv: list[str] | None = None) -> int:
     host_ms = (time.perf_counter() - t0) / args.steps * 1e3
     peak = torch.cuda.max_memory_allocated()
     vag_ms = _event_ms(loss_and_grad, args.steps)
-    dir_ms = _event_ms(direction, args.steps)
+    dir_ms = (
+        f"{_event_ms(direction, args.steps):.3f}"
+        if opt.optimizer == "lbfgs" else "none"
+    )
     _emit(
-        f"{args.size}x{args.size}: step_ms {step_ms:.3f} (host clock "
-        f"{host_ms:.3f}), loss_and_grad_ms {vag_ms:.3f}, "
-        f"compact_direction_ms {dir_ms:.3f}, max_memory_allocated over "
-        f"the steps {peak}",
+        f"{args.size}x{args.size} {opt.model} {opt.optimizer}"
+        f"{' objective' if args.objective else ''}: step_ms "
+        f"{step_ms:.3f} (host clock {host_ms:.3f}), vgg loss_and_grad_ms "
+        f"{vag_ms:.3f}, compact_direction_ms {dir_ms}, "
+        f"max_memory_allocated over the steps {peak}",
     )
 
     out = Path(args.out)

@@ -6,10 +6,25 @@ for ``jax.Array``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Literal
+from typing import TYPE_CHECKING, Literal
+
+if TYPE_CHECKING:
+    import torch
 
 #: Starting-image strategies for the pixel optimization.
 InitMethod = Literal["content", "random", "white"]
+
+#: Pixel optimizers of the engine.
+OptimizerName = Literal["lbfgs", "adam"]
+
+#: VGG-family feature backbones.
+ModelName = Literal["vgg19", "vgg16"]
+
+#: Color-preservation schemes (Gatys et al. 2016): "luminance"
+#: recombines stylized luminance with content chrominance on every
+#: output; "match" remaps the style image onto the content's color
+#: statistics before targets are computed.
+ColorPreservation = Literal["off", "luminance", "match"]
 
 #: Storage type of the L-BFGS curvature ring.
 HistoryDtypeName = Literal["float32", "bfloat16"]
@@ -57,3 +72,6 @@ class SaveOptions:
     gif_created: bool = False
     #: Whether to render the matplotlib loss plot.
     plot_losses: bool = True
+    #: Content image in [0,1] RGB for luminance-only color
+    #: preservation of the final PNG; None leaves colors untouched.
+    chroma_source: torch.Tensor | None = None
