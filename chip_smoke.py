@@ -12,17 +12,23 @@ exits non-zero:
    (``wgmma`` on the tensor cores) from ``cuobjdump -sass`` where the
    toolkit has it;
 3. conv check: the conv kernel against its plain PyTorch version at
-   every conv shape of the 512x512 main path and of the objective
-   phase's 1024x1024 steps (forward fused and unfused, the fused-mask
-   input gradient against the plain masked version, the autograd input
-   gradient against cuDNN's), max-abs error relative to the reference's
-   largest magnitude <= 1e-4, with times; checked only: a batch of 2,
-   and VGG19's stack at a 528x960 coarse level (a 1080x1920 content's;
-   widths that are not powers of two). VGG16's 512x512 shapes are
+   every conv shape of the 512x512 main path, of the objective phase's
+   1024x1024 steps and of the batch phase's 512x512 steps at N = 4
+   (forward fused and unfused, the fused-mask input gradient against
+   the plain masked version, the autograd input gradient against
+   cuDNN's), max-abs error relative to the reference's largest
+   magnitude <= 1e-4, with times; at N > 1 each image's output and
+   input gradient bit-equal to its launch alone; checked only: a batch
+   of 2, and VGG19's stack at a 528x960 coarse level (a 1080x1920
+   content's; widths that are not powers of two). VGG16's 512x512 shapes are
    confirmed to be among the checked ones;
 4. Gram check: the same at the five Gram shapes of each size (P up to
    1,048,576 at 1024x1024), forward and backward, with and without an
-   active clamp;
+   active clamp; then the batched launch (one launch for S images):
+   S = 4 at the five 512x512 shapes (timed against ``torch.bmm``) and
+   at the 528x960 coarse level's, where P is not a multiple of the
+   kernel's 32-row slot, each image against its plain Gram and
+   bit-equal to the single launch on that image, and S = 1 too;
 5. main path: ``run_style_transfer`` at 512x512 on full-width VGG19
    (seeded weights, shipped defaults) for 20 L-BFGS steps through the
    port's runner (no progress bar), with the launch counts set to 0
@@ -50,13 +56,29 @@ exits non-zero:
    ms/step at full size and the peak memory;
 8. Adam on full-width VGG16 at 512x512, 20 steps: launches, a loss
    that decreases, finite output, ms/step;
-9. a 64x64 run held against the same run on the CPU (plain versions),
+9. batch: ``main.prepare_multi_style`` and ``main.run_multi_style_loop``
+   (the multi-style batch) at 512x512 on full-width VGG19, S = 4 styles
+   (numpy seeds 2-5, the last 384x640), the shipped L-BFGS from the
+   content, 20 steps, ``log_every=10``, ``save_every=5``, GIF and MP4
+   into in-memory sinks: launches as worked out (a step's do not grow
+   with S), each style's losses finite and decreasing, 4 frames per
+   style and sink in step order, the last bit-equal to the style's
+   packed final image, each style's 20-step curve within 1e-3 relative
+   per step of a single run of that style (the final images' largest
+   difference beside it, and, for scale, a single run against itself
+   with its content perturbed by 1e-7); then frames off at S = 1, 4
+   and 8 and a single run, rounds interleaved: ms per step (the mean
+   step interval over steps 3-20), style-steps/s, the device-busy share
+   (profiled device time over the step interval) and the peak memory;
+10. a 64x64 run held against the same run on the CPU (plain versions),
    then the same for Adam with every term above and a 2-step warm
-   start at 32x32.
+   start at 32x32, then the same for a batch of 2 styles.
 
 The line before the card line is the kernels' JSON record (each
 kernel's launches in each driven path, and its times summed over a
-step at 512x512 and, under ``at_1024``, at 1024x1024); the last
+step at 512x512, under ``at_1024`` at 1024x1024, and for the batch
+phase's step at S = 4 under ``n4_512`` (conv) and ``batched_s4_512``
+(Gram)); the last
 line is the run's JSON verdict. Times come from CUDA events around
 replays of CUDA graphs of back-to-back calls on this run's card (device
 time; host launch overhead excluded for every version alike). Both
@@ -102,6 +124,8 @@ from style_transfer_visualizer_tpu_torch.engine.runner import (
 )
 from style_transfer_visualizer_tpu_torch.main import (
     prepare_model_and_input,
+    prepare_multi_style,
+    run_multi_style_loop,
     run_style_transfer,
     style_transfer,
 )
@@ -153,6 +177,13 @@ GRAM_SHAPES = [
 # power of two), is checked through the whole VGG19 stack.
 OBJECTIVE_SIZE = 1024
 NON_SQUARE = (528, 960)
+# The batch phase: S = 4 styles (numpy seeds 2-5; seed 5's is 384x640,
+# the others 512x512), timed at S = 1, 4 and 8 (seeds 2-9).
+BATCH_STYLES = 4
+BATCH_SAVE_EVERY = 5
+BATCH_TIMED = (1, 4, 8)
+BATCH_ROUNDS = 3
+ODD_STYLE = (5, (384, 640))
 
 
 def _card() -> str:
@@ -264,21 +295,25 @@ class Record:
         self.entry["plain_ms"] += count * plain_ms
         self.entry["library_ms"] += count * library_ms
 
-    def finish(self, launches: dict[str, int], at_1024: Record) -> dict:
+    def finish(
+        self, launches: dict[str, int], extras: dict[str, Record],
+    ) -> dict:
         """The JSON entry: the main path's launches and per-step sums.
 
         ``launches`` maps each driven path to its launch count; the
-        main path's is the entry's ``launches``. ``at_1024`` holds the
-        same sums over a step of the objective phase at full size.
+        main path's is the entry's ``launches``. Each of ``extras``
+        holds the same sums over a step of another configuration (the
+        objective phase at full size, the batch phase at S = 4).
         """
         out = dict(
             self.entry, launches=launches["main path"],
             launches_by_phase=launches,
         )
         out.update(self._bounds())
-        out["at_1024"] = {
-            k: at_1024.entry[k] for k in ("ms", "plain_ms", "library_ms")
-        } | at_1024._bounds()  # noqa: SLF001 - same class
+        for key, rec in extras.items():
+            out[key] = {
+                k: rec.entry[k] for k in ("ms", "plain_ms", "library_ms")
+            } | rec._bounds()  # noqa: SLF001 - same class
         return out
 
     def _bounds(self) -> dict:
@@ -295,11 +330,12 @@ def _bound_ms(flops: float, nbytes: float) -> float:
     return max(flops / TF32X3_FLOPS, nbytes / HBM_BYTES) * 1e3
 
 
-def _conv_cases(rec: Record, rec_1024: Record):
+def _conv_cases(rec: Record, rec_1024: Record, rec_n4: Record):
     """``(n, h, w, C_in, C_out, per step, of which fused, record)``.
 
-    The main path's shapes and twice their side (the objective phase
-    at full size) are timed into ``rec`` and ``rec_1024``; a batch of 2
+    The main path's shapes, twice their side (the objective phase at
+    full size) and the same at N = 4 (the batch phase's step at S = 4)
+    are timed into ``rec``, ``rec_1024`` and ``rec_n4``; a batch of 2
     and the 528x960 coarse level's stack are checked only.
     """
     cases = [
@@ -307,6 +343,10 @@ def _conv_cases(rec: Record, rec_1024: Record):
     ]
     cases += [
         (1, 2 * hw, 2 * hw, ci, co, n, f, rec_1024)
+        for hw, ci, co, n, f in CONV_SHAPES
+    ]
+    cases += [
+        (BATCH_STYLES, hw, hw, ci, co, n, f, rec_n4)
         for hw, ci, co, n, f in CONV_SHAPES
     ]
     cases.append((2, 64, 64, 128, 128, 0, 0, None))
@@ -336,9 +376,11 @@ def _vgg16_shapes_covered() -> None:
     print(f"conv vgg16 {SIZE}x{SIZE}: its {len(shapes)} shapes are checked")
 
 
-def _check_conv(rec: Record, rec_1024: Record) -> None:
+def _check_conv(rec: Record, rec_1024: Record, rec_n4: Record) -> None:
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for n, h, w, ci, co, count, fused, into in _conv_cases(rec, rec_1024):
+    for n, h, w, ci, co, count, fused, into in _conv_cases(
+        rec, rec_1024, rec_n4,
+    ):
         def rand(*shape, scale=1.0):
             return torch.randn(
                 shape, generator=gen, device="cuda",
@@ -375,6 +417,8 @@ def _check_conv(rec: Record, rec_1024: Record) -> None:
         ref = F.conv2d(xr.permute(0, 3, 1, 2), w_oihw, b, padding=1)
         ref.backward((g * (out.detach() > 0)).permute(0, 3, 1, 2))
         rec.err(xk.grad, xr.grad, f"{label} input gradient")
+        if n > 1:
+            _check_batch_invariant(x, g, wk, wkf, b, label)
         if not count:
             print(f"conv {label}: ok (check only)")
             continue
@@ -420,8 +464,28 @@ def _check_conv(rec: Record, rec_1024: Record) -> None:
         print(line)
 
 
-def _check_gram(rec: Record, rec_1024: Record) -> None:
-    """The main path's Gram shapes, then the objective phase's (P x 4)."""
+def _check_batch_invariant(x, g, wk, wkf, b, label: str) -> None:
+    """Each image of a batch gets, bit for bit, its output alone.
+
+    The forward (fused ReLU) and the fused-mask input gradient; the
+    launch plan picks the split over K per image, not per batch.
+    """
+    out = conv3x3.conv3x3_kernel(x, wk, b, True)
+    back = conv3x3.conv3x3_kernel(g, wkf, None, False, out)
+    for i in range(x.shape[0]):
+        one = conv3x3.conv3x3_kernel(x[i:i + 1].contiguous(), wk, b, True)
+        one_back = conv3x3.conv3x3_kernel(
+            g[i:i + 1].contiguous(), wkf, None, False, one,
+        )
+        if not (torch.equal(out[i], one[0])
+                and torch.equal(back[i], one_back[0])):
+            msg = f"conv {label}: image {i} differs from its launch alone"
+            raise AssertionError(msg)
+
+
+def _check_gram(rec: Record, rec_1024: Record, rec_b4: Record) -> None:
+    """The main path's Gram shapes, the objective phase's (P x 4), then
+    the batched launch (:func:`_check_gram_batched`)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = [(p, c, rec) for p, c in GRAM_SHAPES]
     cases += [(4 * p, c, rec_1024) for p, c in GRAM_SHAPES]
@@ -460,6 +524,86 @@ def _check_gram(rec: Record, rec_1024: Record) -> None:
             f"gram ({p},{c}): kernel_ms {times[0]:.4f} plain_ms "
             f"{times[1]:.4f} library_ms {times[2]:.4f} bound_ms "
             f"{_bound_ms(flops, nbytes):.4f}",
+        )
+    _check_gram_batched(rec, rec_b4, gen)
+
+
+def _check_gram_batched(
+    rec: Record, rec_b4: Record, gen: torch.Generator,
+) -> None:
+    """One launch for S images, each against its plain Gram.
+
+    S = 4 at the 512x512 shapes (timed into ``rec_b4``, against
+    ``torch.bmm`` fp32 on the same ``(S, C, P) . (S, P, C)``) and at
+    the 528x960 coarse level's, whose two deepest taps (P = 7920 and
+    1980) are not multiples of the kernel's 32-row slot: image s's last
+    slab must not read image s+1's rows, so each image is scaled
+    differently. At S = 1 the raw Gram is the single launch's, bit for
+    bit.
+    """
+    s = BATCH_STYLES
+    h, w = NON_SQUARE
+    cases = [(p, c, True) for p, c in GRAM_SHAPES]
+    cases += [
+        ((h >> k) * (w >> k), c, False)
+        for k, (_, c) in enumerate(GRAM_SHAPES)
+    ]
+    spread = 1.0 + torch.arange(s, device="cuda")[:, None, None] / s
+    for p, c, timed in cases:
+        norm = float(p * c)
+        for scale in (1.0, (1e6 / p) ** 0.5):
+            f = torch.randn(
+                (s, p, c), generator=gen, device="cuda",
+            ) * (scale * spread)
+            dg = torch.randn((s, c, c), generator=gen, device="cuda")
+            raw_k, g_k = gram.gram_kernel_batched(f, CLAMP, norm)
+            raw_p, g_p = gram.gram_plain_batched(f, CLAMP, norm)
+            active = bool((raw_p > CLAMP).any())
+            label = f"S={s} ({p},{c}) clamp_active={active}"
+            for i in range(s):
+                rec.err(raw_k[i], raw_p[i], f"{label} image {i} raw")
+                rec.err(g_k[i], g_p[i], f"{label} image {i} forward")
+                if not torch.equal(raw_k[i], raw_k[i].T):
+                    msg = f"gram {label}: raw Gram {i} is not symmetric"
+                    raise AssertionError(msg)
+            fk = f.reshape(s, 1, p, c).clone().requires_grad_(True)
+            gram.gram_matrix_batched(fk).backward(dg)
+            fr = f.clone().requires_grad_(True)
+            (torch.clamp(fr.mT @ fr, max=CLAMP) / norm).backward(dg)
+            for i in range(s):
+                rec.err(
+                    fk.grad[i, 0], fr.grad[i], f"{label} image {i} backward",
+                )
+            one, _ = gram.gram_kernel_batched(f[:1].contiguous(), CLAMP, norm)
+            for i in range(s):
+                single, _ = gram.gram_kernel(f[i].contiguous(), CLAMP, norm)
+                if not torch.equal(raw_k[i], single) or (
+                    i == 0 and not torch.equal(one[0], single)
+                ):
+                    msg = (
+                        f"gram ({p},{c}): image {i} differs from the "
+                        "single launch"
+                    )
+                    raise AssertionError(msg)
+        if not timed:
+            print(
+                f"gram {label}: ok, each image and S = 1 bit-equal to the "
+                "single launch (check only)",
+            )
+            continue
+        times = _times(
+            partial(gram.gram_kernel_batched, f, CLAMP, norm),
+            partial(gram.gram_plain_batched, f, CLAMP, norm),
+            partial(torch.bmm, f.mT, f),
+        )
+        flops = float(s * p * c * (c + 1))
+        nbytes = 4.0 * s * (p * c + 2 * c * c)
+        rec_b4.add(1, *times, flops, nbytes)
+        print(
+            f"gram S={s} ({p},{c}) one launch: kernel_ms {times[0]:.4f} "
+            f"plain_ms {times[1]:.4f} library_ms (torch.bmm) "
+            f"{times[2]:.4f} bound_ms {_bound_ms(flops, nbytes):.4f}; "
+            f"each image and S = 1 bit-equal to the single launch",
         )
 
 
@@ -1045,6 +1189,311 @@ def _adam_vgg16() -> tuple[int, int]:
     )
     return launches
 
+def _style_arrays(n: int) -> list[np.ndarray]:
+    """``n`` style images: numpy seeds 2, 3, ...; seed 5's is 384x640."""
+    out = []
+    for seed in range(2, 2 + n):
+        h, w = ODD_STYLE[1] if seed == ODD_STYLE[0] else (SIZE, SIZE)
+        rng = np.random.default_rng(seed)
+        out.append(rng.uniform(size=(1, h, w, 3)).astype(np.float32))
+    return out
+
+
+def _batch_config(steps: int, *, media: bool, **opt):
+    """The batch phase's config: shipped defaults from the content."""
+    config = _config(steps, "cuda", init_method="content", **opt)
+    config.output.plot_losses = False
+    config.video.save_every = BATCH_SAVE_EVERY
+    config.video.create_gif = media
+    config.video.create_video = media
+    return config
+
+
+def _batch_run(content, styles, config, params=None, *, sinks=None,
+               capture=None):
+    """``prepare_multi_style`` then ``run_multi_style_loop``.
+
+    Returns the final stacked images, the last state, the bundle, the
+    ``(steps, S)`` losses (kept on the device until the end), the host
+    clock at the end of each step and the conv and Gram launches of the
+    step loop alone. ``sinks`` (a dict) collects in-memory sinks by
+    file name; ``capture(step, images)`` sees every step.
+    """
+    bundle, images = prepare_multi_style(
+        content, styles, config, params=params,
+    )
+    prepared = (conv3x3.launches.count, gram.launches.count)
+    losses: list[torch.Tensor] = []
+    step_ends: list[float] = []
+
+    def on_step_end(step, imgs, aux):
+        losses.append(aux.loss)
+        step_ends.append(time.perf_counter())
+        if capture is not None:
+            capture(step, imgs)
+
+    def make_sink(kind, name):
+        del kind
+        sinks[name] = _FrameSink()
+        return sinks[name]
+
+    images, state, errors = run_multi_style_loop(
+        bundle, images, config,
+        Path(__file__).resolve().parent / PACKAGE / "build" / "batch",
+        [f"s{i}" for i in range(len(styles))],
+        progress_bar=_Progress(),
+        make_sink=make_sink if sinks is not None else None,
+        on_step_end=on_step_end,
+    )
+    if errors:
+        raise errors[0]
+    loop_launches = (
+        conv3x3.launches.count - prepared[0],
+        gram.launches.count - prepared[1],
+    )
+    return (
+        images, state, bundle, torch.stack(losses), step_ends,
+        loop_launches,
+    )
+
+
+def _packed(images: torch.Tensor) -> torch.Tensor:
+    return image_io.pack_uint8_frames_batch(
+        image_io.prepare_image_for_output(images, normalize=True),
+    )
+
+
+def _device_ms_per_step(bundle, images, state, steps: int = 5) -> float:
+    """Device kernel time of one step, from ``torch.profiler``."""
+    for _ in range(2):
+        images, state, _ = bundle.update_fn(images, state)
+    torch.cuda.synchronize()
+    acts = [
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA,
+    ]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            images, state, _ = bundle.update_fn(images, state)
+        torch.cuda.synchronize()
+    busy_us = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    if busy_us <= 0:
+        msg = "the profiler saw no device time"
+        raise AssertionError(msg)
+    return busy_us / steps / 1e3
+
+
+def _batch() -> tuple[int, int]:
+    """The multi-style batch at 512x512: S = 4, then S = 1, 4 and 8."""
+    content = _images(SIZE, 1)[0]
+    styles = _style_arrays(max(BATCH_TIMED))
+    params = load_pretrained_params(
+        torch.device("cuda"), allow_random=True, seed=0,
+    )
+    config = _batch_config(STEPS, media=True)
+    sinks: dict[str, _FrameSink] = {}
+    cadence: list[torch.Tensor] = []
+
+    def capture(step, imgs):
+        if step % BATCH_SAVE_EVERY == 0:
+            cadence.append(_packed(imgs))
+
+    before = _fresh_peak()
+    (images, _, _, losses, _, _), run_s, launches = _counted_run(
+        lambda: _batch_run(
+            content, styles[:BATCH_STYLES], config, params, sinks=sinks,
+            capture=capture,
+        ),
+    )
+    peak = torch.cuda.max_memory_allocated()
+    want = _launches_wanted(
+        VGG19, config.optimization, SIZE, BATCH_STYLES,
+    )
+    if launches != want:
+        msg = f"batch: launches conv/gram {launches}, expected {want}"
+        raise AssertionError(msg)
+    curves = losses.cpu().numpy()
+    if curves.shape != (STEPS, BATCH_STYLES) or not np.isfinite(
+        curves,
+    ).all() or not (curves[-1] < curves[0]).all():
+        msg = f"batch: losses not finite and decreasing: {curves}"
+        raise AssertionError(msg)
+    final = _packed(images).cpu().numpy()
+    expected = [c.cpu().numpy() for c in cadence]
+    if len(sinks) != 2 * BATCH_STYLES:
+        msg = f"batch: sinks {sorted(sinks)}"
+        raise AssertionError(msg)
+    for name, sink in sinks.items():
+        i = int(name.rsplit("_s", 1)[1].split(".")[0])
+        frames = sink.frames
+        if len(frames) != STEPS // BATCH_SAVE_EVERY or any(
+            f.shape != (SIZE, SIZE, 3) or f.dtype != np.uint8
+            for f in frames
+        ):
+            msg = f"batch {name}: {len(frames)} frames"
+            raise AssertionError(msg)
+        if not all(
+            np.array_equal(f, e[i]) for f, e in zip(frames, expected,
+                                                    strict=True)
+        ):
+            msg = f"batch {name}: frames out of step order"
+            raise AssertionError(msg)
+        if not np.array_equal(frames[-1], final[i]):
+            msg = f"batch {name}: last frame is not the final image"
+            raise AssertionError(msg)
+    # Each style's curve against a single run of that style, and the
+    # same single run with its content perturbed by 1e-7 relative: the
+    # shipped fixed-step L-BFGS grows such a difference past 1e-3, so
+    # the batch keeps each style's arithmetic the single run's.
+    single_err, image_err = [], []
+    for i in range(BATCH_STYLES):
+        single_image, history = run_style_transfer(
+            content, styles[i], _config(STEPS, "cuda", init_method="content"),
+        )
+        single = np.asarray(history["total_loss"])
+        rel = np.abs(curves[:, i] - single) / np.abs(single)
+        if not rel.max() <= 1e-3:  # noqa: PLR2004
+            msg = (
+                f"batch style {i}: curve off its single run by "
+                f"{rel.max():.3g}: {curves[:, i]} vs {single}"
+            )
+            raise AssertionError(msg)
+        single_err.append(float(rel.max()))
+        batch_image = image_io.prepare_image_for_output(
+            images[i], normalize=True,
+        )
+        image_err.append(float((batch_image - single_image).abs().max()))
+    rng = np.random.default_rng(9)
+    nudged = content * (1 + 1e-7 * rng.standard_normal(content.shape))
+    _, history = run_style_transfer(
+        nudged.astype(np.float32), styles[0],
+        _config(STEPS, "cuda", init_method="content"),
+    )
+    _, base = run_style_transfer(
+        content, styles[0], _config(STEPS, "cuda", init_method="content"),
+    )
+    nudge_err = float(np.max(
+        np.abs(np.asarray(history["total_loss"]) - base["total_loss"])
+        / np.abs(base["total_loss"]),
+    ))
+    print(
+        f"batch {SIZE}x{SIZE} vgg19 L-BFGS S={BATCH_STYLES} (styles "
+        f"{[tuple(x.shape[1:3]) for x in styles[:BATCH_STYLES]]}) {STEPS} "
+        f"steps save_every={BATCH_SAVE_EVERY} GIF+MP4 in memory: losses "
+        f"{curves[0].tolist()} -> {curves[-1].tolist()}; launches conv "
+        f"{launches[0]} gram {launches[1]} (expected {want}); "
+        f"{STEPS // BATCH_SAVE_EVERY} frames per style and sink in step "
+        f"order, the last equal to the final image; each style's curve "
+        f"within {max(single_err):.3g} relative of its single run "
+        f"(per style {[f'{e:.3g}' for e in single_err]}), final images "
+        f"max abs diff {image_err} (a single run against itself with its "
+        f"content perturbed by 1e-7 relative: {nudge_err:.3g}); run s "
+        f"{run_s:.3f}; max_memory_allocated {peak}, of which allocated "
+        f"before the run {before} (the run's own {peak - before})",
+    )
+    _batch_speed(content, styles, params)
+    return launches
+
+
+def _batch_speed(content, styles, params) -> None:
+    """Frames off: S = 1, 4, 8 and the single run, rounds interleaved."""
+    gaps: dict[str, list[float]] = {"single": []}
+    gaps |= {f"S={n}": [] for n in BATCH_TIMED}
+    peaks: dict[str, int] = {}
+    steps_launches: dict[str, tuple[int, int]] = {}
+    last = {}
+    for _ in range(BATCH_ROUNDS):
+        run = _timelapse_run(content, styles[0], params, STEPS, None)
+        gaps["single"].append(float(np.mean(np.diff(run[5][2:]))) * 1e3)
+        for n in BATCH_TIMED:
+            config = _batch_config(STEPS, media=False)
+            before = _fresh_peak()
+            out, _, counts = _counted_run(
+                lambda n=n, config=config: _batch_run(
+                    content, styles[:n], config, params,
+                ),
+            )
+            key = f"S={n}"
+            peaks[key] = torch.cuda.max_memory_allocated() - before
+            want = _launches_wanted(VGG19, config.optimization, SIZE, n)
+            if counts != want:
+                msg = f"batch {key}: launches {counts}, expected {want}"
+                raise AssertionError(msg)
+            steps_launches[key] = tuple(c / STEPS for c in out[5])
+            gaps[key].append(float(np.mean(np.diff(out[4][2:]))) * 1e3)
+            last[key] = out
+    ms = {k: statistics.median(v) for k, v in gaps.items()}
+    busy = {}
+    for n in BATCH_TIMED:
+        key = f"S={n}"
+        images, state, bundle, _, _, _ = last.pop(key)
+        busy[key] = _device_ms_per_step(bundle, images, state) / ms[key]
+        del images, state, bundle
+    if len(set(steps_launches.values())) != 1:
+        msg = f"batch: a step's launches grow with S: {steps_launches}"
+        raise AssertionError(msg)
+    print(
+        f"batch speed {SIZE}x{SIZE} frames off, {BATCH_ROUNDS} rounds "
+        f"interleaved, median of the mean step interval over steps 3-{STEPS}:"
+        + "".join(
+            f" {k} {v:.3f} ms/step"
+            + (f" {int(k[2:]) * 1e3 / v:.2f} style-steps/s" if k != "single"
+               else f" {1e3 / v:.2f} steps/s")
+            for k, v in ms.items()
+        )
+        + f"; rounds {gaps}; device busy share (profiled device ms over "
+        f"the step interval) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in busy.items())
+        + f"; launches per step conv/gram {steps_launches['S=1']} at every "
+        f"S; the run's own peak memory "
+        + ", ".join(f"{k} {v}" for k, v in peaks.items()),
+    )
+
+
+def _small_batch_reference() -> None:
+    """A 64x64 batch of 2 on the card against the same on the CPU.
+
+    As the single run's whole-objective reference: Adam with every term
+    (TV, Laplacian, per-layer style weights, luminance) and a 2-step
+    warm start at 32x32; both start from the content image. (The
+    shipped fixed-step L-BFGS grows the card's and the CPU's rounding
+    differences past 1e-3 within a few steps; the batch phase holds the
+    batched L-BFGS to the single one on the card, and the first
+    reference holds that to the CPU.)
+    """
+    content = _images(64, 1)[0]
+    styles = [_images(64, 5)[0], _images(64, 6)[0]]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        config = _config(
+            3, device, init_method="content", optimizer="adam", lr=0.1,
+            tv_w=1e-2, lap_w=1e2, coarse_steps=2,
+            style_layer_weights=[1, 1, 0.5, 0.25, 0.25],
+            preserve_color="luminance",
+        )
+        config.output.plot_losses = False
+        config.video.create_video = False
+        bundle, images = prepare_multi_style(content, styles, config)
+        losses = []
+        images, _, _ = run_multi_style_loop(
+            bundle, images, config, Path("unused"), ["a", "b"],
+            progress_bar=_Progress(),
+            on_step_end=lambda _s, _i, aux, out=losses: out.append(aux.loss),
+        )
+        runs[device] = (torch.stack(losses).cpu().numpy(), images.cpu())
+    gpu, cpu = runs["cuda"][0], runs["cpu"][0]
+    np.testing.assert_allclose(gpu, cpu, rtol=1e-3)
+    img_err = float((runs["cuda"][1] - runs["cpu"][1]).abs().max())
+    print(
+        f"small reference 64x64 batch of 2, whole objective, Adam, 2 "
+        f"coarse steps at 32x32, 3 steps: cuda {gpu.tolist()} cpu "
+        f"{cpu.tolist()} image max abs diff {img_err:.3g}",
+    )
+
+
 def main() -> int:
     """Run every phase; return 0 when all pass (failures raise)."""
     if not torch.cuda.is_available():
@@ -1070,29 +1519,34 @@ def main() -> int:
                 print(f"  {kernel.name}: {line.strip()}")
 
     records = {}
-    for name, source, replaces in (
-        ("conv3x3", "csrc/conv3x3.cu", "ops/pallas_conv.py:63"),
-        ("gram", "csrc/gram.cu", "ops/pallas_gram.py:40"),
+    for name, source, replaces, batch_key in (
+        ("conv3x3", "csrc/conv3x3.cu", "ops/pallas_conv.py:63", "n4_512"),
+        ("gram", "csrc/gram.cu", "ops/pallas_gram.py:40", "batched_s4_512"),
     ):
-        records[name] = tuple(
+        main_rec, *extra = (
             Record(
                 name, f"{PACKAGE}/{source}",
                 f"style_transfer_visualizer_tpu/{replaces}",
             )
-            for _ in range(2)
+            for _ in range(3)
         )
-    _check_conv(*records["conv3x3"])
+        records[name] = (main_rec, dict(zip(
+            ("at_1024", batch_key), extra, strict=True,
+        )))
+    _check_conv(records["conv3x3"][0], *records["conv3x3"][1].values())
     _vgg16_shapes_covered()
-    _check_gram(*records["gram"])
+    _check_gram(records["gram"][0], *records["gram"][1].values())
     phases = {"main path": _main_path()}
     phases["timelapse"] = _timelapse()
     phases["objective"] = _objective()
     phases["adam vgg16"] = _adam_vgg16()
+    phases["batch"] = _batch()
     _small_reference()
+    _small_batch_reference()
 
     kernels = [
-        rec.finish({k: v[i] for k, v in phases.items()}, rec_1024)
-        for i, (rec, rec_1024) in enumerate(records.values())
+        rec.finish({k: v[i] for k, v in phases.items()}, extras)
+        for i, (rec, extras) in enumerate(records.values())
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

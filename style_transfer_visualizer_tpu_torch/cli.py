@@ -1,9 +1,12 @@
-"""Command line of the port: one content image, one style or a blend.
+"""Command line of the port: one content image, one style, a blend or
+the multi-style batch.
 
     python -m style_transfer_visualizer_tpu_torch.cli \\
         --content c.png --style s.png --steps 300 --device cuda
     python -m style_transfer_visualizer_tpu_torch.cli \\
         --content c.png --styles s1.png,s2.png --style-blend 0.7,0.3
+    python -m style_transfer_visualizer_tpu_torch.cli \\
+        --content c.png --styles s1.png,s2.png
 
 The flags the port supports carry the JAX package's names and defaults:
 the optimization flags of the single run (the optimizer, the TV and
@@ -12,8 +15,9 @@ model, the coarse warm start), the style blend, and the output and
 video flags of the timelapse (``--save-every``, ``--no-video``,
 ``--gif``, ``--log-loss``, ``--compare-inputs`` and the rest). A
 realtime or postprocess MP4 needs ``ffmpeg`` on PATH; the GIF needs
-imageio. ``--styles`` without ``--style-blend`` (the JAX package's
-per-style batch) is not ported yet and exits with a message.
+imageio. ``--styles`` without ``--style-blend`` is the JAX package's
+per-style batch: one stylization per style, all in one stacked step
+(``main.multi_style_transfer``).
 """
 from __future__ import annotations
 
@@ -29,7 +33,10 @@ from style_transfer_visualizer_tpu_torch.config import (
     StyleTransferConfig,
     VideoConfig,
 )
-from style_transfer_visualizer_tpu_torch.main import style_transfer
+from style_transfer_visualizer_tpu_torch.main import (
+    multi_style_transfer,
+    style_transfer,
+)
 from style_transfer_visualizer_tpu_torch.runtime.comparison import (
     ComparisonRequest,
     render_requested_comparisons,
@@ -365,8 +372,7 @@ def _check_style_args(args: argparse.Namespace) -> list[str] | None:
     """The ``--styles`` list, after the JAX package's combination checks.
 
     ``None`` without ``--styles``. Raises ``SystemExit`` with the JAX
-    package's message for a blend without styles or an empty list, and
-    for the per-style batch (``--styles`` alone), which is not ported.
+    package's message for a blend without styles or an empty list.
     """
     if args.style_blend and not args.styles:
         msg = "--style-blend requires --styles (the images to blend)"
@@ -376,13 +382,6 @@ def _check_style_args(args: argparse.Namespace) -> list[str] | None:
     style_paths = [s.strip() for s in args.styles.split(",") if s.strip()]
     if not style_paths:
         msg = "--styles was given but contains no paths"
-        raise SystemExit(msg)
-    if not args.style_blend:
-        msg = (
-            "--styles without --style-blend is the multi-style batch, "
-            "which the PyTorch port does not have yet; pass "
-            "--style-blend to blend the styles into one stylization"
-        )
         raise SystemExit(msg)
     return style_paths
 
@@ -468,6 +467,13 @@ def main(argv: Sequence[str] | None = None) -> int:
         parser.error(str(exc))
     style_paths = _check_style_args(args)
     if style_paths is not None:
+        if not args.style_blend:
+            logger.info(
+                "Multi-style batch: content=%s styles=%s",
+                args.content, style_paths,
+            )
+            multi_style_transfer(args.content, style_paths, config)
+            return 0
         _run_blended(
             args, config, _parse_blend_weights(args.style_blend, style_paths),
         )

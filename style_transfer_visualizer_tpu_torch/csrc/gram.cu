@@ -1,6 +1,6 @@
-// Raw Gram matrix F^T F of a (P, C) float32 block, plus the clamped and
-// normalized G = min(raw, clamp) / n, on Hopper's tensor cores in
-// 3xTF32 (see tf32x3.cuh), in one launch.
+// Raw Gram matrices F_s^T F_s of a (S, P, C) float32 batch, plus the
+// clamped and normalized G_s = min(raw_s, clamp) / n, on Hopper's tensor
+// cores in 3xTF32 (see tf32x3.cuh), in one launch for all S images.
 //
 // Replaces the Pallas TPU kernel `_gram_accumulate_kernel` (with its
 // driver `_raw_gram`) of style_transfer_visualizer_tpu/ops/pallas_gram.py.
@@ -9,9 +9,12 @@
 // no order, so the sum over P is split, deterministically and without
 // float atomics:
 //
-//   - block (t, s) of the (T(T+1)/2, S) grid, T = C/64 tiles a side,
-//     takes the t-th 64 x 64 tile pair (i <= j) of the upper triangle
-//     (G is symmetric) and the s-th contiguous range of pixel rows;
+//   - block (t, s, b) of the (T(T+1)/2, splits, S) grid, T = C/64 tiles
+//     a side, takes image b's t-th 64 x 64 tile pair (i <= j) of the
+//     upper triangle (G is symmetric) and its s-th contiguous range of
+//     pixel rows. F is read through a 3-D tensor map (C, P, S), so the
+//     last slab of an image's range is zero-filled past row P and never
+//     reads the next image's rows;
 //   - a producer warp streams 32-row slabs of the two 64-channel
 //     column blocks of F into a ring of shared-memory slots with TMA
 //     (one slab when i == j), guarded by mbarriers;
@@ -20,17 +23,20 @@
 //     must be K-major (pixels contiguous) for a tf32 wgmma, so one pass
 //     splits and transposes the F_j slab into hi and lo tiles in shared
 //     memory; then three wgmma m64n64k8 per k8 slice (3xTF32);
-//   - each block writes its partial tile to the workspace; the sum of
-//     the S partials is taken in two levels, each in fixed order, so
+//   - each block writes its partial tile to the workspace (per image
+//     and pair); the sum of the partials is taken in two levels, each
+//     in fixed order, so
 //     that no single block reads all S of them: the splits form groups
 //     of `group`; a block takes a ticket from its group's counter, and
 //     the group's last block to arrive sums the group's partials in
 //     split order into a group tile; it then takes a ticket from the
 //     pair's counter, and the last group to arrive sums the group tiles
-//     in group order, writes raw[i, j] and its mirror raw[j, i] (the
+//     in group order, writes raw_b[i, j] and its mirror raw_b[j, i] (the
 //     same value: raw is bit-symmetric) with the clamp and scale fused
 //     into G. Each last block sets its counter back to 0 for the next
-//     call.
+//     call. An image's blocks never touch another image's workspace,
+//     counters or output, so each image's raw Gram is the one the
+//     launch computes for that image alone (S = 1), bit for bit.
 //
 // Bound on the H100 SXM: the symmetric product needs P*C*(C+1) flops
 // against 4*P*C bytes read: bound by bytes at C <= 128 and by the
@@ -50,10 +56,10 @@ constexpr int kSlabBytes = kKP * kT * 4;  // 32 rows x 64 channels
 constexpr int kSubFloats = kKP * kRowFloats;  // one 32 x 32 TMA box
 
 struct GramArgs {
-  float* ws;       // (pairs, splits + groups, 64, 64) partial tiles
-  int* counters;   // (pairs, groups + 1), 0 between calls
-  float* raw;
-  float* g;
+  float* ws;       // (S, pairs, splits + groups, 64, 64) partial tiles
+  int* counters;   // (S, pairs, groups + 1), 0 between calls
+  float* raw;      // (S, C, C)
+  float* g;        // (S, C, C)
   long long p, rows_per_split;
   int c, tiles, splits, group, groups, stages;
   float clamp, norm;
@@ -128,6 +134,7 @@ gram_tf32x3_kernel(const __grid_constant__ CUtensorMap map_f,
     ++bi;
   }
   const int bj = bi + rem;
+  const int image = static_cast<int>(blockIdx.z);
   const bool diag = bi == bj;
   const int i0 = bi * kT;
   const int j0 = bj * kT;
@@ -165,12 +172,12 @@ gram_tf32x3_kernel(const __grid_constant__ CUtensorMap map_f,
       const int p0 = static_cast<int>(p_begin) + s * kKP;
       bar_arrive_tx(&full[slot], bytes);
       float* fi = slab_i(slot);
-      tma_2d(fi, &map_f, &full[slot], i0, p0);
-      tma_2d(fi + kSubFloats, &map_f, &full[slot], i0 + 32, p0);
+      tma_3d(fi, &map_f, &full[slot], i0, p0, image);
+      tma_3d(fi + kSubFloats, &map_f, &full[slot], i0 + 32, p0, image);
       if (!diag) {
         float* fj = slab_j(slot);
-        tma_2d(fj, &map_f, &full[slot], j0, p0);
-        tma_2d(fj + kSubFloats, &map_f, &full[slot], j0 + 32, p0);
+        tma_3d(fj, &map_f, &full[slot], j0, p0, image);
+        tma_3d(fj + kSubFloats, &map_f, &full[slot], j0 + 32, p0, image);
       }
     }
     return;
@@ -237,7 +244,9 @@ gram_tf32x3_kernel(const __grid_constant__ CUtensorMap map_f,
   }
 
   // ---- partial tile, then the two-level fixed-order sum
-  const int pair = static_cast<int>(blockIdx.x);
+  // This image's pair: its partial tiles, counters and output.
+  const int pair = image * static_cast<int>(gridDim.x) +
+                   static_cast<int>(blockIdx.x);
   const int split = static_cast<int>(blockIdx.y);
   float* tiles = args.ws + static_cast<long long>(pair) *
                                (args.splits + args.groups) * kTileFloats;
@@ -277,8 +286,9 @@ gram_tf32x3_kernel(const __grid_constant__ CUtensorMap map_f,
       const int j = j0 + cc;
       if ((diag && r > cc) || i >= args.c || j >= args.c) continue;
       const float gv = fminf(vals[e], args.clamp) / args.norm;
-      const long long ij = static_cast<long long>(i) * args.c + j;
-      const long long ji = static_cast<long long>(j) * args.c + i;
+      const long long base = static_cast<long long>(image) * args.c * args.c;
+      const long long ij = base + static_cast<long long>(i) * args.c + j;
+      const long long ji = base + static_cast<long long>(j) * args.c + i;
       args.raw[ij] = vals[e];
       args.raw[ji] = vals[e];
       args.g[ij] = gv;
@@ -289,18 +299,21 @@ gram_tf32x3_kernel(const __grid_constant__ CUtensorMap map_f,
 
 }  // namespace
 
-// Launch on `stream` (one kernel launch); returns 0, a cudaError_t, or
-// tf32x3::kTensorMapError + a driver code. `ws` holds pairs * (splits +
-// groups) * 64 * 64 floats; `counters` holds pairs * (groups + 1)
-// zeroed ints and is left zeroed. The split ranges are
-// `rows_per_split` rows long (a multiple of 32) and cover all p rows;
-// groups = ceil(splits / group); c % 4 == 0 (TMA row stride). The
-// plan comes from ops/gram.py's gram_plan.
+// Launch on `stream` (one kernel launch for all `batch` images of the
+// contiguous (batch, p, c) block `f`); returns 0, a cudaError_t, or
+// tf32x3::kTensorMapError + a driver code. `raw` and `g` are (batch, c,
+// c); `ws` holds batch * pairs * (splits + groups) * 64 * 64 floats;
+// `counters` holds batch * pairs * (groups + 1) zeroed ints and is left
+// zeroed. The split ranges are `rows_per_split` rows long (a multiple
+// of 32) and cover all p rows of an image; groups = ceil(splits /
+// group); c % 4 == 0 (TMA row stride). The plan comes from
+// ops/gram.py's gram_plan.
 extern "C" int gram_forward(const float* f, float* ws, int* counters,
-                            float* raw, float* g, long long p, int c,
-                            int splits, long long rows_per_split, int group,
-                            int stages, int smem_bytes, float clamp,
-                            float norm, int device, void* stream) {
+                            float* raw, float* g, int batch, long long p,
+                            int c, int splits, long long rows_per_split,
+                            int group, int stages, int smem_bytes,
+                            float clamp, float norm, int device,
+                            void* stream) {
   // The calling thread may have no current context yet; the
   // tensor-map encoder needs one.
   const cudaError_t set = cudaSetDevice(device);
@@ -311,11 +324,13 @@ extern "C" int gram_forward(const float* f, float* ws, int* counters,
                 c,      tiles,    splits, group,  groups, stages,
                 clamp,  norm};
   CUtensorMap map{};
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(c),
-                              static_cast<cuuint64_t>(p)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(c) * 4};
-  const cuuint32_t box[2] = {kRowFloats, kKP};
-  const int rc = make_map(&map, f, 2, dims, strides, box);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(c),
+                              static_cast<cuuint64_t>(p),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(c) * 4,
+                                 static_cast<cuuint64_t>(p) * c * 4};
+  const cuuint32_t box[3] = {kRowFloats, kKP, 1};
+  const int rc = make_map(&map, f, 3, dims, strides, box);
   if (rc != 0) return rc;
   // The opt-in to more than 48 KB of dynamic shared memory is made once
   // (the plan's size does not change).
@@ -324,7 +339,8 @@ extern "C" int gram_forward(const float* f, float* ws, int* counters,
       smem_bytes);
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
   const dim3 grid(static_cast<unsigned>(tiles * (tiles + 1) / 2),
-                  static_cast<unsigned>(splits));
+                  static_cast<unsigned>(splits),
+                  static_cast<unsigned>(batch));
   gram_tf32x3_kernel<<<grid, kThreads, smem_bytes,
                        static_cast<cudaStream_t>(stream)>>>(map, args);
   return static_cast<int>(cudaGetLastError());

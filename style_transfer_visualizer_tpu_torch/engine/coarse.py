@@ -11,7 +11,9 @@ coarsest level starts from ``init_method``. With ``coarse_steps=-1``
 Every level runs the same kernels as the full-size run, at its own
 shape. The JAX package's banded and rematerialized levels (above 4.2
 MP, so for content of about 17 MP and up) are not ported: such a level
-raises.
+raises. :func:`multi_coarse_init` is the same schedule for the
+multi-style batch: every level optimizes all S styles in one stacked
+step, each against its own style resized to the level.
 """
 from __future__ import annotations
 
@@ -33,6 +35,11 @@ from style_transfer_visualizer_tpu_torch.models.features import (
     targets_maybe_blended,
 )
 from style_transfer_visualizer_tpu_torch.ops.lap import lap_response
+from style_transfer_visualizer_tpu_torch.parallel.multistyle import (
+    build_multi_style_update,
+    initialize_multi_inputs,
+    multi_style_targets,
+)
 from style_transfer_visualizer_tpu_torch.utils.logging import logger
 
 # Four 2x2 pools sit above the deepest default tap; multiples of 16
@@ -165,6 +172,40 @@ def resize_image(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
     return _interpolate(img, height, width, antialias=width < w)
 
 
+def _check_level_size(ch: int, cw: int) -> None:
+    """Raise for a level that needs the banded or remat evaluation."""
+    if ch * cw >= min(AUTO_TILE_PIXEL_THRESHOLD, AUTO_REMAT_PIXEL_THRESHOLD):
+        msg = (
+            f"coarse level {cw}x{ch} needs banded evaluation or "
+            "feature rematerialization, which the port does not have "
+            "yet (ROADMAP.md queue 6); pass --coarse-steps 0"
+        )
+        raise NotImplementedError(msg)
+
+
+def _level_lap(
+    opt_cfg, coarse_content: torch.Tensor, ch: int, cw: int,
+) -> tuple[float, torch.Tensor | None]:
+    """The level's ``(lap_w, lap_target)``.
+
+    The term is skipped at a level whose pooled image is under 3x3;
+    otherwise each level matches the Laplacian of its own resized
+    content.
+    """
+    lap_w = opt_cfg.lap_w
+    if lap_w and min(ch, cw) // opt_cfg.lap_pool < _MIN_LAP_POOLED:
+        logger.info(
+            "Coarse level %dx%d is too small for lap_pool=%d; the "
+            "Laplacian term starts at the next level.",
+            cw, ch, opt_cfg.lap_pool,
+        )
+        lap_w = 0.0
+    lap_target = (
+        lap_response(coarse_content, opt_cfg.lap_pool) if lap_w else None
+    )
+    return lap_w, lap_target
+
+
 def coarse_init(
     params,
     content_img: torch.Tensor,
@@ -222,13 +263,7 @@ def _optimize_level(
     ``start`` is the coarser level's image already resized to this
     level; None starts the coarsest level from ``init_method``.
     """
-    if ch * cw >= min(AUTO_TILE_PIXEL_THRESHOLD, AUTO_REMAT_PIXEL_THRESHOLD):
-        msg = (
-            f"coarse level {cw}x{ch} needs banded evaluation or "
-            "feature rematerialization, which the port does not have "
-            "yet (ROADMAP.md queue 6); pass --coarse-steps 0"
-        )
-        raise NotImplementedError(msg)
+    _check_level_size(ch, cw)
     opt_cfg = config.optimization
     coarse_content = resize_image(content_img, ch, cw)
     coarse_style = resize_image(style_img, ch, cw)
@@ -248,18 +283,7 @@ def _optimize_level(
     targets = targets_maybe_blended(
         one_targets, coarse_style, content_layers, coarse_blend,
     )
-    lap_w = opt_cfg.lap_w
-    if lap_w and min(ch, cw) // opt_cfg.lap_pool < _MIN_LAP_POOLED:
-        logger.info(
-            "Coarse level %dx%d is too small for lap_pool=%d; the "
-            "Laplacian term starts at the next level.",
-            cw, ch, opt_cfg.lap_pool,
-        )
-        lap_w = 0.0
-    # Each level matches the Laplacian of its own resized content.
-    lap_target = (
-        lap_response(coarse_content, opt_cfg.lap_pool) if lap_w else None
-    )
+    lap_w, lap_target = _level_lap(opt_cfg, coarse_content, ch, cw)
     bundle = build_update_step(
         params, targets, tuple(coarse_content.shape),
         optimizer=opt_cfg.optimizer,
@@ -293,3 +317,80 @@ def _optimize_level(
         cw, ch, float(aux.loss[-1]),
     )
     return x
+
+
+def multi_coarse_init(
+    params,
+    content_img: torch.Tensor,
+    style_imgs: list[torch.Tensor],
+    config,
+    generator: torch.Generator | None,
+) -> torch.Tensor | None:
+    """Warm-started ``(S, 1, H, W, 3)`` starting images, or None.
+
+    The batch's :func:`coarse_init` (the JAX package's
+    ``main._multi_initial_images``): the same schedule, each level one
+    stacked problem of all S styles against its own per-style targets
+    at that level, the Laplacian skipped below ``3 * lap_pool``. The
+    stacked images are resized between levels and to full size with
+    :func:`resize_image`. None when ``coarse_steps`` is 0 or the image
+    is too small to halve.
+    """
+    opt_cfg = config.optimization
+    _, height, width, _ = content_img.shape
+    schedule = plan_pyramid(
+        int(height), int(width), opt_cfg.coarse_steps,
+        opt_cfg.pyramid_levels,
+    )
+    if not schedule:
+        return None
+    n_styles = len(style_imgs)
+    x: torch.Tensor | None = None
+    for ch, cw, steps in schedule:
+        _check_level_size(ch, cw)
+        coarse_content = resize_image(content_img, ch, cw)
+        targets = multi_style_targets(
+            params, coarse_content,
+            [resize_image(s, ch, cw) for s in style_imgs],
+            tuple(opt_cfg.style_layers), tuple(opt_cfg.content_layers),
+        )
+        lap_w, lap_target = _level_lap(opt_cfg, coarse_content, ch, cw)
+        bundle = build_multi_style_update(
+            params, targets, tuple(coarse_content.shape), n_styles,
+            optimizer=opt_cfg.optimizer,
+            lr=opt_cfg.lr,
+            style_w=opt_cfg.style_w,
+            content_w=opt_cfg.content_w,
+            tv_w=opt_cfg.tv_w,
+            lap_w=lap_w,
+            lap_pool=opt_cfg.lap_pool,
+            lap_target=lap_target,
+            style_layers=tuple(opt_cfg.style_layers),
+            style_weights=opt_cfg.style_weights_tuple(),
+            content_layers=tuple(opt_cfg.content_layers),
+            lbfgs_max_iter=opt_cfg.lbfgs_max_iter,
+            lbfgs_max_eval=opt_cfg.lbfgs_max_eval,
+            lbfgs_history_size=opt_cfg.lbfgs_history_size,
+            lbfgs_history_dtype=opt_cfg.lbfgs_history_dtype,
+            lbfgs_direction=opt_cfg.lbfgs_direction,
+        )
+        if x is None:
+            x = initialize_multi_inputs(
+                coarse_content, opt_cfg.init_method, generator, n_styles,
+            )
+        else:
+            x = resize_image(x[:, 0], ch, cw)[:, None]
+        logger.info(
+            "Coarse warm start: %d stacked steps at %dx%d for %d styles.",
+            steps, cw, ch, n_styles,
+        )
+        x, _, aux = drive_chunked(
+            bundle.chunked_update_fn, x, bundle.opt_state, steps,
+            DEFAULT_CHUNK,
+        )
+        # The level's one host read.
+        logger.info(
+            "Coarse level %dx%d done (final losses %s).",
+            cw, ch, ", ".join(f"{v:.4g}" for v in aux.loss[-1].tolist()),
+        )
+    return resize_image(x[:, 0], int(height), int(width))[:, None]

@@ -18,6 +18,22 @@ The JAX ``while_loop``/``cond`` control flow becomes device-side
 never reads a value back to the host (no ``.item()``). The curvature
 ring of :class:`LbfgsState` is updated IN PLACE; every other field is
 replaced by a new tensor.
+
+The multi-style batch runs S independent problems in one step
+(:func:`lbfgs_step_batched`, :func:`adam_step_batched`): every state
+field gains a leading style axis, and every decision (``done``, the
+curvature-pair skip, the ring position) is taken per style, as the JAX
+package's ``vmap`` of the single step takes it. The masks and updates
+are batched elementwise operations; every reduction over the pixels
+(the dots, the direction's ring contractions and solves) runs per
+style through the single step's own functions. So each style's step
+is, bit for bit, its single step: the shipped fixed-step L-BFGS turns
+a rounding difference of 1e-7 into 1e-3 of the loss within a few
+steps (``PERF.md``), so anything less would not keep a style's run its
+own. It is also the faster choice: cuBLAS's batched kernel for the
+ring's ``(m, n) (n, m)`` products, n the pixel count, took 8 times as
+long as one product per style on an H100 (22.5 ms against 4 x 0.67 ms
+at S = 4, 512x512, m = 100).
 """
 from __future__ import annotations
 
@@ -41,7 +57,12 @@ ValueAndGrad = Callable[
 
 @dataclass
 class LbfgsState:
-    """Persistent L-BFGS state (survives across outer steps)."""
+    """Persistent L-BFGS state (survives across outer steps).
+
+    The shapes are one problem's; the batched state
+    (:func:`lbfgs_init_batched`) puts a style axis of S in front of
+    each.
+    """
 
     s_hist: torch.Tensor        # (m, N) parameter deltas, updated in place
     y_hist: torch.Tensor        # (m, N) gradient deltas, updated in place
@@ -379,3 +400,211 @@ def adam_step(
         n_evals=torch.ones((), dtype=torch.int64, device=x.device),
     )
     return x + delta, state, aux
+
+
+# ---- the multi-style batch: S independent problems, one step
+
+
+def lbfgs_init_batched(
+    n_styles: int,
+    n: int,
+    history_size: int,
+    device: torch.device | str,
+    history_dtype: torch.dtype = torch.float32,
+) -> LbfgsState:
+    """:func:`lbfgs_init` for ``n_styles`` problems, stacked on axis 0.
+
+    The ring is ``(S, m, n)`` in ``history_dtype``; ``rho`` is ``(S,
+    m)``; the scalars and counters are ``(S,)``.
+    """
+    one = lbfgs_init(n, history_size, device, history_dtype)
+    return LbfgsState(**{
+        name: getattr(one, name).expand(
+            n_styles, *getattr(one, name).shape,
+        ).clone()
+        for name in LbfgsState.__dataclass_fields__
+    })
+
+
+def _style(st: LbfgsState, i: int) -> LbfgsState:
+    """Style ``i``'s state: views into the batched state."""
+    return LbfgsState(**{
+        name: getattr(st, name)[i] for name in LbfgsState.__dataclass_fields__
+    })
+
+
+def _dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``(S,)`` dot products of the rows of two ``(S, n)`` tensors.
+
+    One ``torch.dot`` per style, the single step's own reduction.
+    """
+    return torch.stack([torch.dot(x, y) for x, y in zip(a, b, strict=True)])
+
+
+def _insert_pair_batched(
+    st: LbfgsState,
+    s: torch.Tensor,
+    y: torch.Tensor,
+    ys: torch.Tensor,
+    yy: torch.Tensor,
+    do_insert: torch.Tensor,
+) -> None:
+    """:func:`_insert_pair` per style: each ring moves on its own."""
+    m = st.rho.shape[1]
+    pos = st.hist_pos
+    styles = torch.arange(pos.shape[0], device=pos.device)
+    for ring, vec in ((st.s_hist, s), (st.y_hist, y)):
+        row = torch.where(
+            do_insert[:, None], vec.to(ring.dtype), ring[styles, pos],
+        )
+        ring.index_put_((styles, pos), row)
+    st.rho = torch.where(
+        (torch.arange(m, device=pos.device) == pos[:, None])
+        & do_insert[:, None],
+        (1.0 / ys)[:, None], st.rho,
+    )
+    st.hist_pos = torch.where(do_insert, (pos + 1) % m, pos)
+    st.hist_len = torch.where(
+        do_insert, torch.clamp(st.hist_len + 1, max=m), st.hist_len,
+    )
+    st.h_diag = torch.where(do_insert, ys / yy, st.h_diag)
+
+
+def lbfgs_step_batched(
+    vag: ValueAndGrad,
+    x: torch.Tensor,
+    state: LbfgsState,
+    lr: float,
+    *,
+    max_iter: int,
+    max_eval: int,
+    direction_method: str = "two-loop",
+) -> tuple[torch.Tensor, LbfgsState, StepAux]:
+    """:func:`lbfgs_step` for S problems at once.
+
+    ``x`` is ``(S, n)``; ``vag`` maps it to ``(S,)`` losses and scores
+    and ``(S, n)`` gradients. Each style's masks are its own: a style
+    that is done keeps its image, its state and its ring position
+    while the others go on. Returns ``(S,)`` metrics.
+    """
+    try:
+        direction_fn = _DIRECTION_METHODS[direction_method]
+    except KeyError:
+        msg = f"Unknown L-BFGS direction method: {direction_method!r}"
+        raise ValueError(msg) from None
+    (loss, (style, content)), grad = vag(x)
+    n_styles = x.shape[0]
+    dev = x.device
+    done = grad.abs().amax(dim=1) <= TOLERANCE_GRAD
+    evals = torch.ones(n_styles, dtype=torch.int64, device=dev)
+    st = state
+
+    for n_iter in range(1, max_iter + 1):
+        active = ~done
+        n_total = st.n_total_iters + 1
+        first = n_total == 1
+
+        y = grad - st.prev_grad
+        s = st.direction * st.step_size[:, None]
+        ys = _dots(y, s)
+        yy = _dots(y, y)
+        do_insert = active & ~first & (ys > _CURVATURE_EPS)
+        _insert_pair_batched(st, s, y, ys, yy, do_insert)
+
+        directions = torch.stack([
+            direction_fn(g, _style(st, i)) for i, g in enumerate(grad)
+        ])
+        direction = torch.where(first[:, None], -grad, directions)
+        l1 = torch.stack([g.abs().sum() for g in grad])
+        t = torch.where(
+            first,
+            torch.clamp(1.0 / l1, max=1.0) * lr,
+            torch.full((n_styles,), lr, dtype=torch.float32, device=dev),
+        )
+        gtd = _dots(grad, direction)
+        break_gtd = gtd > -TOLERANCE_CHANGE
+        x_new = torch.where(break_gtd[:, None], x, x + t[:, None] * direction)
+
+        if n_iter < max_iter:
+            reeval = active & ~break_gtd
+            (l_n, (s_n, c_n)), g_n = vag(x_new)
+            loss_n = torch.where(reeval, l_n, loss)
+            style_n = torch.where(reeval, s_n, style)
+            content_n = torch.where(reeval, c_n, content)
+            grad_n = torch.where(reeval[:, None], g_n, grad)
+        else:
+            reeval = torch.zeros(n_styles, dtype=torch.bool, device=dev)
+            loss_n, style_n, content_n, grad_n = loss, style, content, grad
+        evals_n = evals + reeval.to(evals.dtype)
+
+        done_n = (
+            break_gtd
+            | (evals_n >= max_eval)
+            | (grad_n.abs().amax(dim=1) <= TOLERANCE_GRAD)
+            | ((t[:, None] * direction).abs().amax(dim=1) <= TOLERANCE_CHANGE)
+            | ((loss_n - loss).abs() < TOLERANCE_CHANGE)
+        )
+
+        on = active[:, None]
+        st.prev_grad = torch.where(on, grad, st.prev_grad)
+        st.direction = torch.where(on, direction, st.direction)
+        st.step_size = torch.where(active, t, st.step_size)
+        st.prev_loss = torch.where(active, loss, st.prev_loss)
+        st.n_total_iters = torch.where(active, n_total, st.n_total_iters)
+        st.func_evals = st.func_evals + reeval.to(st.func_evals.dtype)
+
+        x = torch.where(on, x_new, x)
+        loss = torch.where(active, loss_n, loss)
+        style = torch.where(active, style_n, style)
+        content = torch.where(active, content_n, content)
+        grad = torch.where(on, grad_n, grad)
+        evals = torch.where(active, evals_n, evals)
+        done = done | done_n
+
+    st.func_evals = st.func_evals + 1
+    aux = StepAux(
+        loss=loss, style_score=style, content_score=content, n_evals=evals,
+    )
+    return x, st, aux
+
+
+def adam_init_batched(
+    shape: tuple[int, ...],
+    device: torch.device | str,
+) -> AdamState:
+    """:func:`adam_init` for a stacked ``(S, ...)`` parameter.
+
+    The count is per style, an ``(S,)`` device int32.
+    """
+    state = adam_init(shape, device)
+    state.count = torch.zeros(shape[0], dtype=torch.int32, device=device)
+    return state
+
+
+def adam_step_batched(
+    vag: ValueAndGrad,
+    x: torch.Tensor,
+    state: AdamState,
+    lr: float,
+) -> tuple[torch.Tensor, AdamState, StepAux]:
+    """:func:`adam_step` for S stacked problems: ``(S,)`` metrics.
+
+    Each style's bias correction uses its own count.
+    """
+    (loss, (style, content)), grad = vag(x)
+    per_style = (-1,) + (1,) * (grad.dim() - 1)
+    delta, new = _adam_update_math(
+        grad,
+        AdamState(
+            mu=state.mu, nu=state.nu, count=state.count.view(per_style),
+        ),
+        lr,
+    )
+    new.count = new.count.reshape(-1)
+    aux = StepAux(
+        loss=loss,
+        style_score=style,
+        content_score=content,
+        n_evals=torch.ones(x.shape[0], dtype=torch.int64, device=x.device),
+    )
+    return x + delta, new, aux

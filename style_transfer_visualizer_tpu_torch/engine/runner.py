@@ -135,14 +135,16 @@ class SilentProgress:
         """Nothing to release."""
 
 
-def _default_progress(total: int, initial: int) -> ProgressReporter:
+def default_progress(
+    total: int, initial: int, desc: str = "Style Transfer",
+) -> ProgressReporter:
     """A tqdm bar, or a silent reporter where tqdm is not installed."""
     try:
         from tqdm import tqdm  # noqa: PLC0415 - optional dependency
     except ImportError:
         logger.info("tqdm not installed: no progress bar.")
         return SilentProgress()
-    return tqdm(total=total, initial=initial, desc="Style Transfer")
+    return tqdm(total=total, initial=initial, desc=desc)
 
 
 @dataclass(slots=True)
@@ -258,7 +260,7 @@ class OptimizationRunner:
     def run(self) -> tuple[torch.Tensor, LossHistory, float]:
         """Execute the loop; return (image, loss history, elapsed seconds)."""
         if self._progress_bar is None:
-            self._progress_bar = _default_progress(self.total_steps, 0)
+            self._progress_bar = default_progress(self.total_steps, 0)
             self._owns_progress_bar = True
 
         chunk = self._resolve_chunk_size()

@@ -32,7 +32,7 @@ from style_transfer_visualizer_tpu_torch.models.vgg19 import Params
 from style_transfer_visualizer_tpu_torch.ops.lap import lap_loss
 from style_transfer_visualizer_tpu_torch.ops.tv import tv_loss
 
-_HISTORY_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+HISTORY_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 OptState = LbfgsState | AdamState
 
@@ -135,7 +135,7 @@ def build_update_step(
 
     if optimizer == "lbfgs":
         try:
-            history_dtype = _HISTORY_DTYPES[lbfgs_history_dtype]
+            history_dtype = HISTORY_DTYPES[lbfgs_history_dtype]
         except KeyError:
             msg = f"Unknown L-BFGS history dtype: {lbfgs_history_dtype!r}"
             raise ValueError(msg) from None
@@ -163,7 +163,21 @@ def build_update_step(
         msg = f"Unknown optimizer: {optimizer!r}"
         raise ValueError(msg)
 
-    def chunked_update_fn(image: torch.Tensor, state: OptState, k: int):
+    return StepBundle(
+        update_fn=update_fn,
+        opt_state=opt_state,
+        chunked_update_fn=chunked(update_fn),
+    )
+
+
+def chunked(update_fn: Callable) -> Callable:
+    """``chunked_update_fn(image, state, k)`` over ``update_fn``.
+
+    A Python loop of ``k`` steps; the metrics are stacked along a
+    leading ``k`` axis.
+    """
+
+    def chunked_update_fn(image: torch.Tensor, state, k: int):
         auxes: list[StepAux] = []
         for _ in range(k):
             image, state, aux = update_fn(image, state)
@@ -176,8 +190,4 @@ def build_update_step(
         )
         return image, state, stacked
 
-    return StepBundle(
-        update_fn=update_fn,
-        opt_state=opt_state,
-        chunked_update_fn=chunked_update_fn,
-    )
+    return chunked_update_fn

@@ -161,6 +161,16 @@ def pack_uint8_frame(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(frame, 0, 255).to(torch.uint8)
 
 
+def pack_uint8_frames_batch(x: torch.Tensor) -> torch.Tensor:
+    """(S, 1, H, W, 3) float in [0,1] -> (S, H, W, 3) uint8, on the device.
+
+    The multi-style batch's frame: every style's frame packed at once,
+    so S*H*W*3 bytes cross to the host in one copy.
+    """
+    frames = torch.round(x[:, 0] * 255.0)
+    return torch.clamp(frames, 0, 255).to(torch.uint8)
+
+
 def array_to_uint8_frame(
     x: torch.Tensor,
     *,

@@ -15,7 +15,11 @@ or Adam, VGG19 or VGG16) and the coarse-to-fine warm start:
   which is saved even when a sink fails to close (every sink is closed,
   the PNG is saved, then the first close error is raised);
 - :func:`run_style_transfer` is the array-level core without media:
-  arrays in, final image and loss history out.
+  arrays in, final image and loss history out;
+- :func:`multi_style_transfer` is the multi-style batch: one content
+  image against S styles, S independent stylizations in one stacked
+  step (:func:`prepare_multi_style`, :func:`run_multi_style_loop`),
+  one ``stylized_{content}_x_{style}.png`` and one timelapse per style.
 
 All run on ``config.hardware.device``, CUDA unless the caller asks for
 the CPU.
@@ -27,18 +31,25 @@ from pathlib import Path
 from typing import TYPE_CHECKING
 
 import numpy as np
+import torch
 
 from style_transfer_visualizer_tpu_torch import image_io
 from style_transfer_visualizer_tpu_torch.engine.coarse import (
     coarse_init,
+    multi_coarse_init,
     resolve_coarse_steps,
+)
+from style_transfer_visualizer_tpu_torch.engine.loss_logger import (
+    LossCSVLogger,
 )
 from style_transfer_visualizer_tpu_torch.engine.runner import (
     OptimizationRunner,
     SilentProgress,
+    default_progress,
 )
 from style_transfer_visualizer_tpu_torch.engine.step import build_update_step
 from style_transfer_visualizer_tpu_torch.media import encode, segments
+from style_transfer_visualizer_tpu_torch.media.stream import AsyncFrameStream
 from style_transfer_visualizer_tpu_torch.media.modes import select_video_mode
 from style_transfer_visualizer_tpu_torch.models.arch import get_architecture
 from style_transfer_visualizer_tpu_torch.models.features import (
@@ -51,6 +62,11 @@ from style_transfer_visualizer_tpu_torch.models.vgg19 import (
 )
 from style_transfer_visualizer_tpu_torch.ops.color import maybe_restore_color
 from style_transfer_visualizer_tpu_torch.ops.lap import lap_response
+from style_transfer_visualizer_tpu_torch.parallel.multistyle import (
+    build_multi_style_update,
+    initialize_multi_inputs,
+    multi_style_targets,
+)
 from style_transfer_visualizer_tpu_torch.runtime.device import (
     setup_device,
     setup_random_seed,
@@ -66,9 +82,12 @@ from style_transfer_visualizer_tpu_torch.runtime.validation import (
 )
 from style_transfer_visualizer_tpu_torch.type_defs import SaveOptions
 from style_transfer_visualizer_tpu_torch.utils.logging import logger
+from style_transfer_visualizer_tpu_torch.visualization.metrics import (
+    plot_loss_curves,
+)
 
 if TYPE_CHECKING:
-    import torch
+    from collections.abc import Callable
 
     from style_transfer_visualizer_tpu_torch.config import (
         StyleTransferConfig,
@@ -76,6 +95,9 @@ if TYPE_CHECKING:
     )
     from style_transfer_visualizer_tpu_torch.engine.runner import (
         ProgressReporter,
+    )
+    from style_transfer_visualizer_tpu_torch.engine.optimizers import (
+        StepAux,
     )
     from style_transfer_visualizer_tpu_torch.engine.step import StepBundle
     from style_transfer_visualizer_tpu_torch.media.sinks import (
@@ -534,3 +556,513 @@ def _maybe_append_final_segments(
         final_frame,
         **kwargs,
     )
+
+
+# ---- the multi-style batch
+
+
+def prepare_multi_style(
+    content: np.ndarray,
+    styles: list[np.ndarray],
+    config: StyleTransferConfig,
+    *,
+    params: Params | None = None,
+) -> tuple[StepBundle, torch.Tensor]:
+    """Weights, stacked targets, the stacked step and starting images.
+
+    ``content`` and each of ``styles`` are (1, H, W, 3) host arrays in
+    [0, 1]; the styles may differ in size. The color contract is the
+    single run's: ``preserve_color="match"`` recolors every style to
+    the content first. The auto warm start is resolved against the
+    content, as in :func:`prepare_model_and_input`. Returns the bundle
+    and the ``(S, 1, H, W, 3)`` starting images.
+    """
+    config.validate()
+    opt = config.optimization
+    device = setup_device(config.hardware.device)
+    generator = setup_random_seed(opt.seed, device)
+    content_img = image_io.host_array_to_device(
+        content, device, normalize=opt.normalize,
+    )
+    match_to = content if opt.preserve_color == "match" else None
+    style_imgs = [
+        image_io.style_array_to_device(
+            host, device, normalize=opt.normalize, match_to=match_to,
+        )
+        for host in styles
+    ]
+    _resolve_auto_coarse(config, content_img)
+    if params is None:
+        params = load_pretrained_params(
+            device, arch=get_architecture(opt.model),
+            allow_random=opt.allow_random_weights, seed=opt.seed,
+        )
+    n_styles = len(style_imgs)
+    targets = multi_style_targets(
+        params, content_img, style_imgs,
+        tuple(opt.style_layers), tuple(opt.content_layers),
+    )
+    bundle = build_multi_style_update(
+        params, targets, tuple(content_img.shape), n_styles,
+        optimizer=opt.optimizer,
+        lr=opt.lr,
+        style_w=opt.style_w,
+        content_w=opt.content_w,
+        tv_w=opt.tv_w,
+        lap_w=opt.lap_w,
+        lap_pool=opt.lap_pool,
+        # One content image serves every style.
+        lap_target=(
+            lap_response(content_img, opt.lap_pool) if opt.lap_w else None
+        ),
+        style_layers=tuple(opt.style_layers),
+        style_weights=opt.style_weights_tuple(),
+        content_layers=tuple(opt.content_layers),
+        lbfgs_max_iter=opt.lbfgs_max_iter,
+        lbfgs_max_eval=opt.lbfgs_max_eval,
+        lbfgs_history_size=opt.lbfgs_history_size,
+        lbfgs_history_dtype=opt.lbfgs_history_dtype,
+        lbfgs_direction=opt.lbfgs_direction,
+    )
+    images = _multi_initial_images(
+        params, content_img, style_imgs, config, generator,
+    )
+    return bundle, images
+
+
+def _multi_initial_images(
+    params: Params,
+    content_img: torch.Tensor,
+    style_imgs: list[torch.Tensor],
+    config: StyleTransferConfig,
+    generator: torch.Generator,
+) -> torch.Tensor:
+    """The batched warm start when it runs, else ``init_method``."""
+    if config.optimization.coarse_steps > 0:
+        warm = multi_coarse_init(
+            params, content_img, style_imgs, config, generator,
+        )
+        if warm is not None:
+            return warm
+    return initialize_multi_inputs(
+        content_img, config.optimization.init_method, generator,
+        len(style_imgs),
+    )
+
+
+def multi_style_transfer(
+    content_path: str,
+    style_paths: list[str],
+    config: StyleTransferConfig,
+    *,
+    progress_bar: ProgressReporter | None = None,
+) -> list[Path]:
+    """Stylize one content image with each of S styles, in one batch.
+
+    The S problems are independent and run as one stacked step on
+    ``config.hardware.device``. Outputs are
+    ``stylized_{content}_x_{style}.png`` per style; ``--gif`` makes one
+    timelapse GIF per style and video one postprocess MP4 per style
+    (realtime is promoted to postprocess). Returns the PNG paths.
+    """
+    if not style_paths:
+        msg = "multi_style_transfer requires at least one style path"
+        raise ValueError(msg)
+    # The single run's final-only cascade.
+    if config.video.final_only:
+        config.video.create_video = False
+        config.video.create_gif = False
+    for style_path in style_paths:
+        validate_input_paths(content_path, style_path)
+
+    content = image_io.load_image_to_host_array(content_path)
+    styles = [image_io.load_image_to_host_array(p) for p in style_paths]
+    bundle, images = prepare_multi_style(content, styles, config)
+    logger.info(
+        "Multi-style run: %d styles in one stacked step.", len(styles),
+    )
+    output_path = setup_output_directory(config.output.output)
+    chroma_source = _chroma_source(content, config, images.device)
+    style_names = [Path(p).stem for p in style_paths]
+    content_name = Path(content_path).stem
+    images, _, close_errors = run_multi_style_loop(
+        bundle, images, config, output_path, style_names,
+        content_name=content_name,
+        content_path=Path(content_path),
+        style_paths=[Path(p) for p in style_paths],
+        chroma_source=chroma_source,
+        progress_bar=progress_bar,
+    )
+    saved = _save_multi_style_outputs(
+        images, style_names, content_name, output_path,
+        normalize=config.optimization.normalize,
+        chroma_source=chroma_source,
+    )
+    if close_errors:
+        raise close_errors[0]
+    return saved
+
+
+def _prepared_frames(
+    images: torch.Tensor,
+    *,
+    normalize: bool,
+    chroma_source: torch.Tensor | None,
+) -> torch.Tensor:
+    """(S, H, W, 3) uint8 frames of the stacked images, on the device."""
+    return image_io.pack_uint8_frames_batch(
+        maybe_restore_color(
+            image_io.prepare_image_for_output(images, normalize=normalize),
+            chroma_source,
+        ),
+    )
+
+
+def _default_sink(
+    config: StyleTransferConfig, output_path: Path, kind: str, name: str,
+) -> VideoFrameSink:
+    """The real encoder for a batch timelapse: ``kind`` gif or mp4."""
+    if kind == "gif":
+        return encode.GifFrameCollector(
+            (output_path / name).resolve(), config.video.fps,
+        )
+    return encode.setup_video_writer(config.video, output_path, name)
+
+
+class _BatchFrames:
+    """Per-style sinks of a batch timelapse, fed one stacked frame.
+
+    Each style's intro fade and hold go to its sinks when they are
+    made; the crossfade into a style's first stylized frame is appended
+    on the frame worker before that frame (the worker is FIFO, so it
+    lands once, in order). :meth:`deliver` fans one ``(S, H, W, 3)``
+    array out to every style's sinks.
+    """
+
+    def __init__(
+        self,
+        config: StyleTransferConfig,
+        output_path: Path,
+        content_name: str,
+        style_names: list[str],
+        make_sink: Callable[[str, str], VideoFrameSink],
+        intro_paths: list[tuple[Path, Path]] | None,
+    ) -> None:
+        """Make the sinks and emit each style's intro."""
+        video = config.video
+        self.config = config
+        n = len(style_names)
+        self.gif: list[VideoFrameSink | None] = [None] * n
+        self.video: list[VideoFrameSink | None] = [None] * n
+        #: (label, sink) per style, so close errors name the sink.
+        self.labelled: list[list[tuple[str, VideoFrameSink]]] = [
+            [] for _ in style_names
+        ]
+        self.media_names: list[str] = []
+        for kind, wanted, into in (
+            ("gif", video.create_gif, self.gif),
+            ("mp4", video.create_video, self.video),
+        ):
+            if not (wanted and video.save_every):
+                continue
+            for i, style in enumerate(style_names):
+                label = f"timelapse_{content_name}_x_{style}.{kind}"
+                into[i] = make_sink(kind, label)
+                self.labelled[i].append((label, into[i]))
+                self.media_names.append(label)
+        self.pending: list[tuple[np.ndarray, int] | None] = [None] * n
+        if intro_paths is None:
+            return
+        for i in range(n):
+            if self.video[i] is None and self.gif[i] is None:
+                continue
+            gif_options = None
+            if self.gif[i] is not None:
+                gif_options = segments.GifSegmentOptions(
+                    sink=self.gif[i], include_intro=video.gif_include_intro,
+                )
+            self.pending[i] = segments.prepare_intro_segment(
+                video, self.video[i], intro_paths[i],
+                gif_options=gif_options,
+            )
+
+    @property
+    def active(self) -> bool:
+        """Whether any style has a sink."""
+        return any(self.labelled)
+
+    def deliver(self, frames: np.ndarray) -> None:
+        """Hand frame s of ``frames`` to style s's sinks (worker thread)."""
+        video = self.config.video
+        for i, (sinks, frame) in enumerate(
+            zip(self.labelled, frames, strict=True),
+        ):
+            intro = self.pending[i]
+            if intro is not None:
+                intro_last, n_crossfade = intro
+                # A pending intro implies intro_enabled (the intro
+                # returns None without it).
+                if self.video[i] is not None:
+                    segments.append_crossfade(
+                        self.video[i], intro_last, frame, n_crossfade,
+                    )
+                if self.gif[i] is not None and video.gif_include_intro:
+                    segments.append_crossfade(
+                        self.gif[i], intro_last, frame, n_crossfade,
+                    )
+                self.pending[i] = None
+            for _, sink in sinks:
+                sink.append_data(frame)
+
+    def append_outros(
+        self,
+        frames: np.ndarray,
+        outro_paths: list[tuple[Path, Path]] | None,
+    ) -> None:
+        """Each style's hold, crossfade and outro comparison.
+
+        The single run's outro per style, under ``final_frame_compare``
+        and, for GIFs, ``gif_include_outro``; ``frames`` are the final
+        images packed, ``(S, H, W, 3)``.
+        """
+        video = self.config.video
+        if not video.final_frame_compare or outro_paths is None:
+            return
+        for i, paths in enumerate(outro_paths):
+            wants_gif = self.gif[i] is not None and video.gif_include_outro
+            if self.video[i] is None and not wants_gif:
+                continue
+            gif_options = None
+            if self.gif[i] is not None:
+                gif_options = segments.GifSegmentOptions(
+                    sink=self.gif[i], include_intro=False,
+                    include_outro=video.gif_include_outro,
+                )
+            segments.append_final_comparison_frame(
+                video, self.video[i], paths,
+                np.ascontiguousarray(frames[i]), gif_options=gif_options,
+            )
+
+    def close(self) -> tuple[list[Exception], set[str]]:
+        """Close every sink; the errors and the labels that failed."""
+        errors: list[Exception] = []
+        failed: set[str] = set()
+        for sinks in self.labelled:
+            for label, sink in sinks:
+                try:
+                    sink.close()
+                except Exception as exc:  # noqa: BLE001
+                    logger.error(
+                        "Error closing media sink %s: %s", label, exc,
+                    )
+                    errors.append(exc)
+                    failed.add(label)
+        return errors, failed
+
+
+def run_multi_style_loop(
+    bundle: StepBundle,
+    images: torch.Tensor,
+    config: StyleTransferConfig,
+    output_path: Path,
+    style_names: list[str],
+    *,
+    content_name: str = "content",
+    content_path: Path | None = None,
+    style_paths: list[Path] | None = None,
+    chroma_source: torch.Tensor | None = None,
+    progress_bar: ProgressReporter | None = None,
+    make_sink: Callable[[str, str], VideoFrameSink] | None = None,
+    on_step_end: Callable[[int, torch.Tensor, StepAux], None] | None = None,
+):
+    """The batch's step loop with its logging and timelapse contract.
+
+    The port of the JAX package's ``main._run_multi_style_loop``
+    without checkpoints and with single-step dispatch:
+
+    - per-style loss CSVs ``<log_loss stem>_<style><suffix or .csv>``,
+      or per-style histories for ``loss_plot_<style>.png``; one ``(3,
+      S)`` host read per ``log_every`` and none between;
+    - one timelapse per style (``timelapse_{content}_x_{style}.gif`` /
+      ``.mp4``; a realtime MP4 is promoted to postprocess), fed at the
+      ``save_every`` cadence and after the last step when ``steps``
+      is not a multiple of it: the S frames are packed on the device
+      together and go through ``frame_stream`` in one submit, and the
+      worker fans them out to each style's sinks, intro crossfades
+      first (``content_path`` and ``style_paths`` give the intro and
+      outro panels; without them there are none);
+    - the stream is drained before the outros; every sink is closed
+      even when one fails.
+
+    ``make_sink(kind, file_name)``, ``kind`` ``"gif"`` or ``"mp4"``,
+    stands in for the encoders; ``on_step_end(step, images, aux)`` sees
+    each step's images and device metrics (no host read). Returns
+    ``(images, state, close_errors)``: the caller saves the PNGs before
+    it raises the first close error.
+    """
+    opt_cfg = config.optimization
+    out_cfg = config.output
+    video = config.video
+    if video.create_video and video.mode != "postprocess":
+        # S concurrent streaming encoders would contend on the host;
+        # spilled frames encode serially on close instead.
+        logger.info(
+            "Batch (multi-style) mode encodes MP4 in postprocess mode; "
+            "promoting from '%s'.", video.mode,
+        )
+        video.mode = "postprocess"
+    if make_sink is None:
+        def make_sink(kind: str, name: str) -> VideoFrameSink:
+            return _default_sink(config, output_path, kind, name)
+
+    intro_paths = None
+    if content_path is not None and style_paths is not None:
+        intro_paths = [(content_path, s) for s in style_paths]
+    media = _BatchFrames(
+        config, output_path, content_name, style_names, make_sink,
+        intro_paths,
+    )
+    frame_stream = None
+    if media.active:
+        logger.info(
+            "Batch mode writes one timelapse per style, with the same "
+            "intro/outro segments as a single run where enabled.",
+        )
+        frame_stream = AsyncFrameStream()
+
+    def submit_frames(imgs: torch.Tensor) -> None:
+        frame_stream.submit(
+            _prepared_frames(
+                imgs, normalize=opt_cfg.normalize,
+                chroma_source=chroma_source,
+            ),
+            media.deliver,
+        )
+
+    csv_loggers: list[LossCSVLogger | None] = [None] * len(style_names)
+    if out_cfg.log_loss:
+        base = Path(out_cfg.log_loss)
+        for i, name in enumerate(style_names):
+            per_style = base.with_name(
+                f"{base.stem}_{name}{base.suffix or '.csv'}",
+            )
+            try:
+                csv_loggers[i] = LossCSVLogger(per_style, out_cfg.log_every)
+            except OSError as exc:
+                logger.error(
+                    "Failed to initialize CSV logging for style %s: %s",
+                    name, exc,
+                )
+        logger.info(
+            "Per-style loss CSV logging enabled under %s.", base.parent,
+        )
+    track_history = out_cfg.plot_losses and not out_cfg.log_loss
+    histories: list[LossHistory] = [
+        {"style_loss": [], "content_loss": [], "total_loss": []}
+        for _ in style_names
+    ]
+    save_every = video.save_every
+    bar = progress_bar or default_progress(
+        opt_cfg.steps, 0, desc="Multi-Style Transfer",
+    )
+
+    def log_step(step: int, aux: StepAux) -> None:
+        # One (3, S) host read: style, content, total.
+        vals = torch.stack(
+            [aux.style_score, aux.content_score, aux.loss],
+        ).cpu().numpy()
+        for i in range(len(style_names)):
+            row = [float(v) for v in vals[:, i]]
+            if csv_loggers[i] is not None:
+                csv_loggers[i].log(step, *row)
+            if track_history:
+                for key, v in zip(
+                    ("style_loss", "content_loss", "total_loss"), row,
+                    strict=True,
+                ):
+                    histories[i][key].append(v)
+        bar.set_postfix({"mean_loss": f"{vals[2].mean():.4f}"})
+
+    state = bundle.opt_state
+    close_errors: list[Exception] = []
+    failed: set[str] = set()
+    try:
+        for step in range(1, opt_cfg.steps + 1):
+            images, state, aux = bundle.update_fn(images, state)
+            bar.update(1)
+            if on_step_end is not None:
+                on_step_end(step, images, aux)
+            if frame_stream is not None and step % save_every == 0:
+                submit_frames(images)
+            if step % out_cfg.log_every == 0:
+                log_step(step, aux)
+        if frame_stream is not None:
+            if opt_cfg.steps % save_every:
+                # Every timelapse ends on the finished image.
+                submit_frames(images)
+            # FIFO: every frame lands before the outros are appended.
+            frame_stream.drain()
+            media.append_outros(
+                _prepared_frames(
+                    images, normalize=opt_cfg.normalize,
+                    chroma_source=chroma_source,
+                ).cpu().numpy(),
+                intro_paths,
+            )
+    finally:
+        bar.close()
+        if frame_stream is not None:
+            try:
+                frame_stream.close()
+            except Exception as exc:  # noqa: BLE001
+                logger.error("Error closing frame stream: %s", exc)
+                close_errors.append(exc)
+        sink_errors, failed = media.close()
+        close_errors.extend(sink_errors)
+        for csv_logger in csv_loggers:
+            if csv_logger is not None:
+                try:
+                    csv_logger.close()
+                except OSError as exc:
+                    logger.error("Error closing loss logger: %s", exc)
+
+    if track_history:
+        for name, history in zip(style_names, histories, strict=True):
+            if history["total_loss"]:
+                plot_loss_curves(
+                    history, output_path, filename=f"loss_plot_{name}.png",
+                )
+    for media_name in media.media_names:
+        if media_name not in failed:
+            logger.info(
+                "Timelapse saved to: %s", output_path / media_name,
+            )
+    return images, state, close_errors
+
+
+def _save_multi_style_outputs(
+    images: torch.Tensor,
+    style_names: list[str],
+    content_name: str,
+    output_path: Path,
+    *,
+    normalize: bool,
+    chroma_source: torch.Tensor | None = None,
+) -> list[Path]:
+    """One ``stylized_{content}_x_{style}.png`` per style, recolored
+    against the content under ``preserve_color="luminance"``."""
+    saved: list[Path] = []
+    for i, style_name in enumerate(style_names):
+        final = maybe_restore_color(
+            image_io.prepare_image_for_output(
+                images[i], normalize=normalize,
+            ),
+            chroma_source,
+        )
+        out_file = stylized_image_path_from_names(
+            output_path, content_name, style_name,
+        )
+        image_io.save_array_as_image(final, out_file)
+        logger.info("Stylized image saved to: %s", out_file)
+        saved.append(out_file)
+    return saved

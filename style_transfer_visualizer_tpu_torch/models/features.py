@@ -6,6 +6,11 @@ goes through ``ops.conv3x3`` (the kernel on CUDA) with the Pallas
 sweep's fusion rule: a conv fuses with its ReLU only when the conv is
 not a tap (style taps sample the PRE-ReLU conv output). Every Gram goes
 through ``ops.gram``. Activations are ``(N, H, W, C)`` contiguous.
+
+The multi-style batch (:func:`batched_total_loss`) runs S independent
+problems through one sweep: the conv at N = S, one Gram launch per
+style layer for all S images (``ops.gram.gram_matrix_batched``), and
+per-style losses, ``(S,)`` each.
 """
 from __future__ import annotations
 
@@ -22,7 +27,10 @@ from style_transfer_visualizer_tpu_torch.models.arch import (
 )
 from style_transfer_visualizer_tpu_torch.models.vgg19 import Params
 from style_transfer_visualizer_tpu_torch.ops.conv3x3 import conv3x3_bias_relu
-from style_transfer_visualizer_tpu_torch.ops.gram import gram_matrix
+from style_transfer_visualizer_tpu_torch.ops.gram import (
+    gram_matrix,
+    gram_matrix_batched,
+)
 from style_transfer_visualizer_tpu_torch.ops.pool import maxpool_2x2, relu
 from style_transfer_visualizer_tpu_torch.type_defs import InitMethod
 
@@ -237,6 +245,79 @@ def total_loss(
     style_score = torch.stack(style_losses).sum() if style_losses else zero
     content_score = (
         torch.stack(content_losses).sum() if content_losses else zero
+    )
+    total = style_w * style_score + content_w * content_score
+    return total, (style_score, content_score)
+
+
+def _mse_per_image(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Mean squared difference of each leading-axis entry: ``(S,)``.
+
+    ``b`` may be a broadcast view (stride 0 on the leading axis): the
+    difference broadcasts, nothing is copied.
+    """
+    return torch.mean(torch.square(a - b), dim=tuple(range(1, a.dim())))
+
+
+def batched_style_content_losses(
+    params: Params,
+    x: torch.Tensor,
+    targets: Targets,
+    style_layers: tuple[int, ...],
+    content_layers: tuple[int, ...],
+    style_weights: tuple[float, ...] | None = None,
+) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+    """Per-layer style and content losses of S images, each ``(S,)``.
+
+    ``x`` is ``(S, H, W, 3)``, one image per style. ``targets`` holds
+    ``(S, C, C)`` style Grams and ``(S, 1, h, w, C)`` content features
+    (a broadcast of the one content's, see
+    ``parallel.multistyle.multi_style_targets``). Image s is held to
+    style s's Grams only, as under the JAX package's ``vmap``.
+    """
+    weights = _resolve_style_weights(style_weights, style_layers)
+    taps = tuple(sorted(set(style_layers) | set(content_layers)))
+    acts = extract_features(params, x, taps)
+    style_losses = [
+        _weighted(
+            w,
+            _mse_per_image(
+                gram_matrix_batched(acts[idx]), targets.style_grams[idx],
+            ),
+        )
+        for idx, w in zip(style_layers, weights, strict=True)
+    ]
+    content_losses = [
+        _mse_per_image(acts[idx], targets.content_feats[idx][:, 0])
+        for idx in content_layers
+    ]
+    return style_losses, content_losses
+
+
+def batched_total_loss(
+    params: Params,
+    x: torch.Tensor,
+    targets: Targets,
+    style_w: float,
+    content_w: float,
+    style_layers: tuple[int, ...],
+    content_layers: tuple[int, ...],
+    style_weights: tuple[float, ...] | None = None,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """:func:`total_loss` of each of S images: ``(S,)`` each.
+
+    The S problems are independent, so the gradient of the sum is each
+    image's gradient of its own loss.
+    """
+    style_losses, content_losses = batched_style_content_losses(
+        params, x, targets, style_layers, content_layers, style_weights,
+    )
+    zero = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    style_score = (
+        torch.stack(style_losses).sum(dim=0) if style_losses else zero
+    )
+    content_score = (
+        torch.stack(content_losses).sum(dim=0) if content_losses else zero
     )
     total = style_w * style_score + content_w * content_score
     return total, (style_score, content_score)

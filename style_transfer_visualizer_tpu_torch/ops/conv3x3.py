@@ -59,11 +59,14 @@ class ConvPlan:
     taps, followed by the mask's when ``mask_slab``; without, the
     producer gathers one K step's 128 x 32 slab (masked), ``taps = 1``.
     ``a_stages`` slots of ``a_slot_bytes`` hold the slabs, ``b_stages``
-    slots the per-step B boxes (hi and lo). When the tiles cannot fill
-    the SMs, the slabs are split ``splits`` ways (``split_slabs`` each)
-    and the last block to finish a tile sums the partials in fixed
-    order. ``blocks`` persistent blocks (one per SM at most) walk the
-    ``tiles * splits`` work items.
+    slots the per-step B boxes (hi and lo). When one image's tiles
+    cannot fill the SMs, the slabs are split ``splits`` ways
+    (``split_slabs`` each) and the last block to finish a tile sums the
+    partials in fixed order. The split is chosen per image, as if the
+    batch were 1, so an image's sums run in the same order whatever
+    ``n`` is: a batch of images gets, bit for bit, each image's output
+    alone (the multi-style batch relies on it). ``blocks`` persistent
+    blocks (one per SM at most) walk the ``tiles * splits`` work items.
     """
 
     bn: int
@@ -113,8 +116,11 @@ def conv_plan(
     b_stages = min(_MAX_STAGES, room // b_slot)
     slabs = c_in // K_STEP if halo else k_pad // K_STEP
     taps = 9 if halo else 1
-    tiles = n * -(-h // rows) * -(-w // cols) * -(-c_out // bn)
-    splits = max(1, min(n_sm // tiles, slabs * taps // _MIN_SPLIT_STEPS))
+    per_image = -(-h // rows) * -(-w // cols) * -(-c_out // bn)
+    tiles = n * per_image
+    splits = max(
+        1, min(n_sm // per_image, slabs * taps // _MIN_SPLIT_STEPS),
+    )
     split_slabs = -(-slabs // splits)
     splits = -(-slabs // split_slabs)
     return ConvPlan(

@@ -74,3 +74,21 @@ def lap_loss(
     """
     diff = lap_response(img, pool) - target_response
     return torch.mean(torch.square(diff))
+
+
+def lap_loss_per_image(
+    img: torch.Tensor,
+    target_response: torch.Tensor,
+    pool: int = 4,
+) -> torch.Tensor:
+    """:func:`lap_loss` of each image of an NHWC batch: ``(N,)``.
+
+    ``target_response`` is one content's response, ``(1, h, w, 3)``,
+    shared by every image (the multi-style batch's). Image by image, so
+    each image's pooled response, which its gradient reads, is the
+    single run's, bit for bit.
+    """
+    return torch.stack([
+        lap_loss(img[i:i + 1], target_response, pool)
+        for i in range(img.shape[0])
+    ])

@@ -25,3 +25,18 @@ def tv_loss(x: torch.Tensor) -> torch.Tensor:
         torch.mean(torch.square(dy.float()))
         + torch.mean(torch.square(dx.float()))
     )
+
+
+def tv_loss_per_image(x: torch.Tensor) -> torch.Tensor:
+    """:func:`tv_loss` of each image of an NHWC batch: ``(N,)``.
+
+    The multi-style batch's term: each style's image has its own TV,
+    as the JAX package's ``vmap`` of ``tv_loss`` over the style axis
+    gives it.
+    """
+    dy = x[:, 1:, :, :] - x[:, :-1, :, :]
+    dx = x[:, :, 1:, :] - x[:, :, :-1, :]
+    return (
+        torch.mean(torch.square(dy.float()), dim=(1, 2, 3))
+        + torch.mean(torch.square(dx.float()), dim=(1, 2, 3))
+    )

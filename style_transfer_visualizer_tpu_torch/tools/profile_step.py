@@ -2,12 +2,14 @@
 
     python -m style_transfer_visualizer_tpu_torch.tools.profile_step \\
         [--size 512] [--steps 5] [--model vgg19] [--optimizer lbfgs] \\
-        [--objective] [--out DIR]
+        [--objective] [--styles S] [--out DIR]
 
 Builds the step as ``main.run_style_transfer`` does (seeded weights of
 ``--model``, shipped defaults, ``--optimizer``; ``--objective`` adds
 ``chip_smoke.py``'s objective terms: TV 1e-2, Laplacian 1e2 at pool 4,
-style weights 1,1,0.5,0.25,0.25), runs 3 warm-up steps, then times
+style weights 1,1,0.5,0.25,0.25), or with ``--styles S`` the
+multi-style batch's stacked step of S styles as
+``main.prepare_multi_style`` builds it; runs 3 warm-up steps, then times
 ``--steps`` steps with CUDA events, split into the VGG loss-and-gradient
 evaluation and (for L-BFGS) the direction, and traces them with
 ``torch.profiler``. It prints the card, the times, the device-busy
@@ -32,6 +34,7 @@ from style_transfer_visualizer_tpu_torch.engine import optimizers
 from style_transfer_visualizer_tpu_torch.engine.step import build_update_step
 from style_transfer_visualizer_tpu_torch.models.arch import get_architecture
 from style_transfer_visualizer_tpu_torch.models.features import (
+    batched_total_loss,
     compute_targets,
     initialize_input,
     total_loss,
@@ -40,6 +43,11 @@ from style_transfer_visualizer_tpu_torch.models.vgg19 import (
     init_random_params,
 )
 from style_transfer_visualizer_tpu_torch.ops.lap import lap_response
+from style_transfer_visualizer_tpu_torch.parallel.multistyle import (
+    build_multi_style_update,
+    initialize_multi_inputs,
+    multi_style_targets,
+)
 
 
 # Device kernels of csrc/, listed by name whatever their rank.
@@ -82,6 +90,10 @@ def main(argv: list[str] | None = None) -> int:
         "--objective", action="store_true",
         help="add the TV and Laplacian terms and per-layer style weights",
     )
+    p.add_argument(
+        "--styles", type=int, default=0,
+        help="profile the multi-style batch's step of this many styles",
+    )
     p.add_argument("--out", default="chiprun_out/profile")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -103,14 +115,14 @@ def main(argv: list[str] | None = None) -> int:
         model=args.model, optimizer=args.optimizer, **terms,
     )
     rng = np.random.default_rng(0)
-    content, style = (
+    content, style, *more = (
         image_io.host_array_to_device(
             rng.uniform(size=(1, args.size, args.size, 3)).astype(
                 np.float32,
             ),
             dev, normalize=True,
         )
-        for _ in range(2)
+        for _ in range(max(2, args.styles + 1))
     )
     # Peak device memory of each phase of the main path, in order.
     peaks: dict[str, int] = {}
@@ -130,25 +142,43 @@ def main(argv: list[str] | None = None) -> int:
     peaks["weights"] = _peak_and_reset()
     style_layers = tuple(opt.style_layers)
     content_layers = tuple(opt.content_layers)
-    targets = compute_targets(
-        params, style, content, style_layers, content_layers,
-    )
+    batch = args.styles
+    if batch:
+        styles = [style, *more][:batch]
+        targets = multi_style_targets(
+            params, content, styles, style_layers, content_layers,
+        )
+    else:
+        targets = compute_targets(
+            params, style, content, style_layers, content_layers,
+        )
     peaks["targets"] = _peak_and_reset()
-    bundle = build_update_step(
-        params, targets, tuple(content.shape), optimizer=opt.optimizer,
-        lr=opt.lr, style_w=opt.style_w, content_w=opt.content_w,
-        tv_w=opt.tv_w, lap_w=opt.lap_w, lap_pool=opt.lap_pool,
-        lap_target=(
+    step_args = {
+        "optimizer": opt.optimizer, "lr": opt.lr, "style_w": opt.style_w,
+        "content_w": opt.content_w, "tv_w": opt.tv_w, "lap_w": opt.lap_w,
+        "lap_pool": opt.lap_pool,
+        "lap_target": (
             lap_response(content, opt.lap_pool) if opt.lap_w else None
         ),
-        style_layers=style_layers, content_layers=content_layers,
-        style_weights=opt.style_weights_tuple(),
-        lbfgs_history_size=opt.lbfgs_history_size,
-        lbfgs_history_dtype=opt.lbfgs_history_dtype,
-        lbfgs_direction=opt.lbfgs_direction,
-    )
+        "style_layers": style_layers, "content_layers": content_layers,
+        "style_weights": opt.style_weights_tuple(),
+        "lbfgs_history_size": opt.lbfgs_history_size,
+        "lbfgs_history_dtype": opt.lbfgs_history_dtype,
+        "lbfgs_direction": opt.lbfgs_direction,
+    }
     gen = torch.Generator(device=dev).manual_seed(opt.seed)
-    image = initialize_input(content, opt.init_method, gen)
+    if batch:
+        bundle = build_multi_style_update(
+            params, targets, tuple(content.shape), batch, **step_args,
+        )
+        image = initialize_multi_inputs(
+            content, opt.init_method, gen, batch,
+        )
+    else:
+        bundle = build_update_step(
+            params, targets, tuple(content.shape), **step_args,
+        )
+        image = initialize_input(content, opt.init_method, gen)
     state = bundle.opt_state
     peaks["optimizer set-up"] = _peak_and_reset()
     for i in range(3):
@@ -170,16 +200,31 @@ def main(argv: list[str] | None = None) -> int:
 
     def loss_and_grad():
         x = holder["image"].detach().requires_grad_(True)
-        total, _ = total_loss(
-            params, x, targets, opt.style_w, opt.content_w,
-            style_layers, content_layers, opt.style_weights_tuple(),
-        )
+        if batch:
+            total, _ = batched_total_loss(
+                params, x.reshape(-1, *x.shape[2:]), targets, opt.style_w,
+                opt.content_w, style_layers, content_layers,
+                opt.style_weights_tuple(),
+            )
+            total = total.sum()
+        else:
+            total, _ = total_loss(
+                params, x, targets, opt.style_w, opt.content_w,
+                style_layers, content_layers, opt.style_weights_tuple(),
+            )
         torch.autograd.grad(total, x)
 
-    grad = torch.randn(image.numel(), device=dev)
+    grad = torch.randn((max(batch, 1), image.numel() // max(batch, 1)),
+                       device=dev)
 
     def direction():
-        optimizers._compact_direction(grad, holder["state"])  # noqa: SLF001
+        # The batch runs the single direction once per style.
+        for i, g in enumerate(grad):
+            optimizers._compact_direction(  # noqa: SLF001
+                g,
+                optimizers._style(holder["state"], i)  # noqa: SLF001
+                if batch else holder["state"],
+            )
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -193,7 +238,8 @@ def main(argv: list[str] | None = None) -> int:
     )
     _emit(
         f"{args.size}x{args.size} {opt.model} {opt.optimizer}"
-        f"{' objective' if args.objective else ''}: step_ms "
+        f"{' objective' if args.objective else ''}"
+        f"{f' batch of {batch} styles' if batch else ''}: step_ms "
         f"{step_ms:.3f} (host clock {host_ms:.3f}), vgg loss_and_grad_ms "
         f"{vag_ms:.3f}, compact_direction_ms {dir_ms}, "
         f"max_memory_allocated over the steps {peak}",

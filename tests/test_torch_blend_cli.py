@@ -4,8 +4,8 @@
   (the JAX package's ``build_config_from_cli`` over its parser);
 - the same ``SystemExit`` messages for the blend and ``--styles``
   combinations, raised before any run; ``--styles`` without
-  ``--style-blend`` (the JAX package's per-style batch, not ported)
-  exits with its own message;
+  ``--style-blend`` reaches ``multi_style_transfer`` with the style
+  paths the JAX package's CLI hands its own;
 - a blended CLI run on the CPU writes the JAX package's file names,
   with the highest-weight style fronting the comparison walls.
 """
@@ -102,9 +102,32 @@ def test_blend_combinations_exit_like_jax(argv) -> None:
     assert isinstance(ours.value.code, str)
 
 
-def test_styles_without_blend_is_not_ported() -> None:
-    with pytest.raises(SystemExit, match="multi-style batch"):
-        cli.main(["--content", "c.png", "--styles", "a.png,b.png"])
+def test_styles_without_blend_runs_the_batch(monkeypatch) -> None:
+    argv = ["--content", "c.png", "--styles", "a.png, b.png,"]
+    calls = {}
+
+    def capture(key):
+        def run(content_path, style_paths, config, **_kwargs):
+            calls[key] = (content_path, list(style_paths))
+
+        return run
+
+    monkeypatch.setattr(cli, "multi_style_transfer", capture("ours"))
+    monkeypatch.setattr(
+        jax_cli.stv_main, "multi_style_transfer", capture("ref"),
+    )
+    assert cli.main(argv) == 0
+    jax_cli.run_from_args(jax_cli.build_arg_parser().parse_args(argv))
+    assert calls["ours"] == calls["ref"] == ("c.png", ["a.png", "b.png"])
+
+
+@pytest.mark.parametrize(
+    "flag", [["--blend-sweep", "3"], ["--style-masks", "m1.png,m2.png"]],
+)
+def test_sweep_and_regional_flags_are_not_ported(flag) -> None:
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["--content", "c.png", "--styles", "a.png,b.png", *flag])
+    assert exc.value.code == 2
 
 
 def test_a_style_is_required() -> None:

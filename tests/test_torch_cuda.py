@@ -121,6 +121,45 @@ def test_gram_kernel_matches_plain(cuda, p, c, scale) -> None:
     assert gram.launches.count == before + 1
 
 
+@pytest.mark.parametrize(
+    ("s", "p", "c", "scale"),
+    [(3, 1000, 96, 1.0), (4, 4099, 64, 20.0), (2, 33, 130, 1.0),
+     (5, 1980, 512, 1.0)],
+)
+def test_gram_kernel_batched_matches_plain(cuda, s, p, c, scale) -> None:
+    """One launch for S images; P not a multiple of the 32-row slot.
+
+    Image s's last slab must not read image s+1's first rows: each
+    image is scaled differently, so a row read across would show.
+    """
+    f = _rand(11, s, p, c, scale=scale)
+    f = f * torch.arange(1, s + 1, device="cuda", dtype=f.dtype)[:, None, None]
+    norm = float(p * c)
+    before = gram.launches.count
+    raw_k, g_k = gram.gram_kernel_batched(f, GRAM_MATRIX_CLAMP_MAX, norm)
+    assert gram.launches.count == before + 1
+    raw_p, g_p = gram.gram_plain_batched(f, GRAM_MATRIX_CLAMP_MAX, norm)
+    for i in range(s):
+        _close(raw_k[i], raw_p[i])
+        _close(g_k[i], g_p[i])
+        assert torch.equal(raw_k[i], raw_k[i].T)
+    # At S = 1 the batched launch is the single one, bit for bit.
+    raw_1, _ = gram.gram_kernel_batched(f[:1], GRAM_MATRIX_CLAMP_MAX, norm)
+    raw_s, _ = gram.gram_kernel(f[0], GRAM_MATRIX_CLAMP_MAX, norm)
+    assert torch.equal(raw_1[0], raw_s)
+    # The backward, per image, against autograd through the plain Gram.
+    feats = f.reshape(s, 1, p, c)
+    dg = _rand(12, s, c, c)
+    fk = feats.clone().requires_grad_(True)
+    gram.gram_matrix_batched(fk).backward(dg)
+    fr = feats.clone().requires_grad_(True)
+    flat = fr.reshape(s, p, c)
+    (torch.clamp(flat.mT @ flat, max=GRAM_MATRIX_CLAMP_MAX) / norm).backward(
+        dg,
+    )
+    _close(fk.grad, fr.grad)
+
+
 def test_wrappers_reject_non_contiguous_input(cuda) -> None:
     x = _rand(8, 1, 8, 8, 4).transpose(1, 2)
     w9 = _rand(9, 9, 4, 4)

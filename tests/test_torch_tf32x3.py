@@ -152,6 +152,12 @@ def test_conv_plan_covers_the_output_and_fits(n, hw, c_in, c_out, masked):
     assert plan.split_slabs * (plan.splits - 1) < plan.slabs
     assert plan.split_slabs * plan.splits >= plan.slabs
     assert 1 <= plan.blocks <= N_SM
+    # The split over K is chosen per image: a batch sums each image in
+    # the order it is summed alone.
+    alone = conv3x3.conv_plan(1, hw, hw, c_in, c_out, masked, N_SM)
+    assert (plan.splits, plan.split_slabs) == (
+        alone.splits, alone.split_slabs,
+    )
 
 
 @pytest.mark.parametrize(("p", "c"), chip_smoke.GRAM_SHAPES)
