@@ -70,7 +70,26 @@ exits non-zero:
    and 8 and a single run, rounds interleaved: ms per step (the mean
    step interval over steps 3-20), style-steps/s, the device-busy share
    (profiled device time over the step interval) and the peak memory;
-10. a 64x64 run held against the same run on the CPU (plain versions),
+10. resume: the single run through ``cli.main`` with a TOML given by
+   ``--config`` at 512x512 (the shipped L-BFGS, frames off, a CSV row
+   every step): two whole 20-step runs compared bit for bit, then 10
+   steps with ``--checkpoint-every 10`` and ``--steps 20
+   --resume-from`` that checkpoint, whose step-20 checkpoint (image and
+   every optimizer state leaf) must be bit-equal to the whole run's,
+   with equal CSV rows (if the card did not repeat a run bit for bit,
+   the resumed curve is held against a run with its content perturbed
+   by 1e-7 instead, and the line says so); launches of the resumed run;
+   the checkpoint's bytes, the save's seconds, and ms/step with
+   ``checkpoint_every=10`` against off (rounds interleaved);
+11. resume batch: the same at S = 4 through ``prepare_multi_style`` and
+   ``run_multi_style_loop``, the gate for every style;
+12. warm start at 4 MP: seeded 4096x4096 content, the auto warm start
+   of a 15-step run (3 steps at 2048x2048, 4,194,304 px) through
+   ``engine.coarse.coarse_init``: its launches, the level's peak memory
+   and ms per coarse step; then both kernels at the level's first two
+   conv shapes and at the first tap's Gram (P = 4,194,304, C = 64)
+   against their plain versions, timed (``level_2048_first``);
+13. a 64x64 run held against the same run on the CPU (plain versions),
    then the same for Adam with every term above and a 2-step warm
    start at 32x32, then the same for a batch of 2 styles.
 
@@ -78,10 +97,11 @@ The line before the card line is the kernels' JSON record (each
 kernel's launches in each driven path, and its times summed over a
 step at 512x512, under ``at_1024`` at 1024x1024, and for the batch
 phase's step at S = 4 under ``n4_512`` (conv) and ``batched_s4_512``
-(Gram)); the last
-line is the run's JSON verdict. Times come from CUDA events around
-replays of CUDA graphs of back-to-back calls on this run's card (device
-time; host launch overhead excluded for every version alike). Both
+(Gram), and for the 2048x2048 level's first shapes under
+``level_2048_first``); the last line is the run's JSON verdict. Times
+come from CUDA events around replays of CUDA graphs of back-to-back
+calls on this run's card (device time; host launch overhead excluded
+for every version alike). Both
 kernels compute 3xTF32 on the tensor cores, so ``bound_ms`` is the
 larger of three TF32 products per operation at the H100 SXM's 495
 TFLOP/s and the bytes at 3.35 TB/s; ``fp32_bound_ms`` keeps the fp32
@@ -106,7 +126,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F  # noqa: N812
 
-from style_transfer_visualizer_tpu_torch import image_io
+from style_transfer_visualizer_tpu_torch import cli, image_io
 from style_transfer_visualizer_tpu_torch.config import (
     HardwareConfig,
     OptimizationConfig,
@@ -117,7 +137,11 @@ from style_transfer_visualizer_tpu_torch.config import (
 from style_transfer_visualizer_tpu_torch.constants import (
     GRAM_MATRIX_CLAMP_MAX as CLAMP,
 )
-from style_transfer_visualizer_tpu_torch.engine.coarse import plan_pyramid
+from style_transfer_visualizer_tpu_torch.engine.coarse import (
+    coarse_init,
+    plan_pyramid,
+    resolve_coarse_steps,
+)
 from style_transfer_visualizer_tpu_torch.engine.runner import (
     OptimizationCallbacks,
     OptimizationRunner,
@@ -139,6 +163,10 @@ from style_transfer_visualizer_tpu_torch.models.vgg19 import (
 from style_transfer_visualizer_tpu_torch.native import build
 from style_transfer_visualizer_tpu_torch.ops.color import RGB_TO_YIQ
 from style_transfer_visualizer_tpu_torch.ops import conv3x3, gram
+from style_transfer_visualizer_tpu_torch.runtime.checkpoint import (
+    load_checkpoint,
+    save_checkpoint,
+)
 from style_transfer_visualizer_tpu_torch.type_defs import InputPaths
 from style_transfer_visualizer_tpu_torch.utils.logging import logger
 
@@ -376,11 +404,11 @@ def _vgg16_shapes_covered() -> None:
     print(f"conv vgg16 {SIZE}x{SIZE}: its {len(shapes)} shapes are checked")
 
 
-def _check_conv(rec: Record, rec_1024: Record, rec_n4: Record) -> None:
+def _check_conv(rec: Record, cases) -> None:
+    """Each ``_conv_cases``-style case against its plain version; timed
+    into its record when it runs ``count`` times a step."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for n, h, w, ci, co, count, fused, into in _conv_cases(
-        rec, rec_1024, rec_n4,
-    ):
+    for n, h, w, ci, co, count, fused, into in cases:
         def rand(*shape, scale=1.0):
             return torch.randn(
                 shape, generator=gen, device="cuda",
@@ -489,6 +517,13 @@ def _check_gram(rec: Record, rec_1024: Record, rec_b4: Record) -> None:
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = [(p, c, rec) for p, c in GRAM_SHAPES]
     cases += [(4 * p, c, rec_1024) for p, c in GRAM_SHAPES]
+    _check_gram_cases(rec, cases, gen)
+    _check_gram_batched(rec, rec_b4, gen)
+
+
+def _check_gram_cases(rec: Record, cases, gen: torch.Generator) -> None:
+    """Each ``(P, C, record)`` against the plain Gram, forward and
+    backward, with and without an active clamp; timed into the record."""
     for p, c, into in cases:
         # Scale 1 leaves the clamp idle; the second scale puts the
         # diagonal near 1e6, above the 5e5 clamp.
@@ -525,7 +560,6 @@ def _check_gram(rec: Record, rec_1024: Record, rec_b4: Record) -> None:
             f"{times[1]:.4f} library_ms {times[2]:.4f} bound_ms "
             f"{_bound_ms(flops, nbytes):.4f}",
         )
-    _check_gram_batched(rec, rec_b4, gen)
 
 
 def _check_gram_batched(
@@ -1494,6 +1528,394 @@ def _small_batch_reference() -> None:
     )
 
 
+# ---- checkpoints and resume; the warm start at 4 MP
+
+
+def _work_dir(name: str) -> Path:
+    """An empty scratch directory under the package's ignored build/."""
+    path = Path(__file__).resolve().parent / PACKAGE / "build" / name
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return path
+
+
+def _same_npz(a: Path, b: Path) -> list[str]:
+    """The keys of two ``.npz`` files whose arrays differ (dtype or bits)."""
+    with np.load(a) as x, np.load(b) as y:
+        if x.files != y.files:
+            return ["<keys>"]
+        return [
+            k for k in x.files
+            if x[k].dtype != y[k].dtype or not np.array_equal(x[k], y[k])
+        ]
+
+
+def _csv_rows(path: Path) -> list[list[str]]:
+    with path.open(encoding="utf-8") as fh:
+        return [line.rstrip("\n").split(",") for line in fh]
+
+
+def _curve(path: Path) -> np.ndarray:
+    return np.array(
+        [float(row[3]) for row in _csv_rows(path)[1:]], dtype=np.float64,
+    )
+
+
+def _nudged_control(content, style) -> float:
+    """A single run against itself with its content perturbed by 1e-7
+    relative: the largest relative curve difference over 20 steps."""
+    curves = []
+    for image in (content, content * (1 + 1e-7 * np.random.default_rng(9)
+                                      .standard_normal(content.shape))):
+        _, history = run_style_transfer(
+            image.astype(np.float32), style, _config(STEPS, "cuda"),
+        )
+        curves.append(np.asarray(history["total_loss"]))
+    return float(np.max(np.abs(curves[1] - curves[0]) / np.abs(curves[0])))
+
+
+def _resume_gate(label, differ_whole, differ_resumed, rows_equal,
+                 curve_err, control) -> str:
+    """Bit-equal resume when the card repeats a run bit for bit; else
+    the resumed curve within the perturbed-content control."""
+    if not rows_equal and not differ_whole:
+        msg = f"{label}: the resumed CSV rows differ from the whole run's"
+        raise AssertionError(msg)
+    if not differ_whole:
+        if differ_resumed:
+            msg = f"{label}: resumed run differs in {differ_resumed}"
+            raise AssertionError(msg)
+        return "bit-equal (image and every state leaf), CSV rows equal"
+    if control is None or not curve_err <= max(control, 1e-3):
+        msg = (
+            f"{label}: the card does not repeat a run ({differ_whole}) and "
+            f"the resumed curve is off by {curve_err:.3g} (control "
+            f"{control})"
+        )
+        raise AssertionError(msg)
+    return (
+        f"NOT deterministic on this card ({differ_whole} differ between "
+        f"two whole runs); resumed curve within {curve_err:.3g} relative, "
+        f"perturbed-content control {control:.3g}"
+    )
+
+
+def _save_seconds(path: Path, like_state, reps: int = 3) -> list[float]:
+    """Seconds of ``save_checkpoint`` of the checkpoint at ``path``."""
+    ckpt = load_checkpoint(path, like_state, "cuda")
+    out = []
+    for i in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(path.with_name(f"timed{i}.npz"), ckpt.step,
+                        ckpt.image, ckpt.opt_state)
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def _resume_single() -> tuple[int, int]:
+    """The single run resumed through ``cli.main`` and a TOML, 512x512.
+
+    The shipped L-BFGS, frames off, a CSV row every step. Two whole
+    20-step runs first (does the card repeat a run bit for bit?), then
+    10 steps with ``--checkpoint-every 10`` and ``--steps 20
+    --resume-from`` that checkpoint: the resumed run's checkpoint at
+    step 20 against the whole run's, the CSVs' rows, the PNGs. Then
+    ms/step with ``checkpoint_every=10`` against off (20-step minus
+    10-step runs, rounds interleaved), the checkpoint's bytes and the
+    save's seconds.
+    """
+    work = _work_dir("resume")
+    content, style = _images(SIZE, 0)
+    for name, array in (("c", content), ("s", style)):
+        image_io.save_array_as_image(
+            torch.from_numpy(array), work / f"{name}.png",
+        )
+    toml = work / "run.toml"
+    toml.write_text(
+        f"[optimization]\nsteps = {STEPS}\nallow_random_weights = true\n"
+        '[hardware]\ndevice = "cuda"\n[video]\nfinal_only = true\n'
+        f"[output]\nlog_every = 1\ncheckpoint_every = {STEPS // 2}\n",
+    )
+
+    def cli_run(name: str, *extra: str) -> Path:
+        out = work / name
+        argv = [
+            "--content", str(work / "c.png"), "--style", str(work / "s.png"),
+            "--config", str(toml), "--output", str(out),
+            "--log-loss", str(out / "l.csv"),
+            "--checkpoint-path", str(out / "ck.npz"), *extra,
+        ]
+        if cli.main(argv) != 0:
+            msg = f"resume: cli.main({argv}) failed"
+            raise AssertionError(msg)
+        return out
+
+    whole, again = cli_run("whole"), cli_run("again")
+    part = cli_run("part", "--steps", str(STEPS // 2))
+    shutil.copy(part / "ck.npz", part / "at10.npz")
+    _, run_s, launches = _counted_run(
+        lambda: cli_run("part", "--resume-from", str(part / "at10.npz")),
+    )
+    differ_whole = _same_npz(whole / "ck.npz", again / "ck.npz")
+    differ = _same_npz(whole / "ck.npz", part / "ck.npz")
+    rows_equal = _csv_rows(whole / "l.csv") == _csv_rows(part / "l.csv")
+    if len(_csv_rows(whole / "l.csv")) != STEPS + 1:
+        msg = "resume: the whole run's CSV has the wrong row count"
+        raise AssertionError(msg)
+    png = "stylized_c_x_s.png"
+    png_equal = (work / "whole" / png).read_bytes() == (
+        part / png
+    ).read_bytes()
+    curve_err = float(np.max(
+        np.abs(_curve(part / "l.csv") - _curve(whole / "l.csv"))
+        / np.abs(_curve(whole / "l.csv")),
+    ))
+    verdict = _resume_gate(
+        "resume", differ_whole, differ, rows_equal, curve_err,
+        _nudged_control(content, style) if differ_whole else None,
+    )
+    opt = _config(STEPS // 2, "cuda").optimization
+    want = _launches_wanted(VGG19, opt, SIZE, 1)
+    if launches != want:
+        msg = f"resume: launches conv/gram {launches}, expected {want}"
+        raise AssertionError(msg)
+    ckpt_bytes = (part / "at10.npz").stat().st_size
+    like = prepare_model_and_input(
+        content, style, _config(STEPS, "cuda"),
+    )[0].opt_state
+    save_s = _save_seconds(part / "at10.npz", like)
+    del like
+    ms = {"off": [], "every 10": []}
+    for key, every in (("off", 0), ("every 10", STEPS // 2),
+                       ("every 10", STEPS // 2), ("off", 0)):
+        def run(n, every=every):
+            config = _config(n, "cuda")
+            config.output.checkpoint_every = every
+            config.output.checkpoint_path = str(work / "timed.npz")
+            run_style_transfer(content, style, config)
+        ms[key].append(_ms_per_step(run))
+    shutil.rmtree(work, ignore_errors=True)
+    print(
+        f"resume {SIZE}x{SIZE} vgg19 L-BFGS (cli.main --config TOML, "
+        f"frames off, CSV every step): two whole {STEPS}-step runs "
+        f"bit-equal: {not differ_whole}; {STEPS // 2} steps + "
+        f"--resume-from to {STEPS}: {verdict}; final PNGs equal "
+        f"{png_equal}; resumed curve max rel diff {curve_err:.3g}; "
+        f"launches of the resumed run conv {launches[0]} gram "
+        f"{launches[1]} (expected {want}); run s {run_s:.3f}; checkpoint "
+        f"bytes {ckpt_bytes}; save s {[round(t, 4) for t in save_s]}; "
+        f"ms/step checkpoint_every=10 "
+        f"{[round(v, 3) for v in ms['every 10']]} (median "
+        f"{statistics.median(ms['every 10']):.3f}) vs off "
+        f"{[round(v, 3) for v in ms['off']]} (median "
+        f"{statistics.median(ms['off']):.3f})",
+    )
+    return launches
+
+
+def _resume_batch() -> tuple[int, int]:
+    """The batch resumed: S = 4 through ``prepare_multi_style`` and
+    ``run_multi_style_loop``, the same gate for every style."""
+    work = _work_dir("resume_batch")
+    content = _images(SIZE, 1)[0]
+    styles = _style_arrays(BATCH_STYLES)
+    params = load_pretrained_params(
+        torch.device("cuda"), allow_random=True, seed=0,
+    )
+    names = [f"s{i}" for i in range(BATCH_STYLES)]
+
+    def run(name: str, steps: int, resume: Path | None = None):
+        out = work / name
+        config = _batch_config(steps, media=False)
+        config.output.log_every = 1
+        config.output.log_loss = str(out / "l.csv")
+        config.output.checkpoint_every = STEPS // 2
+        config.output.checkpoint_path = str(out / "ck.npz")
+        if resume is not None:
+            config.output.resume_from = str(resume)
+        bundle, images = prepare_multi_style(
+            content, styles, config, params=params,
+        )
+        images, state, errors = run_multi_style_loop(
+            bundle, images, config, out, names, progress_bar=_Progress(),
+        )
+        if errors:
+            raise errors[0]
+        return images, state
+
+    whole, _ = run("whole", STEPS)
+    again, _ = run("again", STEPS)
+    run("part", STEPS // 2)
+    part = work / "part"
+    shutil.copy(part / "ck.npz", part / "at10.npz")
+    (resumed, state), run_s, launches = _counted_run(
+        lambda: run("part", STEPS, part / "at10.npz"),
+    )
+    differ_whole = _same_npz(work / "whole" / "ck.npz",
+                             work / "again" / "ck.npz")
+    differ = _same_npz(work / "whole" / "ck.npz", part / "ck.npz")
+    images_equal = [bool(torch.equal(whole[i], resumed[i]))
+                    for i in range(BATCH_STYLES)]
+    if not differ_whole and not all(images_equal):
+        differ.append("images")
+    rows_equal = all(
+        _csv_rows(work / "whole" / f"l_{n}.csv")
+        == _csv_rows(part / f"l_{n}.csv")
+        for n in names
+    )
+    curve_err = max(
+        float(np.max(
+            np.abs(_curve(part / f"l_{n}.csv")
+                   - _curve(work / "whole" / f"l_{n}.csv"))
+            / np.abs(_curve(work / "whole" / f"l_{n}.csv")),
+        ))
+        for n in names
+    )
+    verdict = _resume_gate(
+        "resume batch", differ_whole, differ, rows_equal, curve_err,
+        _nudged_control(content, styles[0]) if differ_whole else None,
+    )
+    want = _launches_wanted(
+        VGG19, _batch_config(STEPS // 2, media=False).optimization, SIZE,
+        BATCH_STYLES,
+    )
+    if launches != want:
+        msg = f"resume batch: launches conv/gram {launches}, expected {want}"
+        raise AssertionError(msg)
+    ckpt_bytes = (part / "at10.npz").stat().st_size
+    save_s = _save_seconds(part / "at10.npz", state)
+    del whole, again, resumed, state, params
+    shutil.rmtree(work, ignore_errors=True)
+    print(
+        f"resume batch {SIZE}x{SIZE} vgg19 L-BFGS S={BATCH_STYLES} "
+        f"(prepare_multi_style + run_multi_style_loop, frames off, CSVs "
+        f"every step): two whole {STEPS}-step runs bit-equal: "
+        f"{not differ_whole}; {STEPS // 2} steps + resume to {STEPS}: "
+        f"{verdict}; each style's final image bit-equal {images_equal}; "
+        f"resumed curves max rel diff {curve_err:.3g}; launches of the "
+        f"resumed run conv {launches[0]} gram {launches[1]} (expected "
+        f"{want}); run s {run_s:.3f}; checkpoint bytes {ckpt_bytes}; save "
+        f"s {[round(t, 4) for t in save_s]}",
+    )
+    return launches
+
+
+WARM_SIDE = 4096
+WARM_STEPS = 15  # auto coarse budget steps // 5 = 3 steps at 2048x2048
+
+
+def _warm_start_4mp() -> tuple[int, int]:
+    """The auto warm start of 4096x4096 content: a 2048x2048 level.
+
+    Seeded 4096x4096 content and a 512x512 style, ``coarse_steps`` left
+    at auto for a 15-step run: 3 steps at 2048x2048 through
+    ``engine.coarse.coarse_init``. The level's peak memory, and its ms
+    per coarse step as the difference of a 6-step and a 3-step level
+    over 3.
+    """
+    rng = np.random.default_rng(11)
+    content = rng.uniform(size=(1, WARM_SIDE, WARM_SIDE, 3)).astype(
+        np.float32,
+    )
+    style = _images(SIZE, 12)[0]
+    params = load_pretrained_params(
+        torch.device("cuda"), allow_random=True, seed=0,
+    )
+    config = _config(WARM_STEPS, "cuda")
+    content_img = image_io.host_array_to_device(content, "cuda",
+                                                normalize=True)
+    style_img = image_io.host_array_to_device(style, "cuda", normalize=True)
+    del content
+    coarse_steps = resolve_coarse_steps(-1, WARM_SIDE, WARM_SIDE, WARM_STEPS)
+    plan = plan_pyramid(WARM_SIDE, WARM_SIDE, coarse_steps, 2)
+    if plan != [(WARM_SIDE // 2, WARM_SIDE // 2, 3)]:
+        msg = f"warm start: schedule {plan}, expected one 2048x2048 level"
+        raise AssertionError(msg)
+
+    def level(steps: int) -> torch.Tensor:
+        config.optimization.coarse_steps = steps
+        return coarse_init(
+            params, content_img, style_img, config,
+            torch.Generator(device="cuda").manual_seed(0),
+        )
+
+    before = _fresh_peak()
+    logs = _LogLines()
+    logger.addHandler(logs)
+    try:
+        warm, run_s, launches = _counted_run(lambda: level(coarse_steps))
+    finally:
+        logger.removeHandler(logs)
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(warm.shape) != (1, WARM_SIDE, WARM_SIDE, 3) or not bool(
+        torch.isfinite(warm).all(),
+    ):
+        msg = f"warm start: bad image {tuple(warm.shape)}"
+        raise AssertionError(msg)
+    done = [line for line in logs.lines if line.startswith("Coarse level")]
+    opt = config.optimization
+    style_convs = _convs_through(VGG19, max(opt.style_layers))
+    content_convs = _convs_through(VGG19, max(opt.content_layers))
+    step_convs = 2 * _convs_through(
+        VGG19, max(opt.style_layers + opt.content_layers),
+    )
+    n_style = len(opt.style_layers)
+    want = (
+        style_convs + content_convs + step_convs * coarse_steps,
+        n_style * (1 + coarse_steps),
+    )
+    if launches != want or len(done) != 1:
+        msg = f"warm start: launches {launches} (expected {want}), {done}"
+        raise AssertionError(msg)
+    del warm
+    seconds = {}
+    for steps in (coarse_steps, 2 * coarse_steps, coarse_steps,
+                  2 * coarse_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        level(steps)
+        torch.cuda.synchronize()
+        seconds.setdefault(steps, []).append(time.perf_counter() - t0)
+    ms_step = (
+        (min(seconds[2 * coarse_steps]) - min(seconds[coarse_steps]))
+        / coarse_steps * 1e3
+    )
+    del content_img, style_img, params
+    print(
+        f"warm start 4 MP: content {WARM_SIDE}x{WARM_SIDE}, auto "
+        f"coarse_steps {coarse_steps} at {WARM_SIDE // 2}x"
+        f"{WARM_SIDE // 2} ({(WARM_SIDE // 2) ** 2} px) through "
+        f"coarse_init: ran ({done[0]}); launches conv {launches[0]} gram "
+        f"{launches[1]} (expected {want}); max_memory_allocated {peak}, of "
+        f"which allocated before {before} (the level's own "
+        f"{peak - before}); ms per coarse step {ms_step:.3f} (6-step minus "
+        f"3-step level over 3, least of 2 rounds: {seconds}); run s "
+        f"{run_s:.3f}",
+    )
+    return launches
+
+
+def _check_level_kernels(conv_rec, conv_level, gram_rec, gram_level):
+    """Both kernels at the 2048x2048 level's first shapes.
+
+    The first two convs (3 -> 64 and 64 -> 64 at 2048x2048) and the
+    first tap's Gram (P = 4,194,304, C = 64), each within 1e-4 of its
+    plain version and timed (``level_2048_first`` in the JSON record).
+    """
+    side = WARM_SIDE // 2
+    _check_conv(conv_rec, [
+        (1, side, side, ci, co, n, f, conv_level)
+        for _, ci, co, n, f in CONV_SHAPES[:2]
+    ])
+    _check_gram_cases(
+        gram_rec, [(side * side, GRAM_SHAPES[0][1], gram_level)],
+        torch.Generator(device="cuda").manual_seed(3),
+    )
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     """Run every phase; return 0 when all pass (failures raise)."""
     if not torch.cuda.is_available():
@@ -1528,19 +1950,30 @@ def main() -> int:
                 name, f"{PACKAGE}/{source}",
                 f"style_transfer_visualizer_tpu/{replaces}",
             )
-            for _ in range(3)
+            for _ in range(4)
         )
         records[name] = (main_rec, dict(zip(
-            ("at_1024", batch_key), extra, strict=True,
+            ("at_1024", batch_key, "level_2048_first"), extra, strict=True,
         )))
-    _check_conv(records["conv3x3"][0], *records["conv3x3"][1].values())
+    conv_rec, conv_extra = records["conv3x3"]
+    _check_conv(conv_rec, _conv_cases(
+        conv_rec, conv_extra["at_1024"], conv_extra["n4_512"],
+    ))
     _vgg16_shapes_covered()
-    _check_gram(records["gram"][0], *records["gram"][1].values())
+    gram_rec, gram_extra = records["gram"]
+    _check_gram(gram_rec, gram_extra["at_1024"], gram_extra["batched_s4_512"])
     phases = {"main path": _main_path()}
     phases["timelapse"] = _timelapse()
     phases["objective"] = _objective()
     phases["adam vgg16"] = _adam_vgg16()
     phases["batch"] = _batch()
+    phases["resume"] = _resume_single()
+    phases["resume batch"] = _resume_batch()
+    phases["warm start 4 MP"] = _warm_start_4mp()
+    _check_level_kernels(
+        conv_rec, conv_extra["level_2048_first"],
+        gram_rec, gram_extra["level_2048_first"],
+    )
     _small_reference()
     _small_batch_reference()
 

@@ -13,25 +13,27 @@ the optimization flags of the single run (the optimizer, the TV and
 Laplacian terms, per-layer style weights, color preservation, the
 model, the coarse warm start), the style blend, and the output and
 video flags of the timelapse (``--save-every``, ``--no-video``,
-``--gif``, ``--log-loss``, ``--compare-inputs`` and the rest). A
-realtime or postprocess MP4 needs ``ffmpeg`` on PATH; the GIF needs
-imageio. ``--styles`` without ``--style-blend`` is the JAX package's
-per-style batch: one stylization per style, all in one stacked step
+``--gif``, ``--log-loss``, ``--compare-inputs`` and the rest), the
+checkpoint flags (``--checkpoint-every``, ``--checkpoint-path``,
+``--resume-from``), ``--profile-dir``, and ``--config`` (a TOML in the
+JAX package's layout, under the typed flags) with
+``--validate-config-only``. A realtime or postprocess MP4 needs
+``ffmpeg`` on PATH; the GIF needs imageio. ``--styles`` without
+``--style-blend`` is the JAX package's per-style batch: one
+stylization per style, all in one stacked step
 (``main.multi_style_transfer``).
 """
 from __future__ import annotations
 
 import argparse
+import copy
 from collections.abc import Sequence
 from pathlib import Path
 
 from style_transfer_visualizer_tpu_torch import config_defaults as d
 from style_transfer_visualizer_tpu_torch.config import (
-    HardwareConfig,
-    OptimizationConfig,
-    OutputConfig,
+    ConfigLoader,
     StyleTransferConfig,
-    VideoConfig,
 )
 from style_transfer_visualizer_tpu_torch.main import (
     multi_style_transfer,
@@ -54,18 +56,18 @@ def _float_list(text: str) -> list[float]:
 
 
 def _add_optimization_flags(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--steps", type=int, default=d.DEFAULT_STEPS)
-    p.add_argument("--device", default=d.DEFAULT_DEVICE)
-    p.add_argument("--seed", type=int, default=d.DEFAULT_SEED)
-    p.add_argument("--lr", type=float, default=d.DEFAULT_LEARNING_RATE)
+    p.add_argument("--steps", type=int)
+    p.add_argument("--device")
+    p.add_argument("--seed", type=int)
+    p.add_argument("--lr", type=float)
     p.add_argument(
-        "--style-w", type=float, default=d.DEFAULT_STYLE_WEIGHT,
+        "--style-w", type=float,
     )
     p.add_argument(
-        "--content-w", type=float, default=d.DEFAULT_CONTENT_WEIGHT,
+        "--content-w", type=float,
     )
     p.add_argument(
-        "--tv-w", type=float, default=d.DEFAULT_TV_WEIGHT,
+        "--tv-w", type=float,
         help=(
             "Total-variation weight: adds a smoothness regularizer on "
             "the optimized image to the objective (0, the default, "
@@ -74,7 +76,7 @@ def _add_optimization_flags(p: argparse.ArgumentParser) -> None:
         ),
     )
     p.add_argument(
-        "--lap-w", type=float, default=d.DEFAULT_LAP_WEIGHT,
+        "--lap-w", type=float,
         help=(
             "Laplacian detail-preservation weight (Lapstyle, Li et al. "
             "2017): penalizes edge-structure drift from the content "
@@ -83,14 +85,14 @@ def _add_optimization_flags(p: argparse.ArgumentParser) -> None:
         ),
     )
     p.add_argument(
-        "--lap-pool", type=int, default=d.DEFAULT_LAP_POOL,
+        "--lap-pool", type=int,
         help=(
             "Mean-pool size before the Laplacian stencil (default 4): "
             "larger values match coarser edge structure and cost less."
         ),
     )
     p.add_argument(
-        "--preserve-color", default=d.DEFAULT_PRESERVE_COLOR,
+        "--preserve-color",
         choices=("off", "luminance", "match"),
         help=(
             "Keep the content image's colors (Gatys et al. 2016): "
@@ -102,19 +104,19 @@ def _add_optimization_flags(p: argparse.ArgumentParser) -> None:
         ),
     )
     p.add_argument(
-        "--init-method", default=d.DEFAULT_INIT_METHOD,
+        "--init-method",
         choices=("content", "random", "white"),
     )
     p.add_argument(
         "--style-layers", type=_int_list,
-        default=list(d.DEFAULT_STYLE_LAYERS),
+        help="Comma-separated VGG layer indices for the style loss",
     )
     p.add_argument(
         "--content-layers", type=_int_list,
-        default=list(d.DEFAULT_CONTENT_LAYERS),
+        help="Comma-separated VGG layer indices for the content loss",
     )
     p.add_argument(
-        "--style-layer-weights", type=_float_list, default=None,
+        "--style-layer-weights", type=_float_list,
         help=(
             "Comma-separated per-layer style weights (one per "
             "--style-layers entry, e.g. '1,1,0.5,0.25,0.25'); each "
@@ -123,12 +125,12 @@ def _add_optimization_flags(p: argparse.ArgumentParser) -> None:
         ),
     )
     p.add_argument(
-        "--optimizer", default=d.DEFAULT_OPTIMIZER,
+        "--optimizer",
         choices=("lbfgs", "adam"),
         help="Pixel optimizer (default: lbfgs)",
     )
     p.add_argument(
-        "--model", default=d.DEFAULT_MODEL, choices=("vgg19", "vgg16"),
+        "--model", choices=("vgg19", "vgg16"),
         help=(
             "Feature backbone (default: vgg19). With vgg16, layer lists "
             "left at the VGG19 defaults remap to vgg16's own standard "
@@ -137,7 +139,7 @@ def _add_optimization_flags(p: argparse.ArgumentParser) -> None:
         ),
     )
     p.add_argument(
-        "--coarse-steps", type=int, default=d.DEFAULT_COARSE_STEPS,
+        "--coarse-steps", type=int,
         help=(
             "Warm start: optimize N steps at half resolution and "
             "upsample the result as the starting image. -1 = auto "
@@ -146,7 +148,7 @@ def _add_optimization_flags(p: argparse.ArgumentParser) -> None:
         ),
     )
     p.add_argument(
-        "--pyramid-levels", type=int, default=d.DEFAULT_PYRAMID_LEVELS,
+        "--pyramid-levels", type=int,
         help=(
             "Resolutions in the coarse-to-fine warm start: 2 (default) "
             "runs one half-res phase; N ladders up from 1/2^(N-1), each "
@@ -158,14 +160,13 @@ def _add_optimization_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--no-normalize", action="store_true")
     p.add_argument(
         "--lbfgs-history-size", type=int,
-        default=d.DEFAULT_LBFGS_HISTORY_SIZE,
     )
     p.add_argument(
-        "--lbfgs-history-dtype", default=d.DEFAULT_LBFGS_HISTORY_DTYPE,
+        "--lbfgs-history-dtype",
         choices=("float32", "bfloat16"),
     )
     p.add_argument(
-        "--lbfgs-direction", default=d.DEFAULT_LBFGS_DIRECTION,
+        "--lbfgs-direction",
         choices=("two-loop", "compact"),
     )
     p.add_argument(
@@ -175,27 +176,49 @@ def _add_optimization_flags(p: argparse.ArgumentParser) -> None:
 
 
 def _add_output_flags(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--output", default=d.DEFAULT_OUTPUT_DIR)
+    p.add_argument("--output")
     p.add_argument(
-        "--log-every", type=int, default=d.DEFAULT_LOG_EVERY,
+        "--log-every", type=int,
         help="loss sync cadence, and CSV row cadence with --log-loss",
     )
     p.add_argument(
         "--no-plot", action="store_true", help="Disable loss plotting",
     )
     p.add_argument(
-        "--log-loss", default=None,
+        "--log-loss",
         help=(
             "Path to a CSV file for the loss metrics. The series then "
             "goes to disk instead of memory, and the loss plot is off."
         ),
     )
     p.add_argument(
-        "--compare-inputs", action="store_true",
+        "--checkpoint-every", type=int,
+        help=(
+            "Save a resumable checkpoint (image + optimizer state) every "
+            "N steps (0 disables; default 0)."
+        ),
+    )
+    p.add_argument(
+        "--checkpoint-path",
+        help="Checkpoint file path (default: <output>/checkpoint.npz).",
+    )
+    p.add_argument(
+        "--resume-from",
+        help="Resume optimization from a saved checkpoint file.",
+    )
+    p.add_argument(
+        "--profile-dir",
+        help=(
+            "Write a torch.profiler trace of the optimization loop to "
+            "this directory (view with TensorBoard or Perfetto)."
+        ),
+    )
+    p.add_argument(
+        "--compare-inputs", action="store_true", default=False,
         help="Save a labeled comparison image of content and style.",
     )
     p.add_argument(
-        "--compare-result", action="store_true",
+        "--compare-result", action="store_true", default=False,
         help=(
             "Save a labeled comparison image of content, style and "
             "the stylized result."
@@ -205,15 +228,15 @@ def _add_output_flags(p: argparse.ArgumentParser) -> None:
 
 def _add_video_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument(
-        "--save-every", type=int, default=d.DEFAULT_SAVE_EVERY,
+        "--save-every", type=int,
         help="Save a timelapse frame every N steps",
     )
     p.add_argument(
-        "--fps", type=int, default=d.DEFAULT_FPS,
+        "--fps", type=int,
         help="Frames per second for video",
     )
     p.add_argument(
-        "--quality", type=int, default=d.DEFAULT_VIDEO_QUALITY,
+        "--quality", type=int,
         help="Video quality, 1-10 (10 is best)",
     )
     p.add_argument(
@@ -228,7 +251,6 @@ def _add_video_flags(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--intro-duration", type=float,
-        default=d.DEFAULT_VIDEO_INTRO_DURATION,
         help="Seconds to hold the intro comparison frame",
     )
     p.add_argument(
@@ -238,14 +260,12 @@ def _add_video_flags(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--outro-duration", type=float,
-        default=d.DEFAULT_VIDEO_OUTRO_DURATION,
         help="Seconds to hold the final comparison frame",
     )
-    p.add_argument("--metadata-title", default=None)
-    p.add_argument("--metadata-artist", default=None)
+    p.add_argument("--metadata-title")
+    p.add_argument("--metadata-artist")
     p.add_argument(
         "--gif", dest="create_gif", action="store_true",
-        default=d.DEFAULT_CREATE_GIF,
         help=(
             "Also export a GIF timelapse (intro/outro segments are "
             "skipped unless explicitly included)."
@@ -264,7 +284,7 @@ def _add_video_flags(p: argparse.ArgumentParser) -> None:
         help="Include the outro comparison segment in GIF output.",
     )
     p.add_argument(
-        "--video-mode", default=None, choices=("realtime", "postprocess"),
+        "--video-mode", choices=("realtime", "postprocess"),
         help=(
             "realtime streams frames into ffmpeg, postprocess encodes "
             "after the optimization. When omitted, long runs may switch "
@@ -274,19 +294,28 @@ def _add_video_flags(p: argparse.ArgumentParser) -> None:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The argument parser of the port's CLI."""
+    """The argument parser of the port's CLI.
+
+    A flag the user did not type is absent from the parsed namespace
+    (``argparse.SUPPRESS``), so only typed flags override the TOML of
+    ``--config`` or the defaults (:func:`config_from_args`).
+    """
     p = argparse.ArgumentParser(
         prog="style_transfer_visualizer_tpu_torch.cli",
         description="Neural style transfer on PyTorch/CUDA.",
+        argument_default=argparse.SUPPRESS,
     )
-    p.add_argument("--content", required=True, help="content image file")
+    p.add_argument("--content", default=None, help="content image file")
     p.add_argument("--style", default=None, help="style image file")
     p.add_argument(
         "--styles", default=None,
         help=(
-            "Comma-separated style image paths; with --style-blend, "
-            "one stylization from their blended Gram targets (the "
-            "per-style batch without --style-blend is not ported)."
+            "Comma-separated style image paths. Alone: the multi-style "
+            "batch, one stylization per style, all styles in one "
+            "stacked step (stylized_{c}_x_{s}.png per style, and one "
+            "timelapse GIF and/or postprocess MP4 per style). With "
+            "--style-blend: one stylization from their blended Gram "
+            "targets."
         ),
     )
     p.add_argument(
@@ -303,69 +332,86 @@ def build_parser() -> argparse.ArgumentParser:
     _add_optimization_flags(p)
     _add_output_flags(p)
     _add_video_flags(p)
+    p.add_argument(
+        "--config", default=None, help="Path to a config.toml file",
+    )
+    p.add_argument(
+        "--validate-config-only", action="store_true", default=False,
+        help="Validate the config file and exit without running",
+    )
     return p
 
 
-def config_from_args(args: argparse.Namespace) -> StyleTransferConfig:
-    """Build the validated config from parsed arguments."""
-    plot_losses = not args.no_plot
-    if args.log_loss and plot_losses:
+# Flags copied as they are onto a config section's field of the same
+# name (the JAX package's build_config_from_cli merges the same keys).
+_COPIED = {
+    "output": (
+        "output", "log_every", "log_loss", "checkpoint_every",
+        "checkpoint_path", "resume_from", "profile_dir",
+    ),
+    "optimization": (
+        "steps", "style_w", "content_w", "tv_w", "lap_w", "lap_pool", "lr",
+        "init_method", "seed", "optimizer", "model",
+        "lbfgs_history_size", "lbfgs_history_dtype", "lbfgs_direction",
+        "coarse_steps", "pyramid_levels", "preserve_color",
+        "style_layers", "content_layers", "style_layer_weights",
+    ),
+    "video": (
+        "save_every", "fps", "quality", "metadata_title",
+        "metadata_artist", "create_gif", "gif_include_intro",
+        "gif_include_outro", "final_frame_compare",
+    ),
+    "hardware": ("device",),
+}
+
+
+def config_from_args(
+    args: argparse.Namespace,
+    base: StyleTransferConfig | None = None,
+) -> StyleTransferConfig:
+    """Merge the typed flags of ``args`` over ``base``; validate.
+
+    ``base`` is the TOML of ``--config`` or, by default, the defaults.
+    Precedence is the JAX package's: flag, then TOML, then default.
+    Raises ``ValueError`` for a value out of its bounds.
+    """
+    config = copy.deepcopy(base) if base is not None else StyleTransferConfig()
+    typed = vars(args)
+    for section, keys in _COPIED.items():
+        for key in keys:
+            if key in typed:
+                setattr(getattr(config, section), key, typed[key])
+    if typed.get("no_plot"):
+        config.output.plot_losses = False
+    if typed.get("allow_random_weights"):
+        config.optimization.allow_random_weights = True
+    if typed.get("no_normalize"):
+        config.optimization.normalize = False
+    video = config.video
+    if typed.get("no_video"):
+        video.create_video = False
+    if typed.get("no_intro"):
+        video.intro_enabled = False
+    if typed.get("final_only"):
+        video.final_only = True
+    if "intro_duration" in typed:
+        video.intro_duration_seconds = max(typed["intro_duration"], 0.0)
+    if "outro_duration" in typed:
+        video.outro_duration_seconds = max(typed["outro_duration"], 0.0)
+    if "video_mode" in typed:
+        video.mode = typed["video_mode"]
+        video.mode_override = True
+    # A mode other than the default set in the TOML is a choice too.
+    if video.mode != d.DEFAULT_VIDEO_MODE:
+        video.mode_override = True
+    if config.output.log_loss and config.output.plot_losses:
         logger.warning(
             "Loss plotting is disabled because CSV logging is enabled. "
             "Only loss CSV will be created.",
         )
-        plot_losses = False
-    return StyleTransferConfig(
-        output=OutputConfig(
-            output=args.output,
-            log_every=args.log_every,
-            log_loss=args.log_loss,
-            plot_losses=plot_losses,
-        ),
-        optimization=OptimizationConfig(
-            steps=args.steps,
-            style_w=args.style_w,
-            content_w=args.content_w,
-            tv_w=args.tv_w,
-            lap_w=args.lap_w,
-            lap_pool=args.lap_pool,
-            preserve_color=args.preserve_color,
-            lr=args.lr,
-            init_method=args.init_method,
-            seed=args.seed,
-            normalize=not args.no_normalize,
-            style_layers=args.style_layers,
-            content_layers=args.content_layers,
-            lbfgs_history_size=args.lbfgs_history_size,
-            lbfgs_history_dtype=args.lbfgs_history_dtype,
-            lbfgs_direction=args.lbfgs_direction,
-            style_layer_weights=args.style_layer_weights,
-            model=args.model,
-            optimizer=args.optimizer,
-            coarse_steps=args.coarse_steps,
-            pyramid_levels=args.pyramid_levels,
-            allow_random_weights=args.allow_random_weights,
-        ),
-        video=VideoConfig(
-            save_every=args.save_every,
-            fps=args.fps,
-            quality=args.quality,
-            create_video=not args.no_video,
-            final_only=args.final_only,
-            intro_enabled=not args.no_intro,
-            intro_duration_seconds=max(args.intro_duration, 0.0),
-            metadata_title=args.metadata_title,
-            metadata_artist=args.metadata_artist,
-            final_frame_compare=args.final_frame_compare,
-            outro_duration_seconds=max(args.outro_duration, 0.0),
-            mode=args.video_mode or d.DEFAULT_VIDEO_MODE,
-            create_gif=args.create_gif,
-            gif_include_intro=args.gif_include_intro,
-            gif_include_outro=args.gif_include_outro,
-            mode_override=args.video_mode is not None,
-        ),
-        hardware=HardwareConfig(device=args.device),
-    )
+        config.output.plot_losses = False
+    config.validate()
+    return config
 
 
 def _check_style_args(args: argparse.Namespace) -> list[str] | None:
@@ -456,15 +502,35 @@ def _run_blended(
 
 
 def main(argv: Sequence[str] | None = None) -> int:
-    """Parse ``argv``, run the transfer, and return the exit code."""
+    """Parse ``argv``, run the transfer, and return the exit code.
+
+    ``--config`` loads a TOML (the JAX package's layout) under the typed
+    flags; ``--validate-config-only`` loads it and returns 0 without
+    running anything.
+    """
     parser = build_parser()
     args = parser.parse_args(argv)
-    if not (args.style or args.styles):
-        parser.error("the following arguments are required: --style")
+    if args.validate_config_only and not args.config:
+        parser.error("--validate-config-only requires --config")
+    base = None
+    if args.config:
+        try:
+            base = ConfigLoader.load(args.config)
+        except (OSError, ValueError, NotImplementedError) as exc:
+            parser.error(str(exc))
+        if args.validate_config_only:
+            logger.info("Config %s validated successfully.", args.config)
+            return 0
+    if not args.content or not (args.style or args.styles):
+        parser.error(
+            "the following arguments are required: --content, --style",
+        )
     try:
-        config = config_from_args(args)
+        config = config_from_args(args, base)
     except ValueError as exc:
         parser.error(str(exc))
+    if args.config:
+        logger.info("Loaded config from: %s", args.config)
     style_paths = _check_style_args(args)
     if style_paths is not None:
         if not args.style_blend:

@@ -1,4 +1,4 @@
-"""Configuration schema of the port, as dataclasses.
+"""Configuration schema of the port, as dataclasses, and its TOML loader.
 
 The sections, field names, defaults and bounds are those of the JAX
 package's ``config.py`` for every field the port reads. There is no
@@ -6,11 +6,19 @@ kernel-backend field: the device of a tensor decides between a kernel
 (CUDA) and its plain version (CPU). Bounds are checked when a section
 is built and again by :meth:`StyleTransferConfig.validate`, which the
 entry points call, so values set after construction are checked too.
+
+:class:`ConfigLoader` reads the JAX package's TOML layout
+(``[optimization]``, ``[video]``, ``[hardware]``, ``[output]``) with the
+stdlib ``tomllib``, as the JAX loader does.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import get_args
+import re
+import tomllib
+import types
+from dataclasses import dataclass, field, fields
+from pathlib import Path
+from typing import Literal, Union, get_args, get_origin, get_type_hints
 
 from style_transfer_visualizer_tpu_torch import config_defaults as d
 from style_transfer_visualizer_tpu_torch.constants import (
@@ -198,6 +206,20 @@ class HardwareConfig:
 
     device: str = d.DEFAULT_DEVICE
 
+    def __post_init__(self) -> None:
+        self.validate()
+
+    def validate(self) -> None:
+        """Raise ``ValueError`` for a device the port does not run on.
+
+        The JAX package's ``"tpu"`` is refused by name, not mapped.
+        """
+        _check(
+            re.fullmatch(r"cuda(:\d+)?|cpu", self.device.lower()) is not None,
+            f"device {self.device!r}: the port runs on 'cuda' (or "
+            "'cuda:N'), or on 'cpu' when asked for by name",
+        )
+
 
 @dataclass
 class VideoConfig:
@@ -247,19 +269,27 @@ class VideoConfig:
 
 @dataclass
 class OutputConfig:
-    """Output directory, loss-logging cadence, CSV and plot."""
+    """Output directory, loss logging, checkpoints and the profile."""
 
     output: str = d.DEFAULT_OUTPUT_DIR
     log_every: int = d.DEFAULT_LOG_EVERY
     log_loss: str | None = None
     plot_losses: bool = True
+    # Save a resumable checkpoint every N steps; 0 is off.
+    checkpoint_every: int = 0
+    # Default: <output>/checkpoint.npz.
+    checkpoint_path: str | None = None
+    resume_from: str | None = None
+    # Write a torch.profiler trace of the optimization loop here.
+    profile_dir: str | None = None
 
     def __post_init__(self) -> None:
         self.validate()
 
     def validate(self) -> None:
-        """Raise ``ValueError`` on a non-positive cadence."""
+        """Raise ``ValueError`` on a cadence outside its bounds."""
         _check(self.log_every >= 1, "log_every must be >= 1")
+        _check(self.checkpoint_every >= 0, "checkpoint_every must be >= 0")
 
 
 @dataclass
@@ -278,3 +308,115 @@ class StyleTransferConfig:
         self.output.validate()
         self.optimization.validate()
         self.video.validate()
+        self.hardware.validate()
+
+
+_SECTIONS = {
+    "output": OutputConfig,
+    "optimization": OptimizationConfig,
+    "video": VideoConfig,
+    "hardware": HardwareConfig,
+}
+
+#: Keys of the JAX package's TOML with no port yet: each is accepted at
+#: the JAX default and then ignored; any other value raises
+#: ``NotImplementedError`` naming what it waits for.
+_UNPORTED: dict[tuple[str, str], tuple[object, str]] = {
+    ("hardware", "precision"): (
+        "mixed", "ROADMAP.md queue item 'Precision tiers'",
+    ),
+    ("optimization", "remat"): (
+        False, "ROADMAP.md queue item 'Memory: banded evaluation and remat'",
+    ),
+    ("optimization", "tile_rows"): (
+        -1, "ROADMAP.md queue item 'Memory: banded evaluation and remat'",
+    ),
+    ("hardware", "spatial_shards"): (
+        1, "ROADMAP.md queue item 'Spatial and dp×sp'",
+    ),
+    ("hardware", "steps_per_dispatch"): (
+        0, "ROADMAP.md queue item 'Step dispatch and the step's own cost'",
+    ),
+    ("hardware", "conv_backend"): (
+        "auto", "nothing: the port has no backend knob (ROADMAP.md, "
+        "'Kernels are the only backend on the card')",
+    ),
+    ("hardware", "gram_backend"): (
+        "auto", "nothing: the port has no backend knob (ROADMAP.md, "
+        "'Kernels are the only backend on the card')",
+    ),
+}
+
+
+def _coerce(where: str, value: object, hint: object) -> object:
+    """``value`` as the field type ``hint``, as pydantic's lax mode would.
+
+    An int is taken for a float, an integral float for an int; a
+    ``Literal`` takes a string, whose choice the section's ``validate``
+    checks. Anything else raises ``ValueError``.
+    """
+    origin = get_origin(hint)
+    if origin in (Union, types.UnionType):
+        inner = [a for a in get_args(hint) if a is not type(None)]
+        return _coerce(where, value, inner[0])
+    if origin is list and isinstance(value, list):
+        (item,) = get_args(hint)
+        return [_coerce(f"{where}[{i}]", v, item) for i, v in enumerate(value)]
+    if origin is Literal:
+        hint = str
+    number = isinstance(value, (int, float)) and not isinstance(value, bool)
+    if hint is bool and isinstance(value, bool):
+        return value
+    if hint is int and number and float(value).is_integer():
+        return int(value)
+    if hint is float and number:
+        return float(value)
+    if hint is str and isinstance(value, str):
+        return value
+    kind = getattr(hint, "__name__", hint)
+    msg = f"{where} must be of type {kind}: {value!r}"
+    raise ValueError(msg)
+
+
+class ConfigLoader:
+    """Load and validate a TOML config file in the JAX package's layout."""
+
+    @staticmethod
+    def load(path: str | Path) -> StyleTransferConfig:
+        """Parse ``path`` as TOML into a validated config.
+
+        Keys that no section has are ignored, as the JAX loader's
+        pydantic models ignore them; so are unknown tables. The keys of
+        ``_UNPORTED`` load at their JAX default only. A ``device`` other
+        than ``cuda``/``cuda:N``/``cpu`` (the shipped ``"tpu"``) raises
+        ``ValueError``.
+        """
+        config_path = Path(path)
+        if not config_path.is_file():
+            msg = f"Config file not found: {path}"
+            raise FileNotFoundError(msg)
+        with config_path.open("rb") as fh:
+            doc = tomllib.load(fh)
+        sections = {}
+        for name, cls in _SECTIONS.items():
+            table = doc.get(name, {})
+            if not isinstance(table, dict):
+                msg = f"[{name}] must be a table"
+                raise ValueError(msg)  # noqa: TRY004 - pydantic's type
+            hints = get_type_hints(cls)
+            known = {f.name for f in fields(cls)}
+            kwargs = {}
+            for key, value in table.items():
+                if (name, key) in _UNPORTED:
+                    default, item = _UNPORTED[(name, key)]
+                    if value != default:
+                        msg = (
+                            f"{name}.{key} = {value!r} is not ported (only "
+                            f"its default {default!r} loads); it waits for "
+                            f"{item}"
+                        )
+                        raise NotImplementedError(msg)
+                elif key in known:
+                    kwargs[key] = _coerce(f"{name}.{key}", value, hints[key])
+            sections[name] = cls(**kwargs)
+        return StyleTransferConfig(**sections)

@@ -15,14 +15,6 @@ IMAGENET_STD: tuple[float, float, float] = (0.229, 0.224, 0.225)
 # dividing by the element count; keeps style gradients from exploding.
 GRAM_MATRIX_CLAMP_MAX = 5e5
 
-# --- Memory policy ----------------------------------------------------
-# Pixel counts from which the JAX package evaluates the loss in row
-# bands (ops/tiled.py) and rematerializes features. The port has
-# neither yet (ROADMAP queue 6): its coarse warm start refuses a level
-# this large rather than run it whole.
-AUTO_TILE_PIXEL_THRESHOLD = 4_200_000
-AUTO_REMAT_PIXEL_THRESHOLD = 2048 * 2048
-
 # --- Image size limits ------------------------------------------------
 MIN_DIMENSION = 64       # hard error below this
 MAX_DIMENSION = 3000     # soft warning above this

@@ -9,9 +9,11 @@ coarsest level starts from ``init_method``. With ``coarse_steps=-1``
 1 MP, with a budget of ``steps // 5`` (:func:`resolve_coarse_steps`).
 
 Every level runs the same kernels as the full-size run, at its own
-shape. The JAX package's banded and rematerialized levels (above 4.2
-MP, so for content of about 17 MP and up) are not ported: such a level
-raises. :func:`multi_coarse_init` is the same schedule for the
+shape, and runs whole at any size, as the port's full-size run does:
+the JAX package bands and rematerializes its largest levels (from 4.2
+MP and 2048x2048 px), which changes its memory but not its values. A
+level the card cannot hold raises ``torch.cuda.OutOfMemoryError``.
+:func:`multi_coarse_init` is the same schedule for the
 multi-style batch: every level optimizes all S styles in one stacked
 step, each against its own style resized to the level.
 """
@@ -20,10 +22,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F  # noqa: N812
 
-from style_transfer_visualizer_tpu_torch.constants import (
-    AUTO_REMAT_PIXEL_THRESHOLD,
-    AUTO_TILE_PIXEL_THRESHOLD,
-)
 from style_transfer_visualizer_tpu_torch.engine.runner import DEFAULT_CHUNK
 from style_transfer_visualizer_tpu_torch.engine.step import (
     build_update_step,
@@ -172,17 +170,6 @@ def resize_image(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
     return _interpolate(img, height, width, antialias=width < w)
 
 
-def _check_level_size(ch: int, cw: int) -> None:
-    """Raise for a level that needs the banded or remat evaluation."""
-    if ch * cw >= min(AUTO_TILE_PIXEL_THRESHOLD, AUTO_REMAT_PIXEL_THRESHOLD):
-        msg = (
-            f"coarse level {cw}x{ch} needs banded evaluation or "
-            "feature rematerialization, which the port does not have "
-            "yet (ROADMAP.md queue 6); pass --coarse-steps 0"
-        )
-        raise NotImplementedError(msg)
-
-
 def _level_lap(
     opt_cfg, coarse_content: torch.Tensor, ch: int, cw: int,
 ) -> tuple[float, torch.Tensor | None]:
@@ -263,7 +250,6 @@ def _optimize_level(
     ``start`` is the coarser level's image already resized to this
     level; None starts the coarsest level from ``init_method``.
     """
-    _check_level_size(ch, cw)
     opt_cfg = config.optimization
     coarse_content = resize_image(content_img, ch, cw)
     coarse_style = resize_image(style_img, ch, cw)
@@ -347,7 +333,6 @@ def multi_coarse_init(
     n_styles = len(style_imgs)
     x: torch.Tensor | None = None
     for ch, cw, steps in schedule:
-        _check_level_size(ch, cw)
         coarse_content = resize_image(content_img, ch, cw)
         targets = multi_style_targets(
             params, coarse_content,

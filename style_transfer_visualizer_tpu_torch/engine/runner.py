@@ -19,6 +19,10 @@ Behavioral contracts kept from the JAX package:
 - the loss history is a device ring of ``min(steps, 2048)`` rows,
   exported at the end, and is ``{}`` when the CSV owns the series; a
   CSV that cannot be opened degrades to the ring via the error callback;
+- a run can start at ``start_step`` (a resumed checkpoint): the
+  progress bar starts there and the loss CSV is appended to;
+- a checkpoint is saved after the frame at every ``checkpoint_every``
+  step when a ``checkpoint_path`` is given (one host read per save);
 - every resource is closed even when one fails (``_cleanup``).
 """
 from __future__ import annotations
@@ -28,6 +32,7 @@ import sys
 import time
 from collections.abc import Callable, Mapping
 from dataclasses import dataclass
+from pathlib import Path
 from typing import TYPE_CHECKING, Protocol
 
 import numpy as np
@@ -52,6 +57,9 @@ from style_transfer_visualizer_tpu_torch.media.stream import AsyncFrameStream
 from style_transfer_visualizer_tpu_torch.ops.color import (
     maybe_restore_color,
     yiq_matrices,
+)
+from style_transfer_visualizer_tpu_torch.runtime.checkpoint import (
+    save_checkpoint,
 )
 from style_transfer_visualizer_tpu_torch.utils.logging import logger
 
@@ -196,6 +204,8 @@ class OptimizationRunner:
         frame_stream: AsyncFrameStream | None = None,
         chunked_update_fn: Callable | None = None,
         chroma_source: torch.Tensor | None = None,
+        start_step: int = 0,
+        checkpoint_path: Path | None = None,
     ) -> None:
         """Set up the loop; nothing runs until :meth:`run`.
 
@@ -204,7 +214,9 @@ class OptimizationRunner:
         frame); the runner closes it at the end of the run.
         ``chroma_source`` (the content image, (1, H, W, 3) in [0,1] on
         the run's device) recolors every frame by luminance transfer
-        on the device before the pack.
+        on the device before the pack. The loop runs steps ``start_step
+        + 1`` to ``steps``; ``checkpoint_path`` receives a checkpoint at
+        every ``output.checkpoint_every`` step (none without a path).
         """
         self.update_fn = update_fn
         self.chunked_update_fn = chunked_update_fn
@@ -230,7 +242,9 @@ class OptimizationRunner:
             # frame, their copy would wait for the step's stream.
             yiq_matrices(chroma_source.device)
 
-        self._step_index = 0
+        self._step_index = start_step
+        self._start_step = start_step
+        self._checkpoint_path = checkpoint_path
 
         self.loss_logger: LossCSVLogger | None = None
         self._accumulator: LossAccumulator | None = None
@@ -260,7 +274,9 @@ class OptimizationRunner:
     def run(self) -> tuple[torch.Tensor, LossHistory, float]:
         """Execute the loop; return (image, loss history, elapsed seconds)."""
         if self._progress_bar is None:
-            self._progress_bar = default_progress(self.total_steps, 0)
+            self._progress_bar = default_progress(
+                self.total_steps, self._start_step,
+            )
             self._owns_progress_bar = True
 
         chunk = self._resolve_chunk_size()
@@ -269,6 +285,9 @@ class OptimizationRunner:
             while self._step_index < self.total_steps:
                 step_idx = self._step_index + 1
                 remaining = self.total_steps - self._step_index
+                # Chunks only while their ends stay on the cadence grid:
+                # a resumed run may start off it, and runs single steps
+                # until it is back on.
                 if (
                     chunk > 1
                     and remaining >= chunk
@@ -329,6 +348,7 @@ class OptimizationRunner:
             try:
                 self.loss_logger = LossCSVLogger(
                     out_cfg.log_loss, out_cfg.log_every,
+                    resume=self._start_step > 0,
                 )
                 logger.info(
                     "Loss CSV logging enabled: %s", out_cfg.log_loss,
@@ -365,8 +385,9 @@ class OptimizationRunner:
         """Steps per ``chunked_update_fn`` call.
 
         The chunk divides every cadence whose contract is per-step host
-        work at exact steps: CSV rows (``log_every``) and frames
-        (``save_every`` when a sink is attached). The ring is not a
+        work at exact steps: CSV rows (``log_every``), frames
+        (``save_every`` when a sink is attached) and checkpoints
+        (``checkpoint_every``). The ring is not a
         constraint: a chunk records every step's losses. Per-step
         callbacks force single steps.
         """
@@ -382,6 +403,8 @@ class OptimizationRunner:
             cadences.append(self.config.output.log_every)
         if self.video_writer is not None or self.gif_collector is not None:
             cadences.append(self.config.video.save_every)
+        if self.config.output.checkpoint_every:
+            cadences.append(self.config.output.checkpoint_every)
         return aligned_chunk(cadences)
 
     def _finalize_chunk(self, first_step: int, k: int, auxes) -> None:
@@ -394,6 +417,7 @@ class OptimizationRunner:
             first_step, auxes.style_score, auxes.content_score, auxes.loss,
         )
         self._after_record(last_step, logged)
+        self._maybe_save_checkpoint(last_step)
         self.progress_bar.update(k)
 
     def _finalize_step(self, step_idx: int, aux: StepAux) -> None:
@@ -404,9 +428,22 @@ class OptimizationRunner:
             step_idx, aux.style_score, aux.content_score, aux.loss,
         )
         metrics = self._after_record(step_idx, logged)
+        self._maybe_save_checkpoint(step_idx)
         self.progress_bar.update(1)
         if self.callbacks.on_step_end is not None:
             self.callbacks.on_step_end(metrics)
+
+    def _maybe_save_checkpoint(self, step_idx: int) -> None:
+        cadence = self.config.output.checkpoint_every
+        if (
+            not cadence
+            or self._checkpoint_path is None
+            or step_idx % cadence != 0
+        ):
+            return
+        save_checkpoint(
+            self._checkpoint_path, step_idx, self.input_img, self.opt_state,
+        )
 
     def _after_record(
         self, step_idx: int, logged: LoggedLoss | None,
@@ -527,7 +564,7 @@ class OptimizationRunner:
             self.progress_bar.set_postfix(postfix)
 
     def _log_summary(self) -> None:
-        steps_run = self._step_index
+        steps_run = self._step_index - self._start_step
         if steps_run <= 0:
             return
         # One host read for the whole run's evaluation telemetry.

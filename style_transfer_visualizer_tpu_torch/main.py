@@ -21,11 +21,18 @@ or Adam, VGG19 or VGG16) and the coarse-to-fine warm start:
   step (:func:`prepare_multi_style`, :func:`run_multi_style_loop`),
   one ``stylized_{content}_x_{style}.png`` and one timelapse per style.
 
+Every one of them takes ``config.output``'s checkpoints
+(``checkpoint_every``, ``checkpoint_path``, by default
+``<output>/checkpoint.npz``), resumes from ``resume_from`` (the warm
+start is then skipped: the checkpoint's image replaces any start) and
+traces its step loop with ``torch.profiler`` into ``profile_dir``.
+
 All run on ``config.hardware.device``, CUDA unless the caller asks for
 the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from pathlib import Path
 from typing import TYPE_CHECKING
@@ -66,6 +73,10 @@ from style_transfer_visualizer_tpu_torch.parallel.multistyle import (
     build_multi_style_update,
     initialize_multi_inputs,
     multi_style_targets,
+)
+from style_transfer_visualizer_tpu_torch.runtime.checkpoint import (
+    load_checkpoint,
+    save_checkpoint,
 )
 from style_transfer_visualizer_tpu_torch.runtime.device import (
     setup_device,
@@ -227,7 +238,7 @@ def _initial_image(
     blend_imgs: list[tuple[torch.Tensor, float]] | None,
 ) -> torch.Tensor:
     """The coarse warm start when it runs, else ``init_method``."""
-    if config.optimization.coarse_steps > 0:
+    if _warm_start_runs(config):
         warm = coarse_init(
             params, content_img, style_img, config, generator,
             blend_imgs=blend_imgs,
@@ -237,6 +248,72 @@ def _initial_image(
     return initialize_input(
         content_img, config.optimization.init_method, generator,
     )
+
+
+def _warm_start_runs(config: StyleTransferConfig) -> bool:
+    """Whether the coarse warm start runs: on, and not resuming.
+
+    On resume the checkpoint's image replaces any start, so the coarse
+    levels would be work thrown away.
+    """
+    if config.optimization.coarse_steps <= 0:
+        return False
+    if config.output.resume_from:
+        logger.info("Coarse warm start skipped: resuming a checkpoint.")
+        return False
+    return True
+
+
+def _resume(
+    config: StyleTransferConfig,
+    image: torch.Tensor,
+    state,
+) -> tuple[torch.Tensor, object, int]:
+    """``(image, state, start_step)``: the checkpoint's when resuming.
+
+    The start step is clamped to ``steps``; without ``resume_from`` the
+    arguments come back with step 0.
+    """
+    if not config.output.resume_from:
+        return image, state, 0
+    ckpt = load_checkpoint(config.output.resume_from, state, image.device)
+    return (
+        ckpt.image, ckpt.opt_state, min(ckpt.step, config.optimization.steps),
+    )
+
+
+def _checkpoint_path(
+    config: StyleTransferConfig, output_path: Path,
+) -> Path | None:
+    """Where checkpoints go, or None when ``checkpoint_every`` is 0."""
+    out = config.output
+    if out.checkpoint_every <= 0:
+        return None
+    if out.checkpoint_path:
+        return Path(out.checkpoint_path)
+    return output_path / "checkpoint.npz"
+
+
+@contextlib.contextmanager
+def _profiled(config: StyleTransferConfig, device: torch.device):
+    """A ``torch.profiler`` trace into ``profile_dir``, when it is set.
+
+    The trace (host activity, and the device's kernels on a card) is
+    written when the block ends, as a Chrome/TensorBoard JSON file.
+    """
+    profile_dir = config.output.profile_dir
+    if not profile_dir:
+        yield
+        return
+    logger.info("Profiling optimization loop to %s", profile_dir)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(profile_dir),
+    ):
+        yield
 
 
 def _chroma_source(
@@ -265,18 +342,28 @@ def run_style_transfer(
     ``style_blend`` as in :func:`prepare_model_and_input`. Returns the
     final (1, H, W, 3) image in [0, 1] on the run's device, recolored
     with the content's chrominance under ``preserve_color="luminance"``,
-    and the loss history (``{}`` when a loss CSV owns the series). No
-    media and no progress bar: frames, plot and PNG belong to
-    :func:`style_transfer`.
+    and the loss history (``{}`` when a loss CSV owns the series; a
+    resumed run's holds its own steps). No media and no progress bar:
+    frames, plot and PNG belong to :func:`style_transfer`. Checkpoints
+    default to ``<output>/checkpoint.npz``.
     """
     bundle, input_img = prepare_model_and_input(
         content, style, config, style_blend=style_blend,
     )
-    image, history, _ = OptimizationRunner(
-        bundle.update_fn, bundle.opt_state, input_img, config,
+    input_img, opt_state, start_step = _resume(
+        config, input_img, bundle.opt_state,
+    )
+    runner = OptimizationRunner(
+        bundle.update_fn, opt_state, input_img, config,
         progress_bar=SilentProgress(),
         chunked_update_fn=bundle.chunked_update_fn,
-    ).run()
+        start_step=start_step,
+        checkpoint_path=_checkpoint_path(
+            config, Path(config.output.output),
+        ),
+    )
+    with _profiled(config, input_img.device):
+        image, history, _ = runner.run()
     final = maybe_restore_color(
         image_io.prepare_image_for_output(
             image, normalize=config.optimization.normalize,
@@ -400,10 +487,15 @@ def run_with_artifacts(
     ``style_path`` also feed the intro/outro gallery panels.
     ``chroma_source`` (the raw content image on the run's device)
     recolors every frame, the outro, the PNG and the returned image
-    with the content's chrominance.
+    with the content's chrominance. ``config.output.resume_from``
+    replaces ``input_img`` and ``opt_state`` with the checkpoint's and
+    starts at its step (clamped to ``steps``); the loss CSV is then
+    appended to.
     """
     opt_cfg = config.optimization
     output_path = setup_output_directory(config.output.output)
+    # Before any sink opens: a checkpoint that does not fit raises here.
+    input_img, opt_state, start_step = _resume(config, input_img, opt_state)
     content_name = content_path.stem
     if style_name is None:
         style_name = style_path.stem
@@ -449,6 +541,8 @@ def run_with_artifacts(
         intro_crossfade_frames=intro_crossfade_frames,
         chunked_update_fn=chunked_update_fn,
         chroma_source=chroma_source,
+        start_step=start_step,
+        checkpoint_path=_checkpoint_path(config, output_path),
     )
     # The optimized image must survive late media failures: every sink
     # is closed even when one fails, and the final PNG is saved before
@@ -456,7 +550,8 @@ def run_with_artifacts(
     # failed GIF encode does not mislabel a fine MP4 (or vice versa).
     close_errors: dict[str, Exception] = {}
     try:
-        input_img, loss_metrics, elapsed = runner.run()
+        with _profiled(config, input_img.device):
+            input_img, loss_metrics, elapsed = runner.run()
         _maybe_append_final_segments(
             config.video,
             video_writer,
@@ -638,7 +733,7 @@ def _multi_initial_images(
     generator: torch.Generator,
 ) -> torch.Tensor:
     """The batched warm start when it runs, else ``init_method``."""
-    if config.optimization.coarse_steps > 0:
+    if _warm_start_runs(config):
         warm = multi_coarse_init(
             params, content_img, style_imgs, config, generator,
         )
@@ -877,8 +972,8 @@ def run_multi_style_loop(
 ):
     """The batch's step loop with its logging and timelapse contract.
 
-    The port of the JAX package's ``main._run_multi_style_loop``
-    without checkpoints and with single-step dispatch:
+    The port of the JAX package's ``main._run_multi_style_loop``, with
+    single-step dispatch:
 
     - per-style loss CSVs ``<log_loss stem>_<style><suffix or .csv>``,
       or per-style histories for ``loss_plot_<style>.png``; one ``(3,
@@ -892,7 +987,13 @@ def run_multi_style_loop(
       first (``content_path`` and ``style_paths`` give the intro and
       outro panels; without them there are none);
     - the stream is drained before the outros; every sink is closed
-      even when one fails.
+      even when one fails;
+    - checkpoints of the stacked ``(S, 1, H, W, 3)`` images and the
+      batched state after every ``checkpoint_every`` step (by default
+      to ``<output_path>/checkpoint.npz``), and ``resume_from``: the
+      loop starts at the checkpoint's step (clamped to ``steps``),
+      appends to the CSVs and runs only the remaining steps;
+    - ``profile_dir``: a ``torch.profiler`` trace of the loop.
 
     ``make_sink(kind, file_name)``, ``kind`` ``"gif"`` or ``"mp4"``,
     stands in for the encoders; ``on_step_end(step, images, aux)`` sees
@@ -914,6 +1015,11 @@ def run_multi_style_loop(
     if make_sink is None:
         def make_sink(kind: str, name: str) -> VideoFrameSink:
             return _default_sink(config, output_path, kind, name)
+
+    # Before any sink opens: a checkpoint that does not fit raises here.
+    images, state, start_step = _resume(config, images, bundle.opt_state)
+    if start_step:
+        logger.info("Resumed batch run at step %d.", start_step)
 
     intro_paths = None
     if content_path is not None and style_paths is not None:
@@ -939,6 +1045,14 @@ def run_multi_style_loop(
             media.deliver,
         )
 
+    checkpoint_path = _checkpoint_path(config, output_path)
+
+    def maybe_checkpoint(step: int) -> None:
+        if checkpoint_path is not None and (
+            step % out_cfg.checkpoint_every == 0
+        ):
+            save_checkpoint(checkpoint_path, step, images, state)
+
     csv_loggers: list[LossCSVLogger | None] = [None] * len(style_names)
     if out_cfg.log_loss:
         base = Path(out_cfg.log_loss)
@@ -947,7 +1061,9 @@ def run_multi_style_loop(
                 f"{base.stem}_{name}{base.suffix or '.csv'}",
             )
             try:
-                csv_loggers[i] = LossCSVLogger(per_style, out_cfg.log_every)
+                csv_loggers[i] = LossCSVLogger(
+                    per_style, out_cfg.log_every, resume=start_step > 0,
+                )
             except OSError as exc:
                 logger.error(
                     "Failed to initialize CSV logging for style %s: %s",
@@ -963,7 +1079,7 @@ def run_multi_style_loop(
     ]
     save_every = video.save_every
     bar = progress_bar or default_progress(
-        opt_cfg.steps, 0, desc="Multi-Style Transfer",
+        opt_cfg.steps, start_step, desc="Multi-Style Transfer",
     )
 
     def log_step(step: int, aux: StepAux) -> None:
@@ -983,19 +1099,20 @@ def run_multi_style_loop(
                     histories[i][key].append(v)
         bar.set_postfix({"mean_loss": f"{vals[2].mean():.4f}"})
 
-    state = bundle.opt_state
     close_errors: list[Exception] = []
     failed: set[str] = set()
     try:
-        for step in range(1, opt_cfg.steps + 1):
-            images, state, aux = bundle.update_fn(images, state)
-            bar.update(1)
-            if on_step_end is not None:
-                on_step_end(step, images, aux)
-            if frame_stream is not None and step % save_every == 0:
-                submit_frames(images)
-            if step % out_cfg.log_every == 0:
-                log_step(step, aux)
+        with _profiled(config, images.device):
+            for step in range(start_step + 1, opt_cfg.steps + 1):
+                images, state, aux = bundle.update_fn(images, state)
+                bar.update(1)
+                if on_step_end is not None:
+                    on_step_end(step, images, aux)
+                if frame_stream is not None and step % save_every == 0:
+                    submit_frames(images)
+                if step % out_cfg.log_every == 0:
+                    log_step(step, aux)
+                maybe_checkpoint(step)
         if frame_stream is not None:
             if opt_cfg.steps % save_every:
                 # Every timelapse ends on the finished image.

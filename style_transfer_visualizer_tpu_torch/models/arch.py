@@ -47,6 +47,8 @@ class Architecture:
     default_content_layers: tuple[int, ...]
     #: Converted-weights archive name (the JAX package's cache name).
     cache_filename: str
+    #: Torchvision checkpoint file name globs to convert from.
+    checkpoint_globs: tuple[str, ...]
     layer_table: LayerTable = field(init=False)
     conv_indices: tuple[int, ...] = field(init=False)
 
@@ -98,6 +100,7 @@ VGG19 = Architecture(
     default_style_layers=(0, 5, 10, 19, 28),
     default_content_layers=(21,),
     cache_filename="vgg19_imagenet.npz",
+    checkpoint_globs=("vgg19-*.pth", "vgg19.pth"),
 )
 
 VGG16 = Architecture(
@@ -114,6 +117,7 @@ VGG16 = Architecture(
     default_style_layers=(0, 5, 10, 17, 24),
     default_content_layers=(19,),
     cache_filename="vgg16_imagenet.npz",
+    checkpoint_globs=("vgg16-*.pth", "vgg16.pth"),
 )
 
 ARCHITECTURES: dict[str, Architecture] = {a.name: a for a in (VGG19, VGG16)}

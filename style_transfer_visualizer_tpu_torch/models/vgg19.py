@@ -1,4 +1,4 @@
-"""VGG19 weights for the port: seeded, from ``.npz``, or from JAX.
+"""VGG weights for the port: seeded, from ``.npz``, or from a ``.pth``.
 
 A layer's parameters are the conv kernel as a ``(9, C_in, C_out)``
 stencil (HWIO reshaped row-major over ``(ky, kx)``, the layout of the
@@ -155,9 +155,99 @@ def load_params_npz(path: Path, device: torch.device | str) -> Params:
 
 
 def default_cache_dir() -> Path:
-    """Where the JAX package caches converted weights."""
+    """Where converted weights are cached: the JAX package's directory.
+
+    Both packages read and write the same flat ``.npz`` there.
+    """
     base = os.environ.get("XDG_CACHE_HOME") or str(Path.home() / ".cache")
     return Path(base) / "style_transfer_visualizer_tpu"
+
+
+def convert_torch_state_dict(
+    state_dict: Mapping[str, object],
+    arch: Architecture = VGG19,
+) -> HostParams:
+    """HWIO host params of a torchvision VGG ``features`` state dict.
+
+    Takes the bare ``{i}.weight`` keys of a ``.features`` dump or the
+    ``features.{i}.weight`` keys of a whole model. Each OIHW kernel is
+    checked against ``arch``'s layer table and transposed to HWIO.
+    Raises ``KeyError`` for a missing conv layer and ``ValueError`` for
+    a kernel of the wrong shape.
+    """
+    host: HostParams = {}
+    for idx in arch.conv_indices:
+        found = None
+        for prefix in (f"features.{idx}", f"{idx}"):
+            wkey, bkey = f"{prefix}.weight", f"{prefix}.bias"
+            if wkey in state_dict and bkey in state_dict:
+                found = (state_dict[wkey], state_dict[bkey])
+                break
+        if found is None:
+            msg = f"State dict is missing conv layer {idx}"
+            raise KeyError(msg)
+        w_oihw, b = (np.asarray(t, dtype=np.float32) for t in found)
+        _, in_ch, out_ch = arch.layer_table[idx]
+        if w_oihw.shape != (out_ch, in_ch, 3, 3):
+            msg = (
+                f"Layer {idx}: expected OIHW {(out_ch, in_ch, 3, 3)}, "
+                f"got {w_oihw.shape}"
+            )
+            raise ValueError(msg)
+        host[idx] = {"w": w_oihw.transpose(2, 3, 1, 0), "b": b}
+    return host
+
+
+def save_params_npz(
+    host: Mapping[int, Mapping[str, object]],
+    path: Path,
+) -> None:
+    """Write HWIO host params as the JAX package's flat ``.npz``.
+
+    Keys ``w{idx}`` and ``b{idx}``; written through a temp file and a
+    rename, so an interrupted conversion never leaves a truncated cache.
+    """
+    path.parent.mkdir(parents=True, exist_ok=True)
+    flat = {}
+    for idx, layer in host.items():
+        flat[f"w{idx}"] = np.asarray(layer["w"])
+        flat[f"b{idx}"] = np.asarray(layer["b"])
+    # A name ending in .npz keeps np.savez from appending another.
+    tmp = path.with_name(path.name + ".tmp.npz")
+    np.savez(tmp, **flat)
+    tmp.replace(path)
+
+
+def _find_torch_checkpoint(arch: Architecture = VGG19) -> Path | None:
+    """A torchvision checkpoint of ``arch`` in torch hub's directories.
+
+    ``$TORCH_HOME/hub/checkpoints`` first, then
+    ``~/.cache/torch/hub/checkpoints``; the first match of
+    ``arch.checkpoint_globs`` in sorted order.
+    """
+    candidates = []
+    hub_dir = os.environ.get("TORCH_HOME")
+    if hub_dir:
+        candidates.append(Path(hub_dir) / "hub" / "checkpoints")
+    candidates.append(Path.home() / ".cache" / "torch" / "hub" / "checkpoints")
+    for directory in candidates:
+        if not directory.is_dir():
+            continue
+        for pattern in arch.checkpoint_globs:
+            for hit in sorted(directory.glob(pattern)):
+                return hit
+    return None
+
+
+def _convert_checkpoint(
+    checkpoint: Path,
+    arch: Architecture = VGG19,
+) -> HostParams:
+    """HWIO host params of a torchvision ``.pth`` (tensors only)."""
+    state = torch.load(checkpoint, map_location="cpu", weights_only=True)
+    return convert_torch_state_dict(
+        {k: v.numpy() for k, v in state.items()}, arch,
+    )
 
 
 def load_pretrained_params(
@@ -168,27 +258,42 @@ def load_pretrained_params(
     allow_random: bool = False,
     seed: int = 0,
 ) -> Params:
-    """Load converted pretrained weights, or seeded ones when allowed.
+    """Load pretrained weights, converting and caching; else seeded ones.
 
-    Order: the ``.npz`` archive in ``cache_dir`` -> seeded random
-    weights (only with ``allow_random=True``, logged loudly since
-    stylization quality depends on pretrained features).
+    Order: the ``.npz`` archive in ``cache_dir`` -> a torchvision
+    ``.pth`` under torch hub's directories, converted and cached there
+    -> seeded random weights (only with ``allow_random=True``, logged
+    loudly since stylization quality depends on pretrained features).
     """
     cache_path = (cache_dir or default_cache_dir()) / arch.cache_filename
     model = arch.name.upper()
     if cache_path.exists():
         logger.info("Using cached %s weights at %s", model, cache_path)
         return load_params_npz(cache_path, device)
+    checkpoint = _find_torch_checkpoint(arch)
+    if checkpoint is not None:
+        logger.info(
+            "Converting %s weights from %s to %s",
+            model, checkpoint, cache_path,
+        )
+        host = _convert_checkpoint(checkpoint, arch)
+        save_params_npz(host, cache_path)
+        return params_from_numpy(host, device)
     if allow_random:
         logger.warning(
-            "Pretrained %s weights unavailable (no archive at %s); using "
-            "seeded random weights. Stylization quality will be poor.",
+            "Pretrained %s weights unavailable (no cache at %s, no torch "
+            "checkpoint found); using seeded random weights. Stylization "
+            "quality will be poor.",
             model, cache_path,
         )
         return init_random_params(seed, device, arch)
     msg = (
-        f"{model} weights not found at {cache_path}; convert them with "
-        "the JAX package's stv-fetch-weights, or pass "
+        f"{model} weights not found. Place a torchvision checkpoint "
+        f"({' or '.join(arch.checkpoint_globs)}) under "
+        "~/.cache/torch/hub/checkpoints/ and run "
+        "`python -m style_transfer_visualizer_tpu_torch.tools."
+        f"fetch_weights --model {arch.name}` (stv-fetch-weights-torch), "
+        f"or put a converted archive at {cache_path}, or pass "
         "allow_random=True."
     )
     raise FileNotFoundError(msg)

@@ -41,6 +41,8 @@ from style_transfer_visualizer_tpu_torch.config import (
 )
 from style_transfer_visualizer_tpu_torch.constants import IMAGENET_STD
 from style_transfer_visualizer_tpu_torch.engine import coarse
+from style_transfer_visualizer_tpu_torch.engine.optimizers import StepAux
+from style_transfer_visualizer_tpu_torch.engine.step import StepBundle
 from style_transfer_visualizer_tpu_torch.models import vgg19
 
 RESIZE_ATOL = 1e-6
@@ -165,14 +167,50 @@ def test_coarse_init_is_none_when_off_or_too_small() -> None:
 
 
 def test_a_level_past_the_band_threshold_raises(monkeypatch) -> None:
-    monkeypatch.setattr(coarse, "AUTO_REMAT_PIXEL_THRESHOLD", 1024)
+    """A level of 4,194,304 px (2048x2048) runs whole; it used to raise.
+
+    4096x4096 content at the default two levels gets a 2048x2048 level,
+    which the JAX package bands and rematerializes (the same values)
+    and the port runs whole, single and batch. The level's targets and
+    optimizer are stubbed (a step adds 1 to the image), so no 2048x2048
+    VGG runs on the CPU.
+    """
+    levels = []
+
+    def fake_targets(params, style, content, *layers):
+        levels.append(tuple(content.shape))
+
+    def fake_multi_targets(params, content, styles, *layers):
+        levels.append(tuple(content.shape))
+
+    def fake_step(params, targets, image_shape, *n_styles, **kwargs):
+        def chunked_update(image, state, k):
+            loss = torch.zeros((k, *n_styles))
+            return image + k, state, StepAux(loss, loss, loss, loss)
+
+        return StepBundle(None, None, chunked_update)
+
+    monkeypatch.setattr(coarse, "compute_targets", fake_targets)
+    monkeypatch.setattr(coarse, "multi_style_targets", fake_multi_targets)
+    monkeypatch.setattr(coarse, "build_update_step", fake_step)
+    monkeypatch.setattr(coarse, "build_multi_style_update", fake_step)
     config = StyleTransferConfig(
-        optimization=OptimizationConfig(**_opt_fields(coarse_steps=1)),
+        optimization=OptimizationConfig(
+            **_opt_fields(coarse_steps=1, lap_w=0.0),
+        ),
         hardware=HardwareConfig(device="cpu"),
     )
-    img = torch.zeros((1, 64, 64, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 6"):
-        coarse.coarse_init({}, img, img, config, None)
+    side = 4096
+    img = torch.zeros((1, side, side, 3))
+    style = torch.zeros((1, 64, 64, 3))
+    warm = coarse.coarse_init({}, img, style, config, None)
+    assert tuple(warm.shape) == (1, side, side, 3)
+    assert float(warm.min()) == float(warm.max()) == 1.0
+    warm = coarse.multi_coarse_init({}, img, [style], config, None)
+    assert tuple(warm.shape) == (1, 1, side, side, 3)
+    assert float(warm.min()) == float(warm.max()) == 1.0
+    assert levels == [(1, 2048, 2048, 3)] * 2
+    assert levels[0][1] * levels[0][2] == 4_194_304
 
 
 @pytest.mark.parametrize(("size", "runs"), [(1024, True), (512, False)])
