@@ -89,16 +89,46 @@ exits non-zero:
    and ms per coarse step; then both kernels at the level's first two
    conv shapes and at the first tap's Gram (P = 4,194,304, C = 64)
    against their plain versions, timed (``level_2048_first``);
-13. a 64x64 run held against the same run on the CPU (plain versions),
+13. sweep: ``blend_sweep.stylize_blend_sweep`` at 512x512 on
+   full-width VGG19, 3 styles, 5 frames, the shipped L-BFGS with 20
+   steps for frame 0 and 10 for each later frame (60 steps): launches
+   as worked out, finite frame losses, frame 0 bit-equal to
+   ``run_style_transfer`` of style 0 alone (PNG pixels and final loss),
+   frame 2's blended targets bit-equal to style 1's; ms per sweep step
+   beside the main path's. The sweep's GIF is written where imageio
+   imports, else an in-memory stand-in takes the frames and the line
+   says so;
+14. regional: ``regional.stylize_regional`` at 512x512, 2 styles split
+   left/right by a 32-pixel feathered seam, the shipped L-BFGS for 20
+   steps, frames off, a CSV row a step: launches as worked out (a
+   masked Gram per style and tap), a finite, decreasing loss, the file
+   ``regional_content_x_s0+s1.png``; ms/step; then ``masked_gram`` at
+   the 5 taps of 512x512 against its plain version within 1e-4, forward
+   and backward, and an all-ones mask bit-equal to the stock Gram;
+15. sequence: ``sequence_cli.main`` (``style-sequence-torch``) on 4
+   PNG frames of 1280x720 (a drifting gradient plus seeded noise), one
+   512x512 style, the shipped L-BFGS, 10 steps a frame,
+   ``--output-video`` GIF where imageio imports: 4 PNGs at 1280x720,
+   launches as worked out, no warm start, frame 0 bit-equal to
+   ``run_style_transfer`` on frame 0; frames/min, steps/s, the peak
+   memory, and frames 1-3's final losses beside frame 0's;
+16. both kernels at the sequence's shapes: the conv at VGG19's five
+   stage shapes at 1280x720 (720x1280 to 45x80) and the Gram at its
+   five taps (P = 921,600 to 3,600) against their plain versions,
+   timed (``at_720p``);
+17. a 64x64 run held against the same run on the CPU (plain versions),
    then the same for Adam with every term above and a 2-step warm
-   start at 32x32, then the same for a batch of 2 styles.
+   start at 32x32, then the same for a batch of 2 styles, then Adam
+   from the content through a 2-frame sweep, a regional run of 2
+   styles and a 2-frame sequence, each per-step curve within 1e-3.
 
 The line before the card line is the kernels' JSON record (each
 kernel's launches in each driven path, and its times summed over a
 step at 512x512, under ``at_1024`` at 1024x1024, and for the batch
 phase's step at S = 4 under ``n4_512`` (conv) and ``batched_s4_512``
-(Gram), and for the 2048x2048 level's first shapes under
-``level_2048_first``); the last line is the run's JSON verdict. Times
+(Gram), for the 2048x2048 level's first shapes under
+``level_2048_first``, and for a 1280x720 frame's step under
+``at_720p``); the last line is the run's JSON verdict. Times
 come from CUDA events around replays of CUDA graphs of back-to-back
 calls on this run's card (device time; host launch overhead excluded
 for every version alike). Both
@@ -126,7 +156,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F  # noqa: N812
 
-from style_transfer_visualizer_tpu_torch import cli, image_io
+from style_transfer_visualizer_tpu_torch import (
+    blend_sweep,
+    cli,
+    image_io,
+    regional,
+    sequence,
+    sequence_cli,
+)
 from style_transfer_visualizer_tpu_torch.config import (
     HardwareConfig,
     OptimizationConfig,
@@ -140,6 +177,7 @@ from style_transfer_visualizer_tpu_torch.constants import (
 from style_transfer_visualizer_tpu_torch.engine.coarse import (
     coarse_init,
     plan_pyramid,
+    resize_image,
     resolve_coarse_steps,
 )
 from style_transfer_visualizer_tpu_torch.engine.runner import (
@@ -153,8 +191,12 @@ from style_transfer_visualizer_tpu_torch.main import (
     run_style_transfer,
     style_transfer,
 )
-from style_transfer_visualizer_tpu_torch.media import segments
+from style_transfer_visualizer_tpu_torch.media import encode, segments
 from style_transfer_visualizer_tpu_torch.models.arch import VGG16, VGG19
+from style_transfer_visualizer_tpu_torch.models.features import (
+    blend_targets,
+    compute_targets,
+)
 from style_transfer_visualizer_tpu_torch.models.vgg19 import (
     flip_stencil,
     load_pretrained_params,
@@ -212,6 +254,19 @@ BATCH_SAVE_EVERY = 5
 BATCH_TIMED = (1, 4, 8)
 BATCH_ROUNDS = 3
 ODD_STYLE = (5, (384, 640))
+# The targets-as-argument pipelines: a 5-frame sweep over 3 styles (20
+# steps for frame 0, 10 for each later frame), a regional run of 2
+# styles split left/right by a 32-pixel feathered seam, and a 4-frame
+# 1280x720 sequence of 10 steps a frame.
+SWEEP_STYLES = 3
+SWEEP_FRAMES = 5
+SWEEP_STEPS = 10
+SEAM = 32
+SEQ_HW = (720, 1280)
+SEQ_FRAMES = 4
+SEQ_STEPS = 10
+# The main path's ms/step, for the sweep's line.
+MAIN_MS_STEP: list[float] = []
 
 
 def _card() -> str:
@@ -740,6 +795,7 @@ def _main_path() -> tuple[int, int]:
     ms_step = _ms_per_step(
         lambda n: run_style_transfer(content, style, _config(n, "cuda")),
     )
+    MAIN_MS_STEP.append(ms_step)
     print(
         f"main path {SIZE}x{SIZE} vgg19 L-BFGS {STEPS} steps: "
         f"loss {losses[0]:.6g} -> {losses[-1]:.6g}, logged {logged}, "
@@ -1074,12 +1130,15 @@ def _convs_through(arch, last: int) -> int:
     return sum(1 for i in arch.conv_indices if i <= last)
 
 
-def _launches_wanted(arch, opt, size: int, styles: int) -> tuple[int, int]:
+def _launches_wanted(
+    arch, opt, size: int, styles: int, *, steps: int | None = None,
+    content_sweeps: int = 1, grams_per_tap: int = 1,
+) -> tuple[int, int]:
     """Conv and Gram launches of a run, worked out from the code.
 
     ``opt`` is the run's optimization config as the run left it (its
     ``coarse_steps`` resolved), ``size`` the content's side and
-    ``styles`` the number of styles blended.
+    ``styles`` the number of styles whose targets are made.
 
     Targets: each style's sweep to the deepest style tap (one Gram per
     style tap) and one content sweep to the deepest content tap
@@ -1087,7 +1146,11 @@ def _launches_wanted(arch, opt, size: int, styles: int) -> tuple[int, int]:
     style only), at full size and again at each coarse level. A step
     with one evaluation (L-BFGS ``max_iter=1`` or Adam): the sweep to
     the deepest tap, every conv's input gradient (the image is the
-    leaf), and one Gram per style tap.
+    leaf), and ``grams_per_tap`` Grams per style tap. ``steps``
+    (default ``opt.steps``) counts the full-size steps of every frame
+    of a sweep or a sequence; ``content_sweeps`` the content targets
+    made (a sequence makes each frame's); the regional run takes one
+    masked Gram per style and tap (``grams_per_tap``).
     """
     plan = plan_pyramid(size, size, opt.coarse_steps, opt.pyramid_levels)
     style_convs = _convs_through(arch, max(opt.style_layers))
@@ -1097,12 +1160,18 @@ def _launches_wanted(arch, opt, size: int, styles: int) -> tuple[int, int]:
     )
     n_style = len(opt.style_layers)
     resolutions = 1 + len(plan)
-    total_steps = opt.steps + sum(level[2] for level in plan)
+    total_steps = (
+        (opt.steps if steps is None else steps)
+        + sum(level[2] for level in plan)
+    )
     conv = (
-        resolutions * (styles * style_convs + content_convs)
+        resolutions * (styles * style_convs + content_sweeps * content_convs)
         + step_convs * total_steps
     )
-    gram = resolutions * styles * n_style + n_style * total_steps
+    gram = (
+        resolutions * styles * n_style
+        + grams_per_tap * n_style * total_steps
+    )
     return conv, gram
 
 
@@ -1916,6 +1985,485 @@ def _check_level_kernels(conv_rec, conv_level, gram_rec, gram_level):
     torch.cuda.empty_cache()
 
 
+# ---- the targets-as-argument pipelines: sweep, regional, sequence
+
+
+def _save_png(path: Path, arr: np.ndarray) -> Path:
+    """Save a (1, H, W, 3) [0, 1] array or an (H, W[, 3]) uint8 one."""
+    from PIL import Image  # noqa: PLC0415 - file I/O only
+
+    if arr.dtype != np.uint8:
+        arr = np.round(arr[0] * 255).astype(np.uint8)
+    Image.fromarray(arr).save(path)
+    return path
+
+
+def _load_png(path: Path) -> np.ndarray:
+    from PIL import Image  # noqa: PLC0415 - file I/O only
+
+    with Image.open(path) as img:
+        return np.asarray(img.convert("RGB"))
+
+
+def _gif_in_memory(_path: Path, _fps: float) -> _FrameSink:
+    """Stands in for the GIF encoder where imageio is absent: keeps the
+    frames, writes nothing."""
+    return _FrameSink()
+
+
+def _gif_encoder_note() -> str | None:
+    """None where the GIF encoder imports, else which import is missing."""
+    if importlib.util.find_spec("imageio") is None:
+        return "imageio not importable"
+    return None
+
+
+def _same_as_single(
+    label: str, png_path: Path, loss: float, content, style, steps: int,
+) -> None:
+    """A pipeline's first frame is ``run_style_transfer``'s, bit for bit.
+
+    The same inputs (read back from the same PNGs), the shipped
+    defaults, the same seed: the PNG's pixels equal the single run's
+    packed image and the frame's final loss equals the single run's.
+    """
+    image, history = run_style_transfer(
+        content, style, _config(steps, "cuda"),
+    )
+    single = image_io.pack_uint8_frame(image).cpu().numpy()
+    ours = _load_png(png_path)
+    last = history["total_loss"][-1]
+    if not np.array_equal(ours, single) or loss != last:
+        diff = int(np.abs(ours.astype(np.int16) - single).max())
+        msg = (
+            f"{label}: frame 0 differs from the single run (pixels up to "
+            f"{diff}, loss {loss!r} vs {last!r})"
+        )
+        raise AssertionError(msg)
+
+
+def _sweep() -> tuple[int, int]:
+    """``stylize_blend_sweep`` at 512x512: 3 styles, 5 frames, 60 steps.
+
+    The shipped L-BFGS, 20 steps for frame 0 and 10 for each later
+    frame. Gates: the launches worked out from the code, finite frame
+    losses, frame 0 bit-equal to ``run_style_transfer`` of style 0
+    alone, frame 2's blended targets bit-equal to style 1's.
+    """
+    root = _work_dir("sweep")
+    content_path = _save_png(root / "content.png", _images(SIZE, 20)[0])
+    style_paths = [
+        _save_png(root / f"s{i}.png", _images(SIZE, 21 + i)[0])
+        for i in range(SWEEP_STYLES)
+    ]
+    config = _config(STEPS, "cuda")
+    config.output.output = str(root / "out")
+    note = _gif_encoder_note()
+    real_gif = encode.GifFrameCollector
+    if note is not None:
+        encode.GifFrameCollector = _gif_in_memory
+    try:
+        result, run_s, launches = _counted_run(
+            lambda: blend_sweep.stylize_blend_sweep(
+                content_path, style_paths, config,
+                n_frames=SWEEP_FRAMES, sweep_steps=SWEEP_STEPS,
+            ),
+        )
+    finally:
+        encode.GifFrameCollector = real_gif
+    total = STEPS + (SWEEP_FRAMES - 1) * SWEEP_STEPS
+    want = _launches_wanted(
+        VGG19, config.optimization, SIZE, SWEEP_STYLES, steps=total,
+    )
+    losses = list(result.frame_losses)
+    if launches != want or result.total_steps != total:
+        msg = f"sweep: launches {launches}, expected {want}"
+        raise AssertionError(msg)
+    if len(losses) != SWEEP_FRAMES or not all(map(_finite, losses)):
+        msg = f"sweep: frame losses {losses}"
+        raise AssertionError(msg)
+    content = image_io.load_image_to_host_array(content_path)
+    styles = [image_io.load_image_to_host_array(p) for p in style_paths]
+    _same_as_single(
+        "sweep", result.frame_paths[0], losses[0], content, styles[0], STEPS,
+    )
+    params = load_pretrained_params(
+        torch.device("cuda"), allow_random=True, seed=0,
+    )
+
+    def dev(host):
+        return image_io.host_array_to_device(host, "cuda", normalize=True)
+
+    opt = config.optimization
+    per_style = [
+        compute_targets(
+            params, dev(s), dev(content), tuple(opt.style_layers),
+            tuple(opt.content_layers) if i == 0 else (),
+        )
+        for i, s in enumerate(styles)
+    ]
+    row = blend_sweep.sweep_weights(SWEEP_STYLES, SWEEP_FRAMES)[2]
+    mixed = blend_targets(per_style, row)
+    if row != [0.0, 1.0, 0.0] or not all(
+        torch.equal(mixed.style_grams[i], g)
+        for i, g in per_style[1].style_grams.items()
+    ):
+        msg = f"sweep: frame 2's targets ({row}) are not style 1's"
+        raise AssertionError(msg)
+    later_ms = statistics.mean(result.frame_seconds[1:]) / SWEEP_STEPS * 1e3
+    gif = (
+        result.video_path.name if note is None
+        else f"in-memory GIF stand-in ({note})"
+    )
+    print(
+        f"sweep {SIZE}x{SIZE} vgg19 L-BFGS: {SWEEP_STYLES} styles, "
+        f"{SWEEP_FRAMES} frames, {STEPS} + {SWEEP_FRAMES - 1} x "
+        f"{SWEEP_STEPS} = {total} steps; launches conv {launches[0]} gram "
+        f"{launches[1]} (expected {want}); frame losses {losses}; frame 0 "
+        f"bit-equal to run_style_transfer of style 0; frame 2's targets "
+        f"bit-equal to style 1's; frame seconds "
+        f"{[round(t, 4) for t in result.frame_seconds]}; ms per sweep step "
+        f"(frames 1-{SWEEP_FRAMES - 1}, PNG save included) {later_ms:.3f} "
+        f"beside the main path's {MAIN_MS_STEP[0]:.3f}; run s {run_s:.3f}; "
+        f"{gif}",
+    )
+    return launches
+
+
+def _seam_masks(side: int) -> tuple[np.ndarray, np.ndarray]:
+    """Left/right uint8 masks with a ``SEAM``-pixel linear seam."""
+    cols = np.arange(side, dtype=np.float64)[None, :].repeat(side, axis=0)
+    left = np.clip((side / 2 + SEAM / 2 - cols) / SEAM, 0.0, 1.0)
+    left = np.round(left * 255).astype(np.uint8)
+    return left, 255 - left
+
+
+def _masked_gram_plain(features: torch.Tensor, mask: torch.Tensor):
+    """``regional.masked_gram`` with the plain Gram (``F.T @ F``)."""
+    b, h, w, c = features.shape
+    mask_l = resize_image(mask[None, :, :, None], h, w)[0, :, :, 0]
+    mask_l = torch.clamp(mask_l, min=0.0)
+    mass = torch.clamp(torch.sum(mask_l), min=1e-6)
+    flat = (features * torch.sqrt(mask_l * (b * h * w / mass))[
+        None, :, :, None
+    ]).reshape(b * h * w, c)
+    return torch.clamp(flat.T @ flat, max=CLAMP) / (b * h * w * c)
+
+
+def _check_masked_gram(rec: Record, mask: torch.Tensor) -> None:
+    """``masked_gram`` at the 5 tap shapes of 512x512 against its plain
+    version (forward and the features' gradient), and an all-ones mask
+    against the stock Gram kernel, bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ones = torch.ones_like(mask)
+    for p, c in GRAM_SHAPES:
+        side = int(p ** 0.5)
+        f = torch.randn((1, side, side, c), generator=gen, device="cuda")
+        dg = torch.randn((c, c), generator=gen, device="cuda")
+        fk = f.clone().requires_grad_(True)
+        g_k = regional.masked_gram(fk, mask)
+        g_k.backward(dg)
+        fr = f.clone().requires_grad_(True)
+        g_r = _masked_gram_plain(fr, mask)
+        g_r.backward(dg)
+        label = f"masked ({p},{c})"
+        rec.err(g_k.detach(), g_r.detach(), f"{label} forward")
+        rec.err(fk.grad, fr.grad, f"{label} backward")
+        if not torch.equal(regional.masked_gram(f, ones), gram.gram_matrix(f)):
+            msg = f"gram {label}: an all-ones mask is not the stock Gram"
+            raise AssertionError(msg)
+    print(
+        "gram masked_gram at the 5 taps of 512x512, feathered mask: forward "
+        "and backward within 1e-4 of the plain version; all-ones mask "
+        "bit-equal to the stock Gram kernel",
+    )
+
+
+def _regional(gram_rec: Record) -> tuple[int, int]:
+    """``stylize_regional`` at 512x512: 2 styles, feathered masks.
+
+    The shipped L-BFGS, 20 steps, frames off, a CSV row a step. Gates:
+    launches (a masked Gram per style and tap), a finite, decreasing
+    loss, the file name; then ``masked_gram`` at the taps.
+    """
+    root = _work_dir("regional")
+    content_path = _save_png(root / "content.png", _images(SIZE, 30)[0])
+    style_paths = [
+        _save_png(root / f"s{i}.png", _images(SIZE, 31 + i)[0])
+        for i in range(2)
+    ]
+    mask_paths = [
+        _save_png(root / f"m{i}.png", m)
+        for i, m in enumerate(_seam_masks(SIZE))
+    ]
+
+    def config(n: int, name: str):
+        cfg = _config(n, "cuda")
+        cfg.video.final_only = True
+        cfg.output.plot_losses = False
+        cfg.output.output = str(root / name)
+        cfg.output.log_every = 1
+        cfg.output.log_loss = str(root / f"{name}.csv")
+        return cfg
+
+    counted = config(STEPS, "out")
+    result, run_s, launches = _counted_run(
+        lambda: regional.stylize_regional(
+            content_path, style_paths, mask_paths, counted,
+        ),
+    )
+    want = _launches_wanted(
+        VGG19, counted.optimization, SIZE, 2, grams_per_tap=2,
+    )
+    losses = _curve(root / "out.csv").tolist()
+    name = "regional_content_x_s0+s1.png"
+    if launches != want:
+        msg = f"regional: launches {launches}, expected {want}"
+        raise AssertionError(msg)
+    if len(losses) != STEPS or not all(map(_finite, losses)) or not (
+        losses[-1] < losses[0]
+    ):
+        msg = f"regional: losses {losses}"
+        raise AssertionError(msg)
+    if result.output_path.name != name or not result.output_path.is_file():
+        msg = f"regional: output {result.output_path}"
+        raise AssertionError(msg)
+    ms_step = _ms_per_step(
+        lambda n: regional.stylize_regional(
+            content_path, style_paths, mask_paths, config(n, f"t{n}"),
+        ),
+    )
+    masks = regional.load_region_masks(mask_paths, SIZE, SIZE)
+    _check_masked_gram(gram_rec, torch.as_tensor(masks[0], device="cuda"))
+    print(
+        f"regional {SIZE}x{SIZE} vgg19 L-BFGS {STEPS} steps, 2 styles, "
+        f"{SEAM}-px feathered seam: loss {losses[0]:.6g} -> "
+        f"{losses[-1]:.6g}; launches conv {launches[0]} gram {launches[1]} "
+        f"(expected {want}); wrote {name}; ms/step {ms_step:.3f} (a CSV "
+        f"row a step) beside the main path's {MAIN_MS_STEP[0]:.3f}; run s "
+        f"{run_s:.3f}",
+    )
+    return launches
+
+
+def _drifting_frames(root: Path) -> Path:
+    """``SEQ_FRAMES`` 1280x720 PNGs: a drifting gradient plus seeded
+    noise (the gradient of ``benchmarks/sequence_bench.py``)."""
+    frames = root / "frames"
+    frames.mkdir()
+    h, w = SEQ_HW
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    yy, xx = yy / h, xx / w
+    rng = np.random.default_rng(40)
+    for i in range(SEQ_FRAMES):
+        shift = i / SEQ_FRAMES
+        img = np.stack(
+            [(xx + shift) % 1.0, (yy + 0.5 * shift) % 1.0,
+             0.5 * np.ones_like(xx)],
+            axis=-1,
+        )
+        img = np.clip(img + rng.normal(0.0, 0.05, img.shape), 0.0, 1.0)
+        _save_png(frames / f"frame_{i:04d}.png", (img * 255).astype(np.uint8))
+    return frames
+
+
+def _sequence() -> tuple[int, int]:
+    """``style-sequence-torch`` on 4 frames of 1280x720, 10 steps each.
+
+    Through ``sequence_cli.main`` with the shipped L-BFGS, one 512x512
+    style and ``--output-video`` GIF where the encoder imports. Gates: 4
+    PNGs at 1280x720, launches, no warm start (921,600 px is under the
+    auto threshold), frame 0 bit-equal to ``run_style_transfer`` on
+    frame 0.
+    """
+    root = _work_dir("sequence")
+    frames = _drifting_frames(root)
+    style_path = _save_png(root / "style.png", _images(SIZE, 41)[0])
+    out = root / "out"
+    note = _gif_encoder_note()
+    argv = [
+        "--frames", str(frames), "--style", str(style_path),
+        "--steps", str(SEQ_STEPS), "--output", str(out),
+        "--allow-random-weights",
+    ]
+    if note is None:
+        argv += ["--output-video", "sequence.gif"]
+    results = []
+    original = sequence_cli.stylize_sequence
+
+    def recorded(*args, **kwargs):
+        results.append(original(*args, **kwargs))
+        return results[-1]
+
+    before = _fresh_peak()
+    logs = _LogLines()
+    logger.addHandler(logs)
+    sequence_cli.stylize_sequence = recorded
+    try:
+        rc, run_s, launches = _counted_run(lambda: sequence_cli.main(argv))
+    finally:
+        sequence_cli.stylize_sequence = original
+        logger.removeHandler(logs)
+    peak = torch.cuda.max_memory_allocated()
+    (result,) = results
+    h, w = SEQ_HW
+    opt = _config(SEQ_STEPS, "cuda").optimization
+    want = _launches_wanted(
+        VGG19, opt, h, 1, steps=SEQ_FRAMES * SEQ_STEPS,
+        content_sweeps=SEQ_FRAMES,
+    )
+    pngs = sorted(p.name for p in out.glob("stylized_*.png"))
+    shapes = {_load_png(out / n).shape for n in pngs}
+    if rc != 0 or len(pngs) != SEQ_FRAMES or shapes != {(h, w, 3)}:
+        msg = f"sequence: rc {rc}, wrote {pngs} of shapes {shapes}"
+        raise AssertionError(msg)
+    if launches != want:
+        msg = f"sequence: launches {launches}, expected {want}"
+        raise AssertionError(msg)
+    if any("Coarse" in line for line in logs.lines):
+        msg = "sequence: a warm start ran at 921,600 px"
+        raise AssertionError(msg)
+    losses = list(result.frame_losses)
+    if not all(map(_finite, losses)):
+        msg = f"sequence: frame losses {losses}"
+        raise AssertionError(msg)
+    if note is None and not (out / "sequence.gif").is_file():
+        msg = "sequence: no sequence.gif"
+        raise AssertionError(msg)
+    first = sorted(frames.iterdir())[0]
+    _same_as_single(
+        "sequence", result.frame_paths[0], losses[0],
+        image_io.load_image_to_host_array(first),
+        image_io.load_image_to_host_array(style_path), SEQ_STEPS,
+    )
+    steady = result.frame_seconds[1:]
+    frames_min = 60.0 / statistics.mean(steady)
+    steps_s = SEQ_STEPS / statistics.mean(steady)
+    video = "sequence.gif" if note is None else f"no GIF ({note})"
+    print(
+        f"sequence {w}x{h} vgg19 L-BFGS, {SEQ_FRAMES} frames x "
+        f"{SEQ_STEPS} steps through sequence_cli.main: wrote {pngs} and "
+        f"{video}; launches conv {launches[0]} gram {launches[1]} "
+        f"(expected {want}); no warm start; frame 0 bit-equal to "
+        f"run_style_transfer on frame 0; frame seconds "
+        f"{[round(t, 4) for t in result.frame_seconds]}; frames 1-3: "
+        f"{frames_min:.2f} frames/min, {steps_s:.2f} steps/s; final loss "
+        f"frame 0 {losses[0]:.6g}, frames 1-3 "
+        f"{[float(f'{v:.6g}') for v in losses[1:]]}; max_memory_allocated "
+        f"{peak}, of which allocated before {before} (the run's own "
+        f"{peak - before}); run s {run_s:.3f}",
+    )
+    return launches
+
+
+def _check_720p_kernels(conv_rec, conv_720, gram_rec, gram_720) -> None:
+    """Both kernels at the sequence's 1280x720 shapes (``at_720p``).
+
+    The conv at VGG19's five stage shapes through layer 28 (720x1280 to
+    45x80, the odd 45-row level included), each as often per step as at
+    512x512, and the Gram at the five style taps (P = 921,600 down to
+    3,600): within 1e-4 of the plain versions, timed.
+    """
+    h, w = SEQ_HW
+    _check_conv(conv_rec, [
+        (1, h * hw // SIZE, w * hw // SIZE, ci, co, n, f, conv_720)
+        for hw, ci, co, n, f in CONV_SHAPES
+    ])
+    _check_gram_cases(
+        gram_rec,
+        [
+            ((h >> k) * (w >> k), c, gram_720)
+            for k, (_, c) in enumerate(GRAM_SHAPES)
+        ],
+        torch.Generator(device="cuda").manual_seed(5),
+    )
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _small_pipeline_reference() -> None:
+    """The three pipelines at 64x64 on the card against the CPU.
+
+    Adam from the content: a 2-frame sweep of 2 styles, a regional run
+    of 2 styles (halves), a 2-frame sequence; each per-step loss curve
+    within 1e-3 relative of the CPU's.
+    """
+    root = _work_dir("small_pipelines")
+    content = _save_png(root / "content.png", _images(64, 50)[0])
+    styles = [
+        _save_png(root / f"s{i}.png", _images(64, 51 + i)[0])
+        for i in range(2)
+    ]
+    masks = [
+        _save_png(root / f"m{i}.png", m) for i, m in enumerate(_seam_masks(64))
+    ]
+    frames = root / "frames"
+    frames.mkdir()
+    for i in range(2):
+        _save_png(frames / f"f{i}.png", _images(64, 53 + i)[0])
+
+    def config(device: str, name: str):
+        cfg = _config(
+            3, device, init_method="content", optimizer="adam", lr=0.1,
+        )
+        cfg.video.final_only = True
+        cfg.output.plot_losses = False
+        cfg.output.output = str(root / name)
+        return cfg
+
+    def traced(module, run):
+        curves = []
+        original = module.drive_chunked
+
+        def drive(*args):
+            image, state, auxes = original(*args)
+            curves.append(auxes.loss.cpu().numpy())
+            return image, state, auxes
+
+        module.drive_chunked = drive
+        try:
+            run()
+        finally:
+            module.drive_chunked = original
+        return np.concatenate(curves)
+
+    real_gif = encode.GifFrameCollector
+    encode.GifFrameCollector = _gif_in_memory
+    try:
+        for label, module, run in (
+            ("sweep", blend_sweep, lambda d: blend_sweep.stylize_blend_sweep(
+                content, styles, config(d, f"sw_{d}"), n_frames=2,
+                sweep_steps=2,
+            )),
+            ("sequence", sequence, lambda d: sequence.stylize_sequence(
+                frames, styles[0], config(d, f"sq_{d}"), root / f"sq_{d}",
+            )),
+        ):
+            curves = {d: traced(module, partial(run, d)) for d in ("cuda",
+                                                                   "cpu")}
+            np.testing.assert_allclose(
+                curves["cuda"], curves["cpu"], rtol=1e-3,
+            )
+            print(
+                f"small reference 64x64 {label}, Adam, 2 frames: cuda "
+                f"{curves['cuda'].tolist()} cpu {curves['cpu'].tolist()}",
+            )
+    finally:
+        encode.GifFrameCollector = real_gif
+    curves = {}
+    for device in ("cuda", "cpu"):
+        cfg = config(device, f"rg_{device}")
+        cfg.output.log_every = 1
+        cfg.output.log_loss = str(root / f"rg_{device}.csv")
+        regional.stylize_regional(content, styles, masks, cfg)
+        curves[device] = _curve(root / f"rg_{device}.csv")
+    np.testing.assert_allclose(curves["cuda"], curves["cpu"], rtol=1e-3)
+    print(
+        f"small reference 64x64 regional, Adam, 2 styles, 3 steps: cuda "
+        f"{curves['cuda'].tolist()} cpu {curves['cpu'].tolist()}",
+    )
+
+
 def main() -> int:
     """Run every phase; return 0 when all pass (failures raise)."""
     if not torch.cuda.is_available():
@@ -1950,10 +2498,11 @@ def main() -> int:
                 name, f"{PACKAGE}/{source}",
                 f"style_transfer_visualizer_tpu/{replaces}",
             )
-            for _ in range(4)
+            for _ in range(5)
         )
         records[name] = (main_rec, dict(zip(
-            ("at_1024", batch_key, "level_2048_first"), extra, strict=True,
+            ("at_1024", batch_key, "level_2048_first", "at_720p"), extra,
+            strict=True,
         )))
     conv_rec, conv_extra = records["conv3x3"]
     _check_conv(conv_rec, _conv_cases(
@@ -1974,8 +2523,15 @@ def main() -> int:
         conv_rec, conv_extra["level_2048_first"],
         gram_rec, gram_extra["level_2048_first"],
     )
+    phases["sweep"] = _sweep()
+    phases["regional"] = _regional(gram_rec)
+    phases["sequence"] = _sequence()
+    _check_720p_kernels(
+        conv_rec, conv_extra["at_720p"], gram_rec, gram_extra["at_720p"],
+    )
     _small_reference()
     _small_batch_reference()
+    _small_pipeline_reference()
 
     kernels = [
         rec.finish({k: v[i] for k, v in phases.items()}, extras)

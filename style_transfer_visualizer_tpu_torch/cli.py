@@ -1,5 +1,5 @@
-"""Command line of the port: one content image, one style, a blend or
-the multi-style batch.
+"""Command line of the port: one content image, one style, a blend,
+the multi-style batch, a blend sweep or regional masks.
 
     python -m style_transfer_visualizer_tpu_torch.cli \\
         --content c.png --style s.png --steps 300 --device cuda
@@ -7,6 +7,10 @@ the multi-style batch.
         --content c.png --styles s1.png,s2.png --style-blend 0.7,0.3
     python -m style_transfer_visualizer_tpu_torch.cli \\
         --content c.png --styles s1.png,s2.png
+    python -m style_transfer_visualizer_tpu_torch.cli \\
+        --content c.png --styles s1.png,s2.png --blend-sweep 8
+    python -m style_transfer_visualizer_tpu_torch.cli \\
+        --content c.png --styles s1.png,s2.png --style-masks m1.png,m2.png
 
 The flags the port supports carry the JAX package's names and defaults:
 the optimization flags of the single run (the optimizer, the TV and
@@ -21,7 +25,11 @@ JAX package's layout, under the typed flags) with
 ``ffmpeg`` on PATH; the GIF needs imageio. ``--styles`` without
 ``--style-blend`` is the JAX package's per-style batch: one
 stylization per style, all in one stacked step
-(``main.multi_style_transfer``).
+(``main.multi_style_transfer``). ``--blend-sweep N`` renders an N-frame
+morph across the styles (``blend_sweep.stylize_blend_sweep``) and
+``--style-masks`` paints one style per masked region
+(``regional.stylize_regional``); the JAX package's checks and dispatch
+order apply: masks, then sweep, then blend, then the batch.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from collections.abc import Sequence
 from pathlib import Path
 
 from style_transfer_visualizer_tpu_torch import config_defaults as d
+from style_transfer_visualizer_tpu_torch.blend_sweep import stylize_blend_sweep
 from style_transfer_visualizer_tpu_torch.config import (
     ConfigLoader,
     StyleTransferConfig,
@@ -39,6 +48,7 @@ from style_transfer_visualizer_tpu_torch.main import (
     multi_style_transfer,
     style_transfer,
 )
+from style_transfer_visualizer_tpu_torch.regional import stylize_regional
 from style_transfer_visualizer_tpu_torch.runtime.comparison import (
     ComparisonRequest,
     render_requested_comparisons,
@@ -329,6 +339,39 @@ def build_parser() -> argparse.ArgumentParser:
             "panels show the highest-weight style."
         ),
     )
+    p.add_argument(
+        "--style-masks", default=None,
+        help=(
+            "Comma-separated grayscale mask paths, one per --styles "
+            "entry: regional style transfer (Gatys et al. 2017 spatial "
+            "control) — each style's Gram loss is restricted to its "
+            "masked region, so one stylization paints different "
+            "regions with different styles. Masks resize to the "
+            "content's dims and normalize to a pixelwise partition; "
+            "output is regional_{c}_x_{s1+s2}.png."
+        ),
+    )
+    p.add_argument(
+        "--blend-sweep", type=int, default=None,
+        help=(
+            "Render an N-frame morph animation across the --styles "
+            "list (piecewise-linear blend-weight traversal, each frame "
+            "a converged stylization warm-started from the previous "
+            "one). Frames save as sweep_NNNN.png plus a "
+            "blend_sweep_{c}_x_{s1+s2}.gif at the --fps rate. "
+            "Incompatible with --style-blend (the sweep generates its "
+            "own weights)."
+        ),
+    )
+    p.add_argument(
+        "--sweep-steps", type=int, default=None,
+        help=(
+            "Per-frame step budget for blend-sweep frames after the "
+            "first (default: --steps). Warm starts converge well below "
+            "the cold budget, so a smaller value is the sweep's main "
+            "throughput lever."
+        ),
+    )
     _add_optimization_flags(p)
     _add_output_flags(p)
     _add_video_flags(p)
@@ -418,11 +461,34 @@ def _check_style_args(args: argparse.Namespace) -> list[str] | None:
     """The ``--styles`` list, after the JAX package's combination checks.
 
     ``None`` without ``--styles``. Raises ``SystemExit`` with the JAX
-    package's message for a blend without styles or an empty list.
+    package's message, in its order, for a blend without styles, a
+    sweep with a blend or without styles, masks without styles or with
+    a blend or sweep, and an empty list.
     """
     if args.style_blend and not args.styles:
         msg = "--style-blend requires --styles (the images to blend)"
         raise SystemExit(msg)
+    if args.blend_sweep is not None:
+        if args.style_blend:
+            msg = (
+                "--blend-sweep is incompatible with --style-blend "
+                "(the sweep generates its own per-frame weights)"
+            )
+            raise SystemExit(msg)
+        if not args.styles:
+            msg = "--blend-sweep requires --styles (>= 2 images to morph)"
+            raise SystemExit(msg)
+    if args.style_masks:
+        if not args.styles:
+            msg = "--style-masks requires --styles (one image per mask)"
+            raise SystemExit(msg)
+        if args.style_blend or args.blend_sweep is not None:
+            msg = (
+                "--style-masks is incompatible with --style-blend/"
+                "--blend-sweep (regional masks already assign styles "
+                "to regions)"
+            )
+            raise SystemExit(msg)
     if not args.styles:
         return None
     style_paths = [s.strip() for s in args.styles.split(",") if s.strip()]
@@ -501,6 +567,50 @@ def _run_blended(
     )
 
 
+def _run_regional(
+    args: argparse.Namespace,
+    config: StyleTransferConfig,
+    style_paths: list[str],
+) -> None:
+    """Masked regional transfer: one style per masked region."""
+    mask_paths = [
+        m.strip() for m in args.style_masks.split(",") if m.strip()
+    ]
+    logger.info(
+        "Regional transfer: content=%s styles=%s masks=%s",
+        args.content, style_paths, mask_paths,
+    )
+    result = stylize_regional(
+        args.content, list(style_paths), mask_paths, config,
+    )
+    logger.info(
+        "Regional transfer finished in %.2fs (final loss %.4g): %s",
+        result.elapsed_seconds, result.final_loss, result.output_path,
+    )
+
+
+def _run_blend_sweep(
+    args: argparse.Namespace,
+    config: StyleTransferConfig,
+    style_paths: list[str],
+) -> None:
+    """N-frame morph animation across the style list (blend sweep)."""
+    logger.info(
+        "Blend sweep: content=%s styles=%s frames=%d",
+        args.content, style_paths, args.blend_sweep,
+    )
+    result = stylize_blend_sweep(
+        args.content, list(style_paths), config,
+        n_frames=args.blend_sweep,
+        sweep_steps=args.sweep_steps,
+    )
+    logger.info(
+        "Blend sweep finished: %d frames, %d total steps%s",
+        len(result.frame_paths), result.total_steps,
+        f", animation at {result.video_path}" if result.video_path else "",
+    )
+
+
 def main(argv: Sequence[str] | None = None) -> int:
     """Parse ``argv``, run the transfer, and return the exit code.
 
@@ -533,6 +643,12 @@ def main(argv: Sequence[str] | None = None) -> int:
         logger.info("Loaded config from: %s", args.config)
     style_paths = _check_style_args(args)
     if style_paths is not None:
+        if args.style_masks:
+            _run_regional(args, config, style_paths)
+            return 0
+        if args.blend_sweep is not None:
+            _run_blend_sweep(args, config, style_paths)
+            return 0
         if not args.style_blend:
             logger.info(
                 "Multi-style batch: content=%s styles=%s",

@@ -348,6 +348,22 @@ _UNPORTED: dict[tuple[str, str], tuple[object, str]] = {
 }
 
 
+def check_unported(section: str, key: str, value: object) -> None:
+    """Raise ``NotImplementedError`` for a JAX field the port lacks,
+    unless ``value`` is that field's JAX default.
+
+    ``(section, key)`` names an entry of ``_UNPORTED``; the message
+    names the ROADMAP.md item the field waits for.
+    """
+    default, item = _UNPORTED[(section, key)]
+    if value != default:
+        msg = (
+            f"{section}.{key} = {value!r} is not ported (only its default "
+            f"{default!r} loads); it waits for {item}"
+        )
+        raise NotImplementedError(msg)
+
+
 def _coerce(where: str, value: object, hint: object) -> object:
     """``value`` as the field type ``hint``, as pydantic's lax mode would.
 
@@ -408,14 +424,7 @@ class ConfigLoader:
             kwargs = {}
             for key, value in table.items():
                 if (name, key) in _UNPORTED:
-                    default, item = _UNPORTED[(name, key)]
-                    if value != default:
-                        msg = (
-                            f"{name}.{key} = {value!r} is not ported (only "
-                            f"its default {default!r} loads); it waits for "
-                            f"{item}"
-                        )
-                        raise NotImplementedError(msg)
+                    check_unported(name, key, value)
                 elif key in known:
                     kwargs[key] = _coerce(f"{name}.{key}", value, hints[key])
             sections[name] = cls(**kwargs)

@@ -7,6 +7,12 @@ Laplacian terms on the image, and the optimizer update follows.
 PyTorch runs eagerly, so there is no jit; the k-step chunk is a plain
 Python loop. Metrics stay device tensors; the caller decides when to
 read them.
+
+:func:`targets_update` is the update with its weights and targets as
+arguments of every call (the sequence, the blend sweep and the
+regional run build on it, through ``sequence.build_targets_update``);
+:func:`build_update_step` binds one set of targets to it, so both run
+the same arithmetic.
 """
 from __future__ import annotations
 
@@ -76,6 +82,122 @@ def drive_chunked(
     return image, state, auxes
 
 
+# loss_fn(params, image, targets) -> (total, (style_score, content_score))
+LossFn = Callable[
+    ..., tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]],
+]
+
+
+def make_objective(
+    *,
+    style_w: float,
+    content_w: float,
+    tv_w: float = 0.0,
+    lap_w: float = 0.0,
+    lap_pool: int = 4,
+    style_layers: tuple[int, ...],
+    content_layers: tuple[int, ...],
+    style_weights: tuple[float, ...] | None = None,
+) -> LossFn:
+    """The style + content objective, plus the optional TV and Laplacian
+    terms, as ``loss_fn(params, image, targets)``.
+
+    ``targets`` is a ``Targets``; with ``lap_w`` set it is the pair
+    ``(Targets, lap_target)``, the Laplacian response
+    (``ops.lap.lap_response``) the image is held to.
+    """
+    style_layers = tuple(style_layers)
+    content_layers = tuple(content_layers)
+
+    def loss_fn(params: Params, img: torch.Tensor, targets):
+        lap_target = None
+        if lap_w:
+            targets, lap_target = targets
+        total, aux = total_loss(
+            params, img, targets, style_w, content_w,
+            style_layers, content_layers, style_weights,
+        )
+        if tv_w:
+            total = total + tv_w * tv_loss(img)
+        if lap_w:
+            total = total + lap_w * lap_loss(img, lap_target, lap_pool)
+        return total, aux
+
+    return loss_fn
+
+
+def targets_update(
+    loss_fn: LossFn,
+    image_shape: tuple[int, ...],
+    device: torch.device,
+    *,
+    optimizer: str = "lbfgs",
+    lr: float,
+    lbfgs_max_iter: int = 1,
+    lbfgs_max_eval: int = 1,
+    lbfgs_history_size: int = 100,
+    lbfgs_history_dtype: str = "float32",
+    lbfgs_direction: str = "two-loop",
+) -> tuple[Callable, Callable[[], OptState]]:
+    """``(update, init_state)`` for an objective whose targets are an
+    argument.
+
+    ``update(image, state, params, targets) -> (image, state,
+    StepAux)`` takes the weights and the targets on every call, so one
+    update serves any number of target sets (the frames of a sequence,
+    the mixtures of a blend sweep). ``init_state()`` makes a fresh
+    optimizer state on ``device``. The gradient is autograd's through
+    ``loss_fn(params, image, targets)``.
+    """
+    n = 1
+    for dim in image_shape:
+        n *= int(dim)
+
+    def vag(x_in: torch.Tensor, params: Params, targets):
+        with torch.enable_grad():
+            x = x_in.detach().requires_grad_(True)
+            total, (style, content) = loss_fn(
+                params, x.reshape(image_shape), targets,
+            )
+            (grad,) = torch.autograd.grad(total, x)
+        return (total.detach(), (style.detach(), content.detach())), grad
+
+    if optimizer == "lbfgs":
+        try:
+            history_dtype = HISTORY_DTYPES[lbfgs_history_dtype]
+        except KeyError:
+            msg = f"Unknown L-BFGS history dtype: {lbfgs_history_dtype!r}"
+            raise ValueError(msg) from None
+
+        def init_state() -> OptState:
+            return lbfgs_init(n, lbfgs_history_size, device, history_dtype)
+
+        def update(image: torch.Tensor, state: LbfgsState, params, targets):
+            new_flat, new_state, aux = lbfgs_step(
+                lambda x: vag(x, params, targets), image.reshape(n), state,
+                lr,
+                max_iter=lbfgs_max_iter,
+                max_eval=lbfgs_max_eval,
+                direction_method=lbfgs_direction,
+            )
+            return new_flat.reshape(image_shape), new_state, aux
+
+    elif optimizer == "adam":
+        # The moments carry the image's own shape: no flatten per step.
+        def init_state() -> OptState:
+            return adam_init(tuple(image_shape), device)
+
+        def update(image: torch.Tensor, state: AdamState, params, targets):
+            return adam_step(
+                lambda x: vag(x, params, targets), image, state, lr,
+            )
+
+    else:
+        msg = f"Unknown optimizer: {optimizer!r}"
+        raise ValueError(msg)
+    return update, init_state
+
+
 def build_update_step(
     params: Params,
     targets: Targets,
@@ -106,81 +228,54 @@ def build_update_step(
     (``ops/tv.py``), ``lap_w`` the Laplacian term (``ops/lap.py``)
     against ``lap_target``, ``lap_response(content, lap_pool)``;
     ``style_weights`` weighs each style layer (``models/features.py``).
+    The update is :func:`targets_update`'s over :func:`make_objective`,
+    with the weights and ``targets`` bound.
     """
-    use_lap = bool(lap_w)
-    if use_lap and lap_target is None:
+    if lap_w and lap_target is None:
         msg = "lap_w > 0 requires a precomputed lap_target response"
         raise ValueError(msg)
     device = next(iter(params.values()))["w9"].device
-    n = 1
-    for dim in image_shape:
-        n *= int(dim)
-    style_layers = tuple(style_layers)
-    content_layers = tuple(content_layers)
+    loss_fn = make_objective(
+        style_w=style_w, content_w=content_w, tv_w=tv_w, lap_w=lap_w,
+        lap_pool=lap_pool, style_layers=style_layers,
+        content_layers=content_layers, style_weights=style_weights,
+    )
+    update, init_state = targets_update(
+        loss_fn, image_shape, device,
+        optimizer=optimizer,
+        lr=lr,
+        lbfgs_max_iter=lbfgs_max_iter,
+        lbfgs_max_eval=lbfgs_max_eval,
+        lbfgs_history_size=lbfgs_history_size,
+        lbfgs_history_dtype=lbfgs_history_dtype,
+        lbfgs_direction=lbfgs_direction,
+    )
+    bound = (targets, lap_target) if lap_w else targets
 
-    def vag(x_in: torch.Tensor):
-        with torch.enable_grad():
-            x = x_in.detach().requires_grad_(True)
-            img = x.reshape(image_shape)
-            total, (style, content) = total_loss(
-                params, img, targets, style_w, content_w,
-                style_layers, content_layers, style_weights,
-            )
-            if tv_w:
-                total = total + tv_w * tv_loss(img)
-            if use_lap:
-                total = total + lap_w * lap_loss(img, lap_target, lap_pool)
-            (grad,) = torch.autograd.grad(total, x)
-        return (total.detach(), (style.detach(), content.detach())), grad
-
-    if optimizer == "lbfgs":
-        try:
-            history_dtype = HISTORY_DTYPES[lbfgs_history_dtype]
-        except KeyError:
-            msg = f"Unknown L-BFGS history dtype: {lbfgs_history_dtype!r}"
-            raise ValueError(msg) from None
-        opt_state: OptState = lbfgs_init(
-            n, lbfgs_history_size, device, history_dtype,
-        )
-
-        def update_fn(image: torch.Tensor, state: LbfgsState):
-            new_flat, new_state, aux = lbfgs_step(
-                vag, image.reshape(n), state, lr,
-                max_iter=lbfgs_max_iter,
-                max_eval=lbfgs_max_eval,
-                direction_method=lbfgs_direction,
-            )
-            return new_flat.reshape(image_shape), new_state, aux
-
-    elif optimizer == "adam":
-        # The moments carry the image's own shape: no flatten per step.
-        opt_state = adam_init(tuple(image_shape), device)
-
-        def update_fn(image: torch.Tensor, state: AdamState):
-            return adam_step(vag, image, state, lr)
-
-    else:
-        msg = f"Unknown optimizer: {optimizer!r}"
-        raise ValueError(msg)
+    def update_fn(image: torch.Tensor, state: OptState):
+        return update(image, state, params, bound)
 
     return StepBundle(
         update_fn=update_fn,
-        opt_state=opt_state,
+        opt_state=init_state(),
         chunked_update_fn=chunked(update_fn),
     )
 
 
 def chunked(update_fn: Callable) -> Callable:
-    """``chunked_update_fn(image, state, k)`` over ``update_fn``.
+    """``chunked_update_fn(image, state, *extra, k)`` over ``update_fn``.
 
-    A Python loop of ``k`` steps; the metrics are stacked along a
-    leading ``k`` axis.
+    A Python loop of ``k`` steps of ``update_fn(image, state, *extra)``
+    (``extra`` is empty for :func:`build_update_step`'s update, the
+    weights and targets for :func:`targets_update`'s); the metrics are
+    stacked along a leading ``k`` axis.
     """
 
-    def chunked_update_fn(image: torch.Tensor, state, k: int):
+    def chunked_update_fn(image: torch.Tensor, state, *rest):
+        *extra, k = rest
         auxes: list[StepAux] = []
         for _ in range(k):
-            image, state, aux = update_fn(image, state)
+            image, state, aux = update_fn(image, state, *extra)
             auxes.append(aux)
         stacked = StepAux(
             *(

@@ -475,6 +475,7 @@ def run_with_artifacts(
     style_name: str | None = None,
     chroma_source: torch.Tensor | None = None,
     progress_bar: ProgressReporter | None = None,
+    final_name: str | None = None,
 ) -> ArtifactRunResult:
     """Drive a prepared update loop with the full artifact contract.
 
@@ -483,7 +484,9 @@ def run_with_artifacts(
     sink failure, and the final PNG. The input stems name the
     artifacts (``stylized_{content}_x_{style}.png``,
     ``timelapse_{content}_x_{style}.mp4``); ``style_name`` overrides
-    the style stem (a blend joins its stems). ``content_path`` and
+    the style stem (a blend joins its stems); ``final_name`` overrides
+    the final PNG's whole name (the regional run's
+    ``regional_{content}_x_{styles}.png``). ``content_path`` and
     ``style_path`` also feed the intro/outro gallery panels.
     ``chroma_source`` (the raw content image on the run's device)
     recolors every frame, the outro, the PNG and the returned image
@@ -588,6 +591,7 @@ def run_with_artifacts(
         gif_created=gif_collector is not None and "gif" not in close_errors,
         plot_losses=config.output.plot_losses,
         chroma_source=chroma_source,
+        final_name=final_name,
     )
     save_outputs(input_img, loss_metrics, output_path, elapsed, save_opts)
     if close_errors:
@@ -599,8 +603,12 @@ def run_with_artifacts(
         final_total = runner.latest_logged.total_loss
     else:
         final_total = float("nan")
-    final_path = stylized_image_path_from_names(
-        output_path, content_name, style_name,
+    final_path = (
+        output_path / final_name
+        if final_name is not None
+        else stylized_image_path_from_names(
+            output_path, content_name, style_name,
+        )
     )
     return ArtifactRunResult(
         image=maybe_restore_color(

@@ -169,6 +169,20 @@ def compute_targets(
     )
 
 
+@torch.no_grad()
+def compute_content_targets(
+    params: Params,
+    content_img: torch.Tensor,
+    content_layers: tuple[int, ...],
+) -> dict[int, torch.Tensor]:
+    """Content activation targets only (the style Grams are unchanged).
+
+    The frame sequence's per-frame targets: its style Grams are
+    computed once for the clip, its content targets for every frame.
+    """
+    return dict(extract_features(params, content_img, content_layers))
+
+
 def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.square(a - b))
 

@@ -78,12 +78,16 @@ def save_outputs(
 ) -> None:
     """Persist the final image, optional loss plot, and summary logs.
 
-    With ``opts.chroma_source`` the PNG keeps the content's chrominance.
+    With ``opts.chroma_source`` the PNG keeps the content's chrominance;
+    ``opts.final_name`` names it in place of the canonical name.
     """
     output_dir = setup_output_directory(str(output_dir))
-    final_path = stylized_image_path_from_names(
-        output_dir, opts.content_name, opts.style_name,
-    )
+    if opts.final_name is not None:
+        final_path = output_dir / opts.final_name
+    else:
+        final_path = stylized_image_path_from_names(
+            output_dir, opts.content_name, opts.style_name,
+        )
     final_img = maybe_restore_color(
         image_io.prepare_image_for_output(input_img, normalize=opts.normalize),
         opts.chroma_source,

@@ -75,3 +75,6 @@ class SaveOptions:
     #: Content image in [0,1] RGB for luminance-only color
     #: preservation of the final PNG; None leaves colors untouched.
     chroma_source: torch.Tensor | None = None
+    #: File name of the final PNG in place of the canonical
+    #: ``stylized_{content}_x_{style}.png``.
+    final_name: str | None = None
