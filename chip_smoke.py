@@ -1,6 +1,14 @@
 """Drive the PyTorch/CUDA port on one GPU and check every kernel.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --dispatch-ab
+
+The second form runs two graphed A/Bs alone, rounds interleaved, and
+checks nothing else: ``steps_per_dispatch`` 1 against 0 (one dispatch
+of 25) on the 512x512 main path through the runner and on the S = 4
+batch with a CSV row a step; and the regional phase's run with a CSV
+row every step against every 20 (40 steps), with its device ms per
+step from ``torch.profiler`` (a 40-step run less a 20-step run).
 
 Phases, one line each, in order; any failure raises and the script
 exits non-zero:
@@ -69,7 +77,8 @@ exits non-zero:
    with its content perturbed by 1e-7); then frames off at S = 1, 4
    and 8 and a single run, rounds interleaved: ms per step (the mean
    step interval over steps 3-20), style-steps/s, the device-busy share
-   (profiled device time over the step interval) and the peak memory;
+   (``torch.profiler``'s device time of 3 graphed steps over the step
+   interval) and the peak memory;
 10. resume: the single run through ``cli.main`` with a TOML given by
    ``--config`` at 512x512 (the shipped L-BFGS, frames off, a CSV row
    every step): two whole 20-step runs compared bit for bit, then 10
@@ -112,15 +121,48 @@ exits non-zero:
    launches as worked out, no warm start, frame 0 bit-equal to
    ``run_style_transfer`` on frame 0; frames/min, steps/s, the peak
    memory, and frames 1-3's final losses beside frame 0's;
-16. both kernels at the sequence's shapes: the conv at VGG19's five
+16. dispatch: every step of every phase above is a replay of a CUDA
+   graph of the step (``engine.step.GraphedChunk``); each kernel counts
+   its own runs on the device, replays included, and those counts are
+   every phase's launches. This phase holds the graphs against
+   the eager step (``GraphedChunk.loop``, ``update_fn`` in a Python
+   loop, patched in for the reference run) bit for bit: the 512x512
+   main path at ``steps_per_dispatch`` 0, 1 and 5 (final image, every
+   step's losses, launches as worked out; the eager run's device counts
+   equal to its wrappers' host counts), the S = 4 batch with a GIF
+   and an MP4 every 10 steps (images, frames, a CSV row a step), sweep
+   and sequence frames 0-1 at 64x64 (PNGs, frame losses, one capture
+   per pipeline), and a chunk-5 run resumed at step 7 (off the grid);
+   then 101 steps in one dispatch and the arrival counters all 0;
+   time to the first step and the captures' seconds (512, and the
+   1024x1024 objective with its warm start), graphed against eager,
+   with each run's own peak memory; ms/step graphed against eager,
+   rounds interleaved, at 512, 1024 (objective), 1280x720 and S = 4
+   through the runner or the batch loop, with each mode's device ms
+   per step from ``torch.profiler`` (the kernels inside replays
+   included; the profiler's count of each port kernel's runs printed
+   beside the kernels' device counts) and its busy share (that over
+   the mode's ms/step), achieved TFLOP/s and its share of 495 TF32
+   (``utils/flops.py``); the sweep's and the regional run's steps and
+   the 1280x720 sequence's frames/min through their entry points,
+   graphed against eager;
+17. both kernels at the sequence's shapes: the conv at VGG19's five
    stage shapes at 1280x720 (720x1280 to 45x80) and the Gram at its
    five taps (P = 921,600 to 3,600) against their plain versions,
    timed (``at_720p``);
-17. a 64x64 run held against the same run on the CPU (plain versions),
+18. a 64x64 run held against the same run on the CPU (plain versions),
    then the same for Adam with every term above and a 2-step warm
    start at 32x32, then the same for a batch of 2 styles, then Adam
    from the content through a 2-frame sweep, a regional run of 2
    styles and a 2-frame sequence, each per-step curve within 1e-3.
+
+A phase's ms/step (main path, objective, Adam, regional, resume) is
+read off its own counted run by CUDA events that each dispatch records
+after its last step (``engine.step.recording``): from the end of the
+run's first dispatch (the warm-up step and the capture) to the end of
+its last, over the steps between; what the run does after its last
+step is left out. The line before the kernels' JSON record gives each
+phase's seconds.
 
 The line before the card line is the kernels' JSON record (each
 kernel's launches in each driven path, and its times summed over a
@@ -139,6 +181,8 @@ figure (67 TFLOP/s outside the tensor cores).
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import gc
 import importlib.util
 import json
@@ -180,9 +224,11 @@ from style_transfer_visualizer_tpu_torch.engine.coarse import (
     resize_image,
     resolve_coarse_steps,
 )
+from style_transfer_visualizer_tpu_torch.engine import step
 from style_transfer_visualizer_tpu_torch.engine.runner import (
     OptimizationCallbacks,
     OptimizationRunner,
+    SilentProgress,
 )
 from style_transfer_visualizer_tpu_torch.main import (
     prepare_model_and_input,
@@ -210,6 +256,7 @@ from style_transfer_visualizer_tpu_torch.runtime.checkpoint import (
     save_checkpoint,
 )
 from style_transfer_visualizer_tpu_torch.type_defs import InputPaths
+from style_transfer_visualizer_tpu_torch.utils import flops
 from style_transfer_visualizer_tpu_torch.utils.logging import logger
 
 PACKAGE = "style_transfer_visualizer_tpu_torch"
@@ -223,7 +270,7 @@ TOL = 1e-4
 CHROMA_TOL = 1e-5
 STEPS = 20
 LOG_EVERY = 10
-TIMELAPSE_ROUNDS = 16
+TIMELAPSE_ROUNDS = 3
 SIZE = 512
 # (H = W, C_in, C_out, convs of this shape up to layer 28, of which
 # fused with their ReLU) at 512x512. A tap (layers 0, 5, 10, 19, 21,
@@ -252,7 +299,7 @@ NON_SQUARE = (528, 960)
 BATCH_STYLES = 4
 BATCH_SAVE_EVERY = 5
 BATCH_TIMED = (1, 4, 8)
-BATCH_ROUNDS = 3
+BATCH_ROUNDS = 1
 ODD_STYLE = (5, (384, 640))
 # The targets-as-argument pipelines: a 5-frame sweep over 3 styles (20
 # steps for frame 0, 10 for each later frame), a regional run of 2
@@ -267,6 +314,12 @@ SEQ_FRAMES = 4
 SEQ_STEPS = 10
 # The main path's ms/step, for the sweep's line.
 MAIN_MS_STEP: list[float] = []
+# The dispatch phase: graphed against eager, rounds interleaved, each
+# of so many steps through the runner.
+DISPATCH_ROUNDS = 5
+DISPATCH_STEPS = 6
+# The A/Bs within graphed runs (steps_per_dispatch, the regional CSV).
+AB_ROUNDS = 3
 
 
 def _card() -> str:
@@ -289,7 +342,7 @@ def _timing_stream() -> torch.cuda.Stream:
     return torch.cuda.Stream()
 
 
-def _time_ms(fn, reps: int = 10, replays: int = 3) -> float:
+def _time_ms(fn, reps: int = 10, replays: int = 2) -> float:
     """Device ms of one call of ``fn``, from a CUDA graph of ``reps`` calls.
 
     Replaying captured calls times the device work alone: the host's
@@ -715,9 +768,22 @@ def _images(size: int, seed: int):
     )
 
 
+def _launched() -> tuple[int, int]:
+    """The conv's and the Gram's runs as their device counters hold
+    them (each kernel adds one per run, graph replays included)."""
+    return conv3x3.launches.launched(), gram.launches.launched()
+
+
+def _wrapper_calls() -> tuple[int, int]:
+    """The conv's and the Gram's launches as their wrappers counted
+    them on the host (a replay calls no wrapper)."""
+    return conv3x3.launches.count, gram.launches.count
+
+
 def _counted_run(run):
     """``run()`` with the launch counts set to 0 just before and read
-    just after; returns its result, its seconds and the counts."""
+    just after; returns its result, its seconds and the counts the
+    kernels made on the device."""
     conv3x3.launches.reset()
     gram.launches.reset()
     torch.cuda.synchronize()
@@ -725,7 +791,7 @@ def _counted_run(run):
     out = run()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return out, seconds, (conv3x3.launches.count, gram.launches.count)
+    return out, seconds, _launched()
 
 
 def _check_run(label: str, image, losses, launches, want, size: int):
@@ -746,22 +812,6 @@ def _check_run(label: str, image, losses, launches, want, size: int):
         raise AssertionError(msg)
 
 
-def _ms_per_step(run_steps) -> float:
-    """ms/step as the difference of a 20-step and a 10-step run.
-
-    Made after the counted run, so weights, targets and one-time
-    library set-up cancel out.
-    """
-    seconds = {}
-    for steps in (STEPS // 2, STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run_steps(steps)
-        torch.cuda.synchronize()
-        seconds[steps] = time.perf_counter() - t0
-    return (seconds[STEPS] - seconds[STEPS // 2]) / (STEPS // 2) * 1e3
-
-
 def _fresh_peak() -> int:
     """Free the checks' tensors and graph pools; reset the peak.
 
@@ -779,9 +829,10 @@ def _main_path() -> tuple[int, int]:
     content, style = _images(SIZE, 0)
     config = _config(STEPS, "cuda")
     before = _fresh_peak()
-    (image, history), t_long, launches = _counted_run(
-        lambda: run_style_transfer(content, style, config),
-    )
+    with _dispatch_log() as log:
+        (image, history), t_long, launches = _counted_run(
+            lambda: run_style_transfer(content, style, config),
+        )
     peak = torch.cuda.max_memory_allocated()
     losses = history["total_loss"]
     _check_run(
@@ -792,9 +843,7 @@ def _main_path() -> tuple[int, int]:
     if not logged[-1] < logged[0]:
         msg = f"main path: logged loss did not decrease: {logged}"
         raise AssertionError(msg)
-    ms_step = _ms_per_step(
-        lambda n: run_style_transfer(content, style, _config(n, "cuda")),
-    )
+    ms_step = log.ms_per_step()
     MAIN_MS_STEP.append(ms_step)
     print(
         f"main path {SIZE}x{SIZE} vgg19 L-BFGS {STEPS} steps: "
@@ -901,7 +950,7 @@ def _timelapse() -> tuple[int, int]:
     image, history, frames, steps_seen, _, _ = _timelapse_run(
         content, style, params, STEPS, 1,
     )
-    conv_n, gram_n = conv3x3.launches.count, gram.launches.count
+    conv_n, gram_n = _launched()
     want = _launches_wanted(
         VGG19, _config(STEPS, "cuda").optimization, SIZE, 1,
     )
@@ -1200,23 +1249,21 @@ def _objective() -> tuple[int, int]:
     styles = [_images(size, seed)[0] for seed in (2, 3)]
     blend = list(zip(styles, (0.7, 0.3), strict=True))
 
-    def config(n_steps: int, coarse_steps: int = -1):
-        return _config(
-            n_steps, "cuda", tv_w=1e-2, lap_w=1e2,
-            style_layer_weights=[1, 1, 0.5, 0.25, 0.25],
-            preserve_color="luminance", coarse_steps=coarse_steps,
-        )
-
     before = _fresh_peak()
     logs = _LogLines()
     logger.addHandler(logs)
-    counted = config(STEPS)
+    counted = _config(
+        STEPS, "cuda", tv_w=1e-2, lap_w=1e2,
+        style_layer_weights=[1, 1, 0.5, 0.25, 0.25],
+        preserve_color="luminance",
+    )
     try:
-        (image, history), run_s, launches = _counted_run(
-            lambda: run_style_transfer(
-                content, styles[0], counted, style_blend=blend,
-            ),
-        )
+        with _dispatch_log() as log:
+            (image, history), run_s, launches = _counted_run(
+                lambda: run_style_transfer(
+                    content, styles[0], counted, style_blend=blend,
+                ),
+            )
     finally:
         logger.removeHandler(logs)
     peak = torch.cuda.max_memory_allocated()
@@ -1240,13 +1287,9 @@ def _objective() -> tuple[int, int]:
     if not chroma <= CHROMA_TOL:
         msg = f"objective: chrominance off by {chroma:.3g} > {CHROMA_TOL}"
         raise AssertionError(msg)
-    # The timed runs keep the counted run's coarse budget, so the warm
-    # start cancels out with the targets.
-    ms_step = _ms_per_step(
-        lambda n: run_style_transfer(
-            content, styles[0], config(n, coarse_steps), style_blend=blend,
-        ),
-    )
+    # The full-size steps alone: the warm start's level is another
+    # chunk.
+    ms_step = log.ms_per_step()
     print(
         f"objective {size}x{size} vgg19 L-BFGS {STEPS} steps, blend "
         f"0.7/0.3, tv_w 1e-2, lap_w 1e2, style weights 1,1,0.5,0.25,0.25,"
@@ -1268,22 +1311,17 @@ def _adam_vgg16() -> tuple[int, int]:
     1.0 is L-BFGS's step scale).
     """
     content, style = _images(SIZE, 4)
-
-    def config(n_steps: int):
-        return _config(
-            n_steps, "cuda", model="vgg16", optimizer="adam", lr=0.1,
-        )
-
-    counted = config(STEPS)
-    (image, history), run_s, launches = _counted_run(
-        lambda: run_style_transfer(content, style, counted),
+    counted = _config(
+        STEPS, "cuda", model="vgg16", optimizer="adam", lr=0.1,
     )
+    with _dispatch_log() as log:
+        (image, history), run_s, launches = _counted_run(
+            lambda: run_style_transfer(content, style, counted),
+        )
     losses = history["total_loss"]
     want = _launches_wanted(VGG16, counted.optimization, SIZE, 1)
     _check_run("adam vgg16", image, losses, launches, want, SIZE)
-    ms_step = _ms_per_step(
-        lambda n: run_style_transfer(content, style, config(n)),
-    )
+    ms_step = log.ms_per_step()
     print(
         f"adam vgg16 {SIZE}x{SIZE} {STEPS} steps lr 0.1: loss "
         f"{losses[0]:.6g} -> {losses[-1]:.6g}; launches conv "
@@ -1325,7 +1363,7 @@ def _batch_run(content, styles, config, params=None, *, sinks=None,
     bundle, images = prepare_multi_style(
         content, styles, config, params=params,
     )
-    prepared = (conv3x3.launches.count, gram.launches.count)
+    prepared = _launched()
     losses: list[torch.Tensor] = []
     step_ends: list[float] = []
 
@@ -1350,9 +1388,8 @@ def _batch_run(content, styles, config, params=None, *, sinks=None,
     )
     if errors:
         raise errors[0]
-    loop_launches = (
-        conv3x3.launches.count - prepared[0],
-        gram.launches.count - prepared[1],
+    loop_launches = tuple(
+        n - m for n, m in zip(_launched(), prepared, strict=True)
     )
     return (
         images, state, bundle, torch.stack(losses), step_ends,
@@ -1364,29 +1401,6 @@ def _packed(images: torch.Tensor) -> torch.Tensor:
     return image_io.pack_uint8_frames_batch(
         image_io.prepare_image_for_output(images, normalize=True),
     )
-
-
-def _device_ms_per_step(bundle, images, state, steps: int = 5) -> float:
-    """Device kernel time of one step, from ``torch.profiler``."""
-    for _ in range(2):
-        images, state, _ = bundle.update_fn(images, state)
-    torch.cuda.synchronize()
-    acts = [
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA,
-    ]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(steps):
-            images, state, _ = bundle.update_fn(images, state)
-        torch.cuda.synchronize()
-    busy_us = sum(
-        e.self_device_time_total for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    if busy_us <= 0:
-        msg = "the profiler saw no device time"
-        raise AssertionError(msg)
-    return busy_us / steps / 1e3
 
 
 def _batch() -> tuple[int, int]:
@@ -1533,7 +1547,9 @@ def _batch_speed(content, styles, params) -> None:
     for n in BATCH_TIMED:
         key = f"S={n}"
         images, state, bundle, _, _, _ = last.pop(key)
-        busy[key] = _device_ms_per_step(bundle, images, state) / ms[key]
+        busy[key] = _profiled_steps(
+            bundle, {"image": images, "state": state}, "graphed", 3,
+        )[0] / ms[key]
         del images, state, bundle
     if len(set(steps_launches.values())) != 1:
         msg = f"batch: a step's launches grow with S: {steps_launches}"
@@ -1547,8 +1563,8 @@ def _batch_speed(content, styles, params) -> None:
                else f" {1e3 / v:.2f} steps/s")
             for k, v in ms.items()
         )
-        + f"; rounds {gaps}; device busy share (profiled device ms over "
-        f"the step interval) "
+        + f"; rounds {gaps}; device busy share (the profiler's device ms "
+        f"of 3 graphed steps, over the step interval) "
         + ", ".join(f"{k} {v:.3f}" for k, v in busy.items())
         + f"; launches per step conv/gram {steps_launches['S=1']} at every "
         f"S; the run's own peak memory "
@@ -1669,7 +1685,7 @@ def _resume_gate(label, differ_whole, differ_resumed, rows_equal,
     )
 
 
-def _save_seconds(path: Path, like_state, reps: int = 3) -> list[float]:
+def _save_seconds(path: Path, like_state, reps: int = 2) -> list[float]:
     """Seconds of ``save_checkpoint`` of the checkpoint at ``path``."""
     ckpt = load_checkpoint(path, like_state, "cuda")
     out = []
@@ -1690,9 +1706,10 @@ def _resume_single() -> tuple[int, int]:
     10 steps with ``--checkpoint-every 10`` and ``--steps 20
     --resume-from`` that checkpoint: the resumed run's checkpoint at
     step 20 against the whole run's, the CSVs' rows, the PNGs. Then
-    ms/step with ``checkpoint_every=10`` against off (20-step minus
-    10-step runs, rounds interleaved), the checkpoint's bytes and the
-    save's seconds.
+    ms/step with ``checkpoint_every=10`` against off (the dispatch
+    window of a 20-step run, which holds the step-10 save; the step-20
+    save follows the last dispatch; rounds interleaved), the
+    checkpoint's bytes and the save's seconds.
     """
     work = _work_dir("resume")
     content, style = _images(SIZE, 0)
@@ -1756,14 +1773,13 @@ def _resume_single() -> tuple[int, int]:
     save_s = _save_seconds(part / "at10.npz", like)
     del like
     ms = {"off": [], "every 10": []}
-    for key, every in (("off", 0), ("every 10", STEPS // 2),
-                       ("every 10", STEPS // 2), ("off", 0)):
-        def run(n, every=every):
-            config = _config(n, "cuda")
-            config.output.checkpoint_every = every
-            config.output.checkpoint_path = str(work / "timed.npz")
+    for key, every in (("off", 0), ("every 10", STEPS // 2)):
+        config = _config(STEPS, "cuda")
+        config.output.checkpoint_every = every
+        config.output.checkpoint_path = str(work / "timed.npz")
+        with _dispatch_log() as log:
             run_style_transfer(content, style, config)
-        ms[key].append(_ms_per_step(run))
+        ms[key].append(log.ms_per_step())
     shutil.rmtree(work, ignore_errors=True)
     print(
         f"resume {SIZE}x{SIZE} vgg19 L-BFGS (cli.main --config TOML, "
@@ -1774,8 +1790,8 @@ def _resume_single() -> tuple[int, int]:
         f"launches of the resumed run conv {launches[0]} gram "
         f"{launches[1]} (expected {want}); run s {run_s:.3f}; checkpoint "
         f"bytes {ckpt_bytes}; save s {[round(t, 4) for t in save_s]}; "
-        f"ms/step checkpoint_every=10 "
-        f"{[round(v, 3) for v in ms['every 10']]} (median "
+        f"ms/step checkpoint_every=10 (steps 2-20, the step-10 save "
+        f"within) {[round(v, 3) for v in ms['every 10']]} (median "
         f"{statistics.median(ms['every 10']):.3f}) vs off "
         f"{[round(v, 3) for v in ms['off']]} (median "
         f"{statistics.median(ms['off']):.3f})",
@@ -1794,12 +1810,13 @@ def _resume_batch() -> tuple[int, int]:
     )
     names = [f"s{i}" for i in range(BATCH_STYLES)]
 
-    def run(name: str, steps: int, resume: Path | None = None):
+    def run(name: str, steps: int, resume: Path | None = None,
+            every: int = STEPS // 2):
         out = work / name
         config = _batch_config(steps, media=False)
         config.output.log_every = 1
         config.output.log_loss = str(out / "l.csv")
-        config.output.checkpoint_every = STEPS // 2
+        config.output.checkpoint_every = every
         config.output.checkpoint_path = str(out / "ck.npz")
         if resume is not None:
             config.output.resume_from = str(resume)
@@ -1813,8 +1830,10 @@ def _resume_batch() -> tuple[int, int]:
             raise errors[0]
         return images, state
 
-    whole, _ = run("whole", STEPS)
-    again, _ = run("again", STEPS)
+    # The whole runs save at step 20 only (chunks of 20, against the
+    # resumed run's 10: graphed steps are the same whatever the chunk).
+    whole, _ = run("whole", STEPS, every=STEPS)
+    again, _ = run("again", STEPS, every=STEPS)
     run("part", STEPS // 2)
     part = work / "part"
     shutil.copy(part / "ck.npz", part / "at10.npz")
@@ -2197,21 +2216,18 @@ def _regional(gram_rec: Record) -> tuple[int, int]:
         for i, m in enumerate(_seam_masks(SIZE))
     ]
 
-    def config(n: int, name: str):
-        cfg = _config(n, "cuda")
-        cfg.video.final_only = True
-        cfg.output.plot_losses = False
-        cfg.output.output = str(root / name)
-        cfg.output.log_every = 1
-        cfg.output.log_loss = str(root / f"{name}.csv")
-        return cfg
-
-    counted = config(STEPS, "out")
-    result, run_s, launches = _counted_run(
-        lambda: regional.stylize_regional(
-            content_path, style_paths, mask_paths, counted,
-        ),
-    )
+    counted = _config(STEPS, "cuda")
+    counted.video.final_only = True
+    counted.output.plot_losses = False
+    counted.output.output = str(root / "out")
+    counted.output.log_every = 1
+    counted.output.log_loss = str(root / "out.csv")
+    with _dispatch_log() as log:
+        result, run_s, launches = _counted_run(
+            lambda: regional.stylize_regional(
+                content_path, style_paths, mask_paths, counted,
+            ),
+        )
     want = _launches_wanted(
         VGG19, counted.optimization, SIZE, 2, grams_per_tap=2,
     )
@@ -2228,11 +2244,7 @@ def _regional(gram_rec: Record) -> tuple[int, int]:
     if result.output_path.name != name or not result.output_path.is_file():
         msg = f"regional: output {result.output_path}"
         raise AssertionError(msg)
-    ms_step = _ms_per_step(
-        lambda n: regional.stylize_regional(
-            content_path, style_paths, mask_paths, config(n, f"t{n}"),
-        ),
-    )
+    ms_step = log.ms_per_step()
     masks = regional.load_region_masks(mask_paths, SIZE, SIZE)
     _check_masked_gram(gram_rec, torch.as_tensor(masks[0], device="cuda"))
     print(
@@ -2464,8 +2476,886 @@ def _small_pipeline_reference() -> None:
     )
 
 
-def main() -> int:
-    """Run every phase; return 0 when all pass (failures raise)."""
+# --- the dispatch phase: every step a CUDA-graph replay -----------------
+
+
+@contextlib.contextmanager
+def _eager_dispatch():
+    """Every ``GraphedChunk`` dispatch as ``update_fn`` in a Python loop
+    (``GraphedChunk.loop``): the eager run a graphed run is held to.
+    Each dispatch is noted as a graphed one is (``GraphedChunk.note``),
+    so both modes' step times come from the same events."""
+    graphed = step.GraphedChunk.__call__
+
+    def eager(self, image, state, *rest):
+        out = self.loop(image, state, *rest)
+        self.note(rest[-1])
+        return out
+
+    step.GraphedChunk.__call__ = eager
+    try:
+        yield
+    finally:
+        step.GraphedChunk.__call__ = graphed
+
+
+def _mode(mode: str):
+    """``_eager_dispatch()`` for ``"eager"``; nothing for any other."""
+    return _eager_dispatch() if mode == "eager" else contextlib.nullcontext()
+
+
+class _DispatchLog:
+    """The dispatches ``engine.step.recording`` kept in a block: each
+    one's chunk, ``k``, the event after its last step and the seconds
+    of the capture it made."""
+
+    def __init__(self, records: list[step.Dispatch]) -> None:
+        """Read ``records`` (filled while the block runs)."""
+        self.records = records
+
+    @property
+    def ks(self) -> list[int]:
+        """``k`` of every dispatch, in order."""
+        return [d.k for d in self.records]
+
+    @property
+    def captures(self) -> list[float]:
+        """The seconds of every capture, in order."""
+        return [
+            d.capture_seconds for d in self.records
+            if d.capture_seconds is not None
+        ]
+
+    def ms_per_step(self) -> float:
+        """ms/step of the last chunk's steps after its first dispatch.
+
+        Device time from the end of that dispatch (a warm-up step and
+        the capture, or an eager step) to the end of the chunk's last
+        dispatch, over the steps dispatched in between: set-up,
+        targets, a warm start's levels, the capture and all the run
+        does after its last step (the PNG, the summary) are left out;
+        host work between two dispatches (a CSV row, a checkpoint)
+        stays in.
+        """
+        last = self.records[-1].chunk
+        mine = [d for d in self.records if d.chunk == last]
+        steps = sum(d.k for d in mine[1:])
+        torch.cuda.synchronize()
+        return mine[0].done.elapsed_time(mine[-1].done) / steps
+
+
+@contextlib.contextmanager
+def _dispatch_log():
+    """A ``_DispatchLog`` of the dispatches made in the block."""
+    with step.recording() as records:
+        yield _DispatchLog(records)
+
+
+def _own_peak(run):
+    """``run()``'s result and its own peak device bytes."""
+    before = _fresh_peak()
+    out = run()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
+def _same_history(label: str, a: dict, b: dict) -> None:
+    for key in ("style_loss", "content_loss", "total_loss"):
+        if a[key] != b[key]:
+            msg = f"{label}: {key} differs: {a[key]} vs {b[key]}"
+            raise AssertionError(msg)
+
+
+def _same_tensor(label: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    if not torch.equal(a, b):
+        diff = float((a.double() - b.double()).abs().max())
+        msg = f"{label}: graphed and eager differ by up to {diff:.3g}"
+        raise AssertionError(msg)
+
+
+def _dispatch_main_path() -> tuple[tuple[int, int], dict]:
+    """The 512 main path graphed at steps_per_dispatch 0, 1 and 5 against
+    the eager loop: images, every step's losses, launches, own peaks."""
+    content, style = _images(SIZE, 0)
+    want = _launches_wanted(
+        VGG19, _config(STEPS, "cuda").optimization, SIZE, 1,
+    )
+    with _eager_dispatch():
+        ((image, history), peak), _, launches = _counted_run(
+            lambda: _own_peak(
+                lambda: run_style_transfer(
+                    content, style, _config(STEPS, "cuda"),
+                ),
+            ),
+        )
+    # With no graph, the kernels' own counts and the wrappers' agree.
+    if launches != want or _wrapper_calls() != launches:
+        msg = (
+            f"dispatch eager: launches {launches} on the device, "
+            f"{_wrapper_calls()} by the wrappers, expected {want}"
+        )
+        raise AssertionError(msg)
+    peaks = {"eager": peak}
+    counted = {}
+    calls = {}
+    chunks = {0: [1] * STEPS, 1: [1] * STEPS, 5: [5] * (STEPS // 5)}
+    captures = []
+    for per_dispatch, want_ks in chunks.items():
+        config = _config(STEPS, "cuda")
+        config.hardware.steps_per_dispatch = per_dispatch
+        with _dispatch_log() as log:
+            ((g_image, g_history), peak), _, g_launches = _counted_run(
+                lambda config=config: _own_peak(
+                    lambda: run_style_transfer(content, style, config),
+                ),
+            )
+        ks = log.ks
+        label = f"dispatch 512 steps_per_dispatch={per_dispatch}"
+        _same_tensor(label, g_image, image)
+        _same_history(label, g_history, history)
+        if g_launches != want or ks != want_ks:
+            msg = (
+                f"{label}: launches {g_launches} (expected {want}), "
+                f"dispatches {ks} (expected {want_ks})"
+            )
+            raise AssertionError(msg)
+        captures += log.captures
+        peaks[f"graphed {per_dispatch}"] = peak
+        counted[per_dispatch] = g_launches
+        calls[per_dispatch] = _wrapper_calls()
+    print(
+        f"dispatch: {SIZE}x{SIZE} main path, shipped L-BFGS, {STEPS} steps at "
+        f"steps_per_dispatch 0, 1, 5 (dispatches of 1, 1, 5 steps): final "
+        f"image and every step's style, content and total loss bit-equal "
+        f"to the eager loop; launches conv/gram counted by the kernels on "
+        f"the device, replays included, {counted} (eager {launches}, as "
+        f"worked out {want}); the wrappers' host calls (the warm-up step "
+        f"and the capture's recording) {calls}; captures s "
+        f"{[round(s, 4) for s in captures]}; the run's own peak bytes "
+        + ", ".join(f"{k} {v}" for k, v in peaks.items()),
+    )
+    return counted[5], peaks
+
+
+def _dispatch_batch() -> dict:
+    """S = 4 with a GIF and an MP4 every 10 steps (chunks of 10), the
+    CSV rows read off the chunks' interiors, graphed against eager."""
+    content = _images(SIZE, 1)[0]
+    styles = _style_arrays(BATCH_STYLES)
+    params = load_pretrained_params(
+        torch.device("cuda"), allow_random=True, seed=0,
+    )
+    out = {}
+    for mode in ("eager", "graphed"):
+        root = _work_dir(f"dispatch_batch_{mode}")
+        config = _batch_config(STEPS, media=True)
+        config.video.save_every = 2 * BATCH_SAVE_EVERY
+        config.output.log_every = 1
+        config.output.log_loss = str(root / "l.csv")
+        sinks: dict[str, _FrameSink] = {}
+
+        def make_sink(kind, name, sinks=sinks):
+            del kind
+            sinks[name] = _FrameSink()
+            return sinks[name]
+
+        def run(config=config, root=root, make_sink=make_sink):
+            bundle, images = prepare_multi_style(
+                content, styles, config, params=params,
+            )
+            images, _, errors = run_multi_style_loop(
+                bundle, images, config, root, [f"s{i}" for i in range(4)],
+                progress_bar=_Progress(), make_sink=make_sink,
+            )
+            if errors:
+                raise errors[0]
+            return images
+
+        with _mode(mode), _dispatch_log() as log:
+            images, peak = _own_peak(run)
+        out[mode] = (
+            images, {n: _csv_rows(root / f"l_s{i}.csv")
+                     for i, n in enumerate("abcd")},
+            {k: v.frames for k, v in sinks.items()}, peak, log.ks,
+        )
+    (e_img, e_rows, e_frames, e_peak, _), (g_img, g_rows, g_frames,
+                                           g_peak, g_ks) = (
+        out["eager"], out["graphed"],
+    )
+    _same_tensor("dispatch batch", g_img, e_img)
+    if g_rows != e_rows or any(len(r) != STEPS + 1 for r in g_rows.values()):
+        msg = "dispatch batch: CSV rows differ from the eager run's"
+        raise AssertionError(msg)
+    if sorted(g_frames) != sorted(e_frames) or not all(
+        len(g_frames[k]) == STEPS // 10 and all(
+            np.array_equal(a, b)
+            for a, b in zip(g_frames[k], e_frames[k], strict=True)
+        )
+        for k in g_frames
+    ):
+        msg = "dispatch batch: frames differ from the eager run's"
+        raise AssertionError(msg)
+    if g_ks != [10] * (STEPS // 10):
+        msg = f"dispatch batch: dispatches {g_ks}, expected chunks of 10"
+        raise AssertionError(msg)
+    print(
+        f"dispatch: batch S={BATCH_STYLES} {SIZE}x{SIZE} {STEPS} steps, GIF "
+        f"and MP4 every 10 steps (dispatches {g_ks}), a CSV row a step: "
+        f"final images, {len(g_frames)} sinks' frames and every CSV row "
+        f"bit-equal to the eager loop; the run's own peak bytes eager "
+        f"{e_peak}, graphed {g_peak}",
+    )
+    return {"eager": e_peak, "graphed": g_peak}
+
+
+def _dispatch_pipelines() -> None:
+    """Sweep frames 0-1 and sequence frames 0-1 at 64x64, graphed
+    against eager: PNG pixels and frame losses bit-equal."""
+    root = _work_dir("dispatch_pipelines")
+    content = _save_png(root / "content.png", _images(64, 60)[0])
+    styles = [
+        _save_png(root / f"s{i}.png", _images(64, 61 + i)[0])
+        for i in range(2)
+    ]
+    frames = root / "frames"
+    frames.mkdir()
+    for i in range(2):
+        _save_png(frames / f"f{i}.png", _images(64, 63 + i)[0])
+
+    def config(name: str):
+        cfg = _config(SEQ_STEPS, "cuda")
+        cfg.video.final_only = True
+        cfg.output.output = str(root / name)
+        return cfg
+
+    results = {}
+    real_gif = encode.GifFrameCollector
+    encode.GifFrameCollector = _gif_in_memory
+    try:
+        for mode in ("eager", "graphed"):
+            with _mode(mode), _dispatch_log() as log:
+                sweep = blend_sweep.stylize_blend_sweep(
+                    content, styles, config(f"sw_{mode}"), n_frames=2,
+                    sweep_steps=SEQ_STEPS // 2,
+                )
+                seq = sequence.stylize_sequence(
+                    frames, styles[0], config(f"sq_{mode}"),
+                    root / f"sq_{mode}",
+                )
+            results[mode] = (
+                [_load_png(p) for p in sweep.frame_paths], sweep.frame_losses,
+                [_load_png(p) for p in seq.frame_paths], seq.frame_losses,
+                log.ks, log.captures,
+            )
+    finally:
+        encode.GifFrameCollector = real_gif
+    eager, graphed = results["eager"], results["graphed"]
+    for i, what in enumerate(("sweep frames", "sweep losses",
+                              "sequence frames", "sequence losses")):
+        same = all(
+            np.array_equal(a, b)
+            for a, b in zip(eager[i], graphed[i], strict=True)
+        ) if "frames" in what else eager[i] == graphed[i]
+        if not same:
+            msg = f"dispatch 64x64 {what}: graphed differs from eager"
+            raise AssertionError(msg)
+    want_ks = [SEQ_STEPS, SEQ_STEPS // 2, SEQ_STEPS, SEQ_STEPS]
+    if graphed[4] != want_ks or len(graphed[5]) != 2:
+        msg = (
+            f"dispatch 64x64: dispatches {graphed[4]} (expected {want_ks}),"
+            f" captures {graphed[5]} (one per pipeline)"
+        )
+        raise AssertionError(msg)
+    print(
+        f"dispatch: 64x64 sweep frames 0-1 and sequence frames 0-1, "
+        f"shipped L-BFGS, {SEQ_STEPS} steps a frame ({SEQ_STEPS // 2} for "
+        f"sweep frame 1): dispatches {graphed[4]}, one capture per "
+        f"pipeline (the second frame's targets and state copied into the "
+        f"captured ones); PNG pixels and frame losses bit-equal to the "
+        f"eager loop (sweep {list(graphed[1])}, sequence "
+        f"{list(graphed[3])})",
+    )
+
+
+def _dispatch_resume() -> None:
+    """A chunk-5 run resumed at step 7 (off the grid) against the whole
+    eager run: steps 8-10 single, then chunks of 5; bit-equal."""
+    root = _work_dir("dispatch_resume")
+    content, style = _images(SIZE, 0)
+
+    def config(steps: int, name: str, **out):
+        cfg = _config(steps, "cuda")
+        cfg.hardware.steps_per_dispatch = 5
+        cfg.output.output = str(root / name)
+        for key, value in out.items():
+            setattr(cfg.output, key, value)
+        return cfg
+
+    with _eager_dispatch():
+        whole_image, whole = run_style_transfer(
+            content, style, config(STEPS, "whole"),
+        )
+    run_style_transfer(content, style, config(7, "part", checkpoint_every=7))
+    with _dispatch_log() as log:
+        image, resumed = run_style_transfer(
+            content, style, config(
+                STEPS, "part",
+                resume_from=str(root / "part" / "checkpoint.npz"),
+            ),
+        )
+    ks = log.ks
+    _same_tensor("dispatch resume", image, whole_image)
+    _same_history(
+        "dispatch resume", resumed,
+        {k: v[7:] for k, v in whole.items()},
+    )
+    # Steps 8-10 alone, back on the grid at 10, then chunks of 5.
+    want_ks = [1, 1, 1] + [5] * ((STEPS - 10) // 5)
+    if ks != want_ks:
+        msg = f"dispatch resume: dispatches {ks}, expected {want_ks}"
+        raise AssertionError(msg)
+    print(
+        f"dispatch: {SIZE}x{SIZE} steps_per_dispatch 5 resumed at step 7 (off "
+        f"the chunk grid): dispatches {ks}; final image and the losses of "
+        f"steps 8-{STEPS} bit-equal to the whole eager run",
+    )
+
+
+def _dispatch_counters() -> None:
+    """100 replays in one dispatch; the arrival counters read all 0."""
+    content, style = _images(SIZE, 0)
+    bundle, image = prepare_model_and_input(
+        content, style, _config(STEPS, "cuda"),
+    )
+    _, _, aux = bundle.chunked_update_fn(image, bundle.opt_state, 101)
+    torch.cuda.synchronize()
+    counters = build.counter_buffer(torch.device("cuda"))
+    nonzero = int(counters.count_nonzero())
+    if nonzero or not bool(torch.isfinite(aux.loss).all()):
+        msg = f"dispatch: {nonzero} arrival counters not 0 after replays"
+        raise AssertionError(msg)
+    print(
+        f"dispatch: 101 steps at {SIZE}x{SIZE} in one dispatch (a warm-up, a "
+        f"capture, 100 replays): all {counters.numel()} arrival counters "
+        f"0; losses finite",
+    )
+    bundle.chunked_update_fn.release()
+
+
+def _interleaved(
+    label: str, timed, rounds: int = DISPATCH_ROUNDS,
+    modes: tuple[str, str] = ("eager", "graphed"),
+):
+    """``timed(mode)`` for both modes, ``rounds`` times, order swapped
+    each round (``"eager"`` under ``_eager_dispatch``); the median and
+    the rounds per mode."""
+    got: dict[str, list[float]] = {m: [] for m in modes}
+    for i in range(rounds):
+        for mode in modes if i % 2 == 0 else modes[::-1]:
+            with _mode(mode):
+                got[mode].append(timed(mode))
+    if not all(_finite(v) for vals in got.values() for v in vals):
+        msg = f"{label}: timings {got}"
+        raise AssertionError(msg)
+    return {m: statistics.median(v) for m, v in got.items()}, got
+
+
+def _runner_ms(bundle, holder: dict, config, steps: int) -> float:
+    """ms/step of ``steps`` through the runner on a prepared bundle."""
+    config.optimization.steps = steps
+    runner = OptimizationRunner(
+        bundle.update_fn, holder["state"], holder["image"], config,
+        progress_bar=SilentProgress(),
+        chunked_update_fn=bundle.chunked_update_fn,
+    )
+    image, _, seconds = runner.run()
+    holder["image"], holder["state"] = image, runner.opt_state
+    return seconds / steps * 1e3
+
+
+_PORT_KERNELS = ("conv3x3_tf32x3_kernel", "gram_tf32x3_kernel")
+
+
+def _profiled(run, steps: int) -> tuple[float, tuple[int, int]]:
+    """Device ms per step of ``run()`` (``steps`` steps) as
+    ``torch.profiler`` sees it: the time of every kernel, copy and set
+    on the device, the kernels inside graph replays included; and each
+    port kernel's runs the profiler saw, to print beside the kernels'
+    own device counts (the launch counts are set to 0 just before).
+
+    Only the device is traced: the host's events would cost seconds to
+    gather for an eager step's thousands of operators.
+    """
+    conv3x3.launches.reset()
+    gram.launches.reset()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA],
+    ) as prof:
+        run()
+        torch.cuda.synchronize()
+    on_device = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    busy_us = sum(e.self_device_time_total for e in on_device)
+    if busy_us <= 0:
+        msg = "profiler: no device time"
+        raise AssertionError(msg)
+    seen = tuple(
+        sum(e.count for e in on_device if name in e.key)
+        for name in _PORT_KERNELS
+    )
+    return busy_us / steps / 1e3, seen
+
+
+def _profiled_steps(bundle, holder: dict, mode: str, steps: int = 5):
+    """:func:`_profiled` over ``steps`` steps of a prepared bundle (one
+    graphed dispatch, or the eager loop): the device ms per step, and
+    the port kernels' runs the profiler saw and the ones they counted
+    on the device."""
+    chunk = bundle.chunked_update_fn
+    dispatch = chunk if mode == "graphed" else chunk.loop
+
+    def run():
+        holder["image"], holder["state"], _ = dispatch(
+            holder["image"], holder["state"], steps,
+        )
+
+    ms, seen = _profiled(run, steps)
+    return ms, seen, _launched()
+
+
+def _flops_line(label: str, height: int, width: int, ms: float,
+                styles: int = 1) -> str:
+    fields = flops.audit_fields(
+        VGG19.layer_table, height, width, VGG19.default_style_layers,
+        VGG19.default_content_layers, styles * 1e3 / ms,
+    )
+    return (
+        f"{label} {fields['achieved_tflops']} TFLOP/s, mfu_pct "
+        f"{fields['mfu_pct']} of 495 TF32 ({fields['flops_per_step']} "
+        f"FLOPs a step{f' x {styles} styles' if styles > 1 else ''})"
+    )
+
+
+def _dispatch_steady() -> list[str]:
+    """ms/step graphed against eager through the runner or the batch
+    loop on prepared steps (rounds interleaved), the profiler's device
+    ms per step in each mode, and each one's busy share."""
+    lines = []
+    content, style = _images(SIZE, 0)
+    big = _images(OBJECTIVE_SIZE, 1)[0]
+    blend = [(_images(OBJECTIVE_SIZE, s)[0], w) for s, w in ((2, 0.7),
+                                                             (3, 0.3))]
+
+    def objective(n):
+        return _config(
+            n, "cuda", tv_w=1e-2, lap_w=1e2,
+            style_layer_weights=[1, 1, 0.5, 0.25, 0.25],
+            preserve_color="luminance",
+        )
+
+    frame = np.random.default_rng(43).uniform(
+        size=(1, *SEQ_HW, 3),
+    ).astype(np.float32)
+    single = {
+        "512 main path": (
+            lambda: prepare_model_and_input(
+                content, style, _config(STEPS, "cuda"),
+            ),
+            lambda: _config(STEPS, "cuda"), (SIZE, SIZE),
+        ),
+        "1024 objective": (
+            lambda: prepare_model_and_input(
+                big, blend[0][0], objective(STEPS), style_blend=blend,
+            ),
+            lambda: objective(STEPS), (OBJECTIVE_SIZE, OBJECTIVE_SIZE),
+        ),
+        "1280x720 (a sequence frame's step)": (
+            lambda: prepare_model_and_input(
+                frame, style, _config(SEQ_STEPS, "cuda"),
+            ),
+            lambda: _config(SEQ_STEPS, "cuda"), SEQ_HW,
+        ),
+    }
+    results = {}
+    for label, (prepare, make_config, hw) in single.items():
+        holders = {}
+        for mode in ("eager", "graphed"):
+            with _mode(mode):
+                bundle, image = prepare()
+            holders[mode] = (bundle, {"image": image,
+                                      "state": bundle.opt_state})
+        # The capture, before the timed rounds.
+        g_bundle, g_holder = holders["graphed"]
+        _runner_ms(g_bundle, g_holder, make_config(), 1)
+        medians, rounds = _interleaved(
+            label, lambda mode: _runner_ms(
+                holders[mode][0], holders[mode][1], make_config(),
+                DISPATCH_STEPS,
+            ),
+        )
+        device_ms = {
+            mode: _profiled_steps(*holders[mode], mode)
+            for mode in ("eager", "graphed")
+        }
+        results[label] = (medians, rounds, device_ms, hw)
+        del holders, g_bundle, g_holder
+        gc.collect()
+    params = load_pretrained_params(
+        torch.device("cuda"), allow_random=True, seed=0,
+    )
+    styles = _style_arrays(BATCH_STYLES)
+    holders = {}
+    for mode in ("eager", "graphed"):
+        config = _batch_config(STEPS, media=False)
+        bundle, images = prepare_multi_style(
+            content, styles, config, params=params,
+        )
+        holders[mode] = (bundle, {"image": images,
+                                  "state": bundle.opt_state})
+
+    def batch_ms(mode, steps=DISPATCH_STEPS):
+        bundle, holder = holders[mode]
+        config = _batch_config(steps, media=False)
+        config.output.plot_losses = False
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # The loop starts at step 0 each time: its dispatches are the
+        # run's.
+        holder["image"], holder["state"], _ = run_multi_style_loop(
+            dataclasses.replace(bundle, opt_state=holder["state"]),
+            holder["image"], config, _work_dir("dispatch_s4"),
+            [f"s{i}" for i in range(BATCH_STYLES)],
+            progress_bar=_Progress(),
+        )
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    batch_ms("graphed", 1)
+    medians, rounds = _interleaved("S=4", batch_ms)
+    results["512 batch S=4"] = (
+        medians, rounds, {
+            mode: _profiled_steps(*holders[mode], mode)
+            for mode in ("eager", "graphed")
+        }, (SIZE, SIZE),
+    )
+    del holders
+    gc.collect()
+    for label, (medians, rounds, device_ms, hw) in results.items():
+        n = BATCH_STYLES if "S=4" in label else 1
+        lines.append(
+            f"dispatch steady {label}: ms/step eager "
+            f"{medians['eager']:.3f}, graphed {medians['graphed']:.3f} "
+            f"(median of {DISPATCH_ROUNDS} rounds of {DISPATCH_STEPS} steps, "
+            f"interleaved; rounds {rounds}); device ms/step (the "
+            f"profiler's, over 5 steps; kernels in replays included) eager "
+            f"{device_ms['eager'][0]:.3f}, graphed "
+            f"{device_ms['graphed'][0]:.3f}; device busy share eager "
+            f"{device_ms['eager'][0] / medians['eager']:.3f}, graphed "
+            f"{device_ms['graphed'][0] / medians['graphed']:.3f}; conv/gram "
+            f"runs in those 5 steps seen by the profiler eager "
+            f"{device_ms['eager'][1]}, graphed {device_ms['graphed'][1]}, "
+            f"counted by the kernels eager {device_ms['eager'][2]}, "
+            f"graphed {device_ms['graphed'][2]}; "
+            + _flops_line("graphed", *hw, medians["graphed"], n),
+        )
+    return lines
+
+
+def _dispatch_chunking() -> str:
+    """ms/step at ``steps_per_dispatch`` 1 against 0 (auto: with no
+    cadence, one dispatch of 25), graphed, rounds interleaved: the 512
+    main path through the runner, and the S = 4 batch with a CSV row a
+    step (a host read a step at 1, one for the whole chunk at 0)."""
+    steps = 25
+    content, style = _images(SIZE, 0)
+
+    def config(mode: str, *, batch: bool = False):
+        cfg = (
+            _batch_config(steps, media=False) if batch
+            else _config(steps, "cuda")
+        )
+        cfg.hardware.steps_per_dispatch = int(mode)
+        return cfg
+
+    def checked(mode: str, log) -> None:
+        want = [1] * steps if mode == "1" else [steps]
+        if log.ks != want:
+            msg = f"dispatch chunking: dispatches {log.ks}, expected {want}"
+            raise AssertionError(msg)
+
+    bundle, image = prepare_model_and_input(content, style, config("1"))
+    holder = {"image": image, "state": bundle.opt_state}
+    _runner_ms(bundle, holder, config("1"), 1)  # the capture
+
+    def single_ms(mode: str) -> float:
+        with _dispatch_log() as log:
+            ms = _runner_ms(bundle, holder, config(mode), steps)
+        checked(mode, log)
+        return ms
+
+    single, single_rounds = _interleaved(
+        "chunking 512", single_ms, rounds=AB_ROUNDS, modes=("1", "0"),
+    )
+    del bundle, holder, image
+    gc.collect()
+    params = load_pretrained_params(
+        torch.device("cuda"), allow_random=True, seed=0,
+    )
+    root = _work_dir("dispatch_chunking")
+    names = [f"s{i}" for i in range(BATCH_STYLES)]
+    bundle, images = prepare_multi_style(
+        content, _style_arrays(BATCH_STYLES), config("1", batch=True),
+        params=params,
+    )
+    holder = {"image": images, "state": bundle.opt_state}
+
+    def batch_ms(mode: str) -> float:
+        cfg = config(mode, batch=True)
+        cfg.output.log_every = 1
+        cfg.output.log_loss = str(root / f"l{mode}.csv")
+        with _dispatch_log() as log:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            holder["image"], holder["state"], _ = run_multi_style_loop(
+                dataclasses.replace(bundle, opt_state=holder["state"]),
+                holder["image"], cfg, root, names, progress_bar=_Progress(),
+            )
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / steps * 1e3
+        checked(mode, log)
+        return ms
+
+    batch_ms("1")  # the capture
+    batch, batch_rounds = _interleaved(
+        "chunking S=4", batch_ms, rounds=AB_ROUNDS, modes=("1", "0"),
+    )
+    del bundle, holder, images
+    gc.collect()
+    return (
+        f"dispatch chunking, graphed, {steps} steps a round (median of "
+        f"{AB_ROUNDS} rounds, interleaved): {SIZE}x{SIZE} main path "
+        f"through the runner ms/step at steps_per_dispatch 1 ({steps} "
+        f"dispatches of 1) {single['1']:.3f}, 0 (one of {steps}) "
+        f"{single['0']:.3f} (rounds {single_rounds}); S={BATCH_STYLES} batch "
+        f"with a CSV row a step, whole loop ms/step at 1 (a host read a "
+        f"step) {batch['1']:.3f}, 0 (one read for the chunk) "
+        f"{batch['0']:.3f} (rounds {batch_rounds})"
+    )
+
+
+def _regional_attribution() -> str:
+    """The regional run's step, graphed: ms/step with a CSV row every
+    step against every 20 (chunks of 20), 40 steps, rounds interleaved;
+    and its device ms per step from the profiler (a 40-step run less a
+    20-step run, over 20). The run is the regional phase's."""
+    root = _work_dir("regional_attribution")
+    content_path = _save_png(root / "content.png", _images(SIZE, 30)[0])
+    style_paths = [
+        _save_png(root / f"s{i}.png", _images(SIZE, 31 + i)[0])
+        for i in range(2)
+    ]
+    mask_paths = [
+        _save_png(root / f"m{i}.png", m)
+        for i, m in enumerate(_seam_masks(SIZE))
+    ]
+
+    def run(steps: int, log_every: int, name: str) -> _DispatchLog:
+        cfg = _config(steps, "cuda")
+        cfg.video.final_only = True
+        cfg.output.plot_losses = False
+        cfg.output.output = str(root / name)
+        cfg.output.log_every = log_every
+        cfg.output.log_loss = str(root / f"{name}.csv")
+        with _dispatch_log() as log:
+            regional.stylize_regional(
+                content_path, style_paths, mask_paths, cfg,
+            )
+        return log
+
+    medians, rounds = _interleaved(
+        "regional log_every",
+        lambda mode: run(40, int(mode), f"ab{mode}").ms_per_step(),
+        rounds=AB_ROUNDS, modes=("1", "20"),
+    )
+    whole = {
+        n: _profiled(lambda n=n: run(n, 20, f"p{n}"), 1)[0]
+        for n in (20, 40)
+    }
+    device = (whole[40] - whole[20]) / 20
+    return (
+        f"dispatch regional step, graphed, 40 steps: ms/step with a CSV "
+        f"row every step {medians['1']:.3f}, every 20 steps (dispatches of "
+        f"20) {medians['20']:.3f} (median of {AB_ROUNDS} rounds, "
+        f"interleaved; rounds {rounds}); device ms/step from the profiler "
+        f"{device:.3f} (a 40-step run's {whole[40]:.3f} ms less a 20-step "
+        f"run's {whole[20]:.3f}, over 20)"
+    )
+
+
+def _dispatch_pipelines_timed() -> list[str]:
+    """The sweep's and the regional run's steps and the 1280x720
+    sequence's frames/min, graphed against eager, rounds interleaved."""
+    lines = []
+    root = _work_dir("dispatch_timed")
+    content_path = _save_png(root / "content.png", _images(SIZE, 20)[0])
+    style_paths = [
+        _save_png(root / f"s{i}.png", _images(SIZE, 21 + i)[0])
+        for i in range(2)
+    ]
+    mask_paths = [
+        _save_png(root / f"m{i}.png", m)
+        for i, m in enumerate(_seam_masks(SIZE))
+    ]
+
+    def sweep_ms(mode):
+        cfg = _config(STEPS, "cuda")
+        cfg.output.output = str(root / f"sw_{mode}")
+        result = blend_sweep.stylize_blend_sweep(
+            content_path, style_paths, cfg, n_frames=3,
+            sweep_steps=SWEEP_STEPS,
+        )
+        return statistics.mean(result.frame_seconds[1:]) / SWEEP_STEPS * 1e3
+
+    def regional_ms(mode):
+        cfg = _config(STEPS, "cuda")
+        cfg.video.final_only = True
+        cfg.output.plot_losses = False
+        cfg.output.output = str(root / f"rg_{mode}")
+        cfg.output.log_every = 1
+        cfg.output.log_loss = str(root / f"rg_{mode}.csv")
+        with _dispatch_log() as log:
+            regional.stylize_regional(
+                content_path, style_paths, mask_paths, cfg,
+            )
+        return log.ms_per_step()
+
+    frames = root / "frames"
+    frames.mkdir()
+    h, w = SEQ_HW
+    rng = np.random.default_rng(42)
+    for i in range(2):
+        _save_png(frames / f"f{i}.png",
+                  rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    params = load_pretrained_params(
+        torch.device("cuda"), allow_random=True, seed=0,
+    )
+    seq_peaks: dict[str, int] = {}
+
+    def frames_min(mode):
+        cfg = _config(SEQ_STEPS, "cuda")
+        before = None if mode in seq_peaks else _fresh_peak()
+        result = sequence.stylize_sequence(
+            frames, style_paths[0], cfg, root / f"sq_{mode}", params=params,
+        )
+        if before is not None:
+            seq_peaks[mode] = torch.cuda.max_memory_allocated() - before
+        return 60.0 / result.frame_seconds[1]
+
+    real_gif = encode.GifFrameCollector
+    encode.GifFrameCollector = _gif_in_memory
+    try:
+        for label, timed, unit in (
+            ("sweep step (frames 1-2, a PNG each)", sweep_ms, "ms/step"),
+            ("regional step (a CSV row a step)", regional_ms, "ms/step"),
+            ("1280x720 sequence (frame 1 of 2, 10 steps)", frames_min,
+             "frames/min"),
+        ):
+            medians, rounds = _interleaved(label, timed)
+            extra = ""
+            if unit == "ms/step":
+                extra = "; " + _flops_line(
+                    "graphed", SIZE, SIZE, medians["graphed"],
+                )
+            else:
+                ms = 60e3 / medians["graphed"] / SEQ_STEPS
+                extra = (
+                    f"; the run's own peak bytes (first round) eager "
+                    f"{seq_peaks['eager']}, graphed {seq_peaks['graphed']}; "
+                    + _flops_line("graphed", h, w, ms)
+                )
+            lines.append(
+                f"dispatch {label}: {unit} eager {medians['eager']:.3f}, "
+                f"graphed {medians['graphed']:.3f} (median of "
+                f"{DISPATCH_ROUNDS} rounds, interleaved; rounds {rounds})"
+                + extra,
+            )
+    finally:
+        encode.GifFrameCollector = real_gif
+    return lines
+
+
+def _dispatch_setup() -> str:
+    """Time to the first step (a 1-step run, all set-up included) and
+    the captures, graphed against eager, at 512 and for the 1024
+    objective with its warm start (a capture per level)."""
+    content, style = _images(SIZE, 0)
+    big = _images(OBJECTIVE_SIZE, 1)[0]
+    blend = [(_images(OBJECTIVE_SIZE, s)[0], w) for s, w in ((2, 0.7),
+                                                             (3, 0.3))]
+    runs = {
+        "512": lambda: run_style_transfer(content, style, _config(1, "cuda")),
+        "1024 objective": lambda: run_style_transfer(
+            big, blend[0][0], _config(
+                1, "cuda", tv_w=1e-2, lap_w=1e2,
+                style_layer_weights=[1, 1, 0.5, 0.25, 0.25],
+                preserve_color="luminance", coarse_steps=4,
+            ), style_blend=blend,
+        ),
+    }
+    parts = []
+    for label, run in runs.items():
+        got = {}
+        for mode in ("eager", "graphed"):
+            with _mode(mode), _dispatch_log() as log:
+                (_, peak), seconds, _ = _counted_run(
+                    lambda run=run: _own_peak(run),
+                )
+            got.setdefault(mode, []).append((
+                seconds, peak, [round(s, 4) for s in log.captures],
+            ))
+        parts.append(
+            f"{label}: time to first step s eager "
+            f"{[round(g[0], 4) for g in got['eager']]}, graphed "
+            f"{[round(g[0], 4) for g in got['graphed']]}; captures s "
+            f"{[g[2] for g in got['graphed']]}; the run's own peak bytes "
+            f"eager {got['eager'][-1][1]}, graphed {got['graphed'][-1][1]}",
+        )
+    return "dispatch set-up (a 1-step run of each): " + "; ".join(parts)
+
+
+def _dispatch() -> tuple[int, int]:
+    """The new dispatch phase: bit-equality, counters, times, set-up."""
+    t0 = time.perf_counter()
+    launches, _ = _dispatch_main_path()
+    _dispatch_batch()
+    _dispatch_pipelines()
+    _dispatch_resume()
+    _dispatch_counters()
+    print(_dispatch_setup())
+    for line in _dispatch_steady() + _dispatch_pipelines_timed():
+        print(line)
+    print(f"dispatch phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _dispatch_ab(card: str) -> int:
+    """``--dispatch-ab``: the two graphed A/Bs alone, then the card."""
+    build.build_all()
+    print(_dispatch_chunking())
+    print(_regional_attribution())
+    print(f"card: {card}")
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    """Run every phase; return 0 when all pass (failures raise).
+
+    ``--dispatch-ab`` runs only ``steps_per_dispatch`` 1 against 0 and
+    the regional CSV A/B (a measurement, not a check).
+    """
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs a GPU", file=sys.stderr)
         return 2
@@ -2473,7 +3363,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     card = _card()
+    if (argv if argv is not None else sys.argv[1:]) == ["--dispatch-ab"]:
+        return _dispatch_ab(card)
     print(f"card: {card}")
+    start = time.perf_counter()
+    seconds: dict[str, float] = {}
+
+    def timed(name: str, phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
 
     t0 = time.perf_counter()
     built = build.build_all()
@@ -2505,33 +3405,51 @@ def main() -> int:
             strict=True,
         )))
     conv_rec, conv_extra = records["conv3x3"]
-    _check_conv(conv_rec, _conv_cases(
+    gram_rec, gram_extra = records["gram"]
+    timed("kernel checks", _check_conv, conv_rec, _conv_cases(
         conv_rec, conv_extra["at_1024"], conv_extra["n4_512"],
     ))
     _vgg16_shapes_covered()
-    gram_rec, gram_extra = records["gram"]
-    _check_gram(gram_rec, gram_extra["at_1024"], gram_extra["batched_s4_512"])
-    phases = {"main path": _main_path()}
-    phases["timelapse"] = _timelapse()
-    phases["objective"] = _objective()
-    phases["adam vgg16"] = _adam_vgg16()
-    phases["batch"] = _batch()
-    phases["resume"] = _resume_single()
-    phases["resume batch"] = _resume_batch()
-    phases["warm start 4 MP"] = _warm_start_4mp()
-    _check_level_kernels(
-        conv_rec, conv_extra["level_2048_first"],
-        gram_rec, gram_extra["level_2048_first"],
+    timed(
+        "gram checks", _check_gram,
+        gram_rec, gram_extra["at_1024"], gram_extra["batched_s4_512"],
     )
-    phases["sweep"] = _sweep()
-    phases["regional"] = _regional(gram_rec)
-    phases["sequence"] = _sequence()
-    _check_720p_kernels(
+    phases = {}
+    for name, phase, *args in (
+        ("main path", _main_path),
+        ("timelapse", _timelapse),
+        ("objective", _objective),
+        ("adam vgg16", _adam_vgg16),
+        ("batch", _batch),
+        ("resume", _resume_single),
+        ("resume batch", _resume_batch),
+        ("warm start 4 MP", _warm_start_4mp),
+        ("sweep", _sweep),
+        ("regional", _regional, gram_rec),
+        ("sequence", _sequence),
+        ("dispatch", _dispatch),
+    ):
+        phases[name] = timed(name, phase, *args)
+        if name == "warm start 4 MP":
+            timed(
+                "level kernels", _check_level_kernels,
+                conv_rec, conv_extra["level_2048_first"],
+                gram_rec, gram_extra["level_2048_first"],
+            )
+    timed(
+        "720p kernels", _check_720p_kernels,
         conv_rec, conv_extra["at_720p"], gram_rec, gram_extra["at_720p"],
     )
-    _small_reference()
-    _small_batch_reference()
-    _small_pipeline_reference()
+    timed("small references", lambda: (
+        _small_reference(), _small_batch_reference(),
+        _small_pipeline_reference(),
+    ))
+    print(
+        "phase seconds: "
+        + ", ".join(f"{k} {v}" for k, v in seconds.items())
+        + f"; whole script after the card query "
+        f"{time.perf_counter() - start:.1f} s",
+    )
 
     kernels = [
         rec.finish({k: v[i] for k, v in phases.items()}, extras)

@@ -26,7 +26,10 @@ from style_transfer_visualizer_tpu_torch.engine.coarse import (
     coarse_init,
     resolve_coarse_steps,
 )
-from style_transfer_visualizer_tpu_torch.engine.step import drive_chunked
+from style_transfer_visualizer_tpu_torch.engine.step import (
+    drive_chunked,
+    refill,
+)
 from style_transfer_visualizer_tpu_torch.models.arch import get_architecture
 from style_transfer_visualizer_tpu_torch.models.features import (
     blend_targets,
@@ -224,17 +227,21 @@ def _sweep_on_device(
     frame_seconds: list[float] = []
     frame_losses: list[float] = []
     total_steps = 0
+    held = state = None
     for i, weights in enumerate(weights_rows):
         frame_start = time.perf_counter()
         targets = blend_targets(per_style, weights)
         if opt.lap_w:
             targets = (targets, lap_target)
+        # The captured step reads its targets and state where they
+        # are: each frame's mixture is copied into the targets held,
+        # and the optimizer restarts in place.
+        held = refill(held, targets)
+        state = init_state(state)
         budget = opt.steps if i == 0 else per_frame_steps
-        x, _, auxes = drive_chunked(
-            lambda img, st, k: update_many(
-                img, st, run_params, targets, k,  # noqa: B023
-            ),
-            x, init_state(), budget, min(budget, _SEQUENCE_MAX_CHUNK),
+        x, state, auxes = drive_chunked(
+            lambda img, st, k: update_many(img, st, run_params, held, k),
+            x, state, budget, min(budget, _SEQUENCE_MAX_CHUNK),
         )
         total_steps += budget
         out_path = output_dir / f"sweep_{i:04d}.png"

@@ -19,7 +19,9 @@ model, the coarse warm start), the style blend, and the output and
 video flags of the timelapse (``--save-every``, ``--no-video``,
 ``--gif``, ``--log-loss``, ``--compare-inputs`` and the rest), the
 checkpoint flags (``--checkpoint-every``, ``--checkpoint-path``,
-``--resume-from``), ``--profile-dir``, and ``--config`` (a TOML in the
+``--resume-from``), ``--profile-dir``, ``--steps-per-dispatch`` (on the
+card every step is a CUDA-graph replay; the value sets the chunk
+between host reads), and ``--config`` (a TOML in the
 JAX package's layout, under the typed flags) with
 ``--validate-config-only``. A realtime or postprocess MP4 needs
 ``ffmpeg`` on PATH; the GIF needs imageio. ``--styles`` without
@@ -68,6 +70,14 @@ def _float_list(text: str) -> list[float]:
 def _add_optimization_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--steps", type=int)
     p.add_argument("--device")
+    p.add_argument(
+        "--steps-per-dispatch", dest="steps_per_dispatch", type=int,
+        help=(
+            "Fuse this many optimizer steps into one device "
+            "dispatch to amortize host overhead. 0 = auto (gcd "
+            "of logging/frame cadences); 1 disables fusion."
+        ),
+    )
     p.add_argument("--seed", type=int)
     p.add_argument("--lr", type=float)
     p.add_argument(
@@ -404,7 +414,7 @@ _COPIED = {
         "metadata_artist", "create_gif", "gif_include_intro",
         "gif_include_outro", "final_frame_compare",
     ),
-    "hardware": ("device",),
+    "hardware": ("device", "steps_per_dispatch"),
 }
 
 
@@ -641,6 +651,10 @@ def main(argv: Sequence[str] | None = None) -> int:
         parser.error(str(exc))
     if args.config:
         logger.info("Loaded config from: %s", args.config)
+    if config.hardware.steps_per_dispatch:
+        logger.info(
+            "Steps per Dispatch: %d", config.hardware.steps_per_dispatch,
+        )
     style_paths = _check_style_args(args)
     if style_paths is not None:
         if args.style_masks:

@@ -202,9 +202,15 @@ class HardwareConfig:
     There is no precision field yet: both kernels compute 3xTF32 on the
     tensor cores (each fp32 operand split into tf32 hi and lo halves,
     three products), about 21 mantissa bits, at every setting.
+
+    ``steps_per_dispatch`` is the JAX package's: 0 picks the chunk from
+    the cadences (``engine.runner.aligned_chunk``), 1 dispatches single
+    steps, N > 1 folds into the same gcd. On the card every dispatched
+    step is a CUDA-graph replay whatever the chunk.
     """
 
     device: str = d.DEFAULT_DEVICE
+    steps_per_dispatch: int = 0
 
     def __post_init__(self) -> None:
         self.validate()
@@ -219,6 +225,7 @@ class HardwareConfig:
             f"device {self.device!r}: the port runs on 'cuda' (or "
             "'cuda:N'), or on 'cpu' when asked for by name",
         )
+        _check(self.steps_per_dispatch >= 0, "steps_per_dispatch must be >= 0")
 
 
 @dataclass
@@ -333,9 +340,6 @@ _UNPORTED: dict[tuple[str, str], tuple[object, str]] = {
     ),
     ("hardware", "spatial_shards"): (
         1, "ROADMAP.md queue item 'Spatial and dp×sp'",
-    ),
-    ("hardware", "steps_per_dispatch"): (
-        0, "ROADMAP.md queue item 'Step dispatch and the step's own cost'",
     ),
     ("hardware", "conv_backend"): (
         "auto", "nothing: the port has no backend knob (ROADMAP.md, "

@@ -89,6 +89,7 @@ struct ConvArgs {
   int splits, split_slabs;
   float* ws;
   int* counters;
+  unsigned long long* launches;  // count_launch's counter
 };
 
 struct Work {
@@ -206,6 +207,7 @@ conv3x3_tf32x3_kernel(const __grid_constant__ CUtensorMap map_x,
   const Smem<BN> sm(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023),
                     args);
   const int tid = threadIdx.x;
+  count_launch(args.launches);
   if (tid == 0) {
     for (int s = 0; s < args.a_stages; ++s) {
       bar_init(&sm.a_full[s], args.halo ? 1 : 128);
@@ -459,7 +461,7 @@ int launch(const CUtensorMap& mx, const CUtensorMap& mm,
 // ops/conv3x3.py's conv_plan; `blocks` persistent blocks walk the work
 // items. With splits > 1, `ws` holds a 128 x bn partial tile per item
 // and `counters` one zeroed int per output tile (left zeroed). `bias`
-// and `mask` may be null.
+// and `mask` may be null. Each run adds one to `*launches`.
 extern "C" int conv3x3_forward(const float* x, const float* mask,
                                const float* b_hi, const float* b_lo,
                                const float* bias, float* out, int n, int h,
@@ -468,7 +470,8 @@ extern "C" int conv3x3_forward(const float* x, const float* mask,
                                int slabs, int taps, int a_stages,
                                int b_stages, int a_slot_bytes, int splits,
                                int split_slabs, int blocks, int smem_bytes,
-                               float* ws, int* counters, int device,
+                               float* ws, int* counters,
+                               unsigned long long* launches, int device,
                                void* stream) {
   // The calling thread (autograd's, for the backward) may have no
   // current context yet; the tensor-map encoder needs one.
@@ -483,7 +486,7 @@ extern "C" int conv3x3_forward(const float* x, const float* mask,
                 n * tiles_y * tiles_x * ch_tiles, halo,       slabs,
                 taps,     a_stages, b_stages,     a_slot_bytes, relu,
                 mask != nullptr,    splits,       split_slabs, ws,
-                counters};
+                counters, launches};
   CUtensorMap mx{}, mm{}, mbhi{}, mblo{};
   int rc = 0;
   if (halo) {

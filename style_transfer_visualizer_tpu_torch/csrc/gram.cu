@@ -63,6 +63,7 @@ struct GramArgs {
   long long p, rows_per_split;
   int c, tiles, splits, group, groups, stages;
   float clamp, norm;
+  unsigned long long* launches;  // count_launch's counter
 };
 
 constexpr int kTileFloats = kT * kT;
@@ -126,6 +127,7 @@ gram_tf32x3_kernel(const __grid_constant__ CUtensorMap map_f,
   uint64_t* full = reinterpret_cast<uint64_t*>(bt_lo + kT * kRowFloats);
   uint64_t* empty = full + stages;
   __shared__ int flag;
+  count_launch(args.launches);
 
   int bi = 0;
   int rem = static_cast<int>(blockIdx.x);
@@ -304,15 +306,16 @@ gram_tf32x3_kernel(const __grid_constant__ CUtensorMap map_f,
 // tf32x3::kTensorMapError + a driver code. `raw` and `g` are (batch, c,
 // c); `ws` holds batch * pairs * (splits + groups) * 64 * 64 floats;
 // `counters` holds batch * pairs * (groups + 1) zeroed ints and is left
-// zeroed. The split ranges are `rows_per_split` rows long (a multiple
-// of 32) and cover all p rows of an image; groups = ceil(splits /
-// group); c % 4 == 0 (TMA row stride). The plan comes from
-// ops/gram.py's gram_plan.
+// zeroed; each run adds one to `*launches`. The split ranges are
+// `rows_per_split` rows long (a multiple of 32) and cover all p rows of
+// an image; groups = ceil(splits / group); c % 4 == 0 (TMA row stride).
+// The plan comes from ops/gram.py's gram_plan.
 extern "C" int gram_forward(const float* f, float* ws, int* counters,
                             float* raw, float* g, int batch, long long p,
                             int c, int splits, long long rows_per_split,
                             int group, int stages, int smem_bytes,
-                            float clamp, float norm, int device,
+                            float clamp, float norm,
+                            unsigned long long* launches, int device,
                             void* stream) {
   // The calling thread may have no current context yet; the
   // tensor-map encoder needs one.
@@ -322,7 +325,7 @@ extern "C" int gram_forward(const float* f, float* ws, int* counters,
   const int groups = (splits + group - 1) / group;
   GramArgs args{ws,     counters, raw,    g,      p,     rows_per_split,
                 c,      tiles,    splits, group,  groups, stages,
-                clamp,  norm};
+                clamp,  norm,     launches};
   CUtensorMap map{};
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(c),
                               static_cast<cuuint64_t>(p),

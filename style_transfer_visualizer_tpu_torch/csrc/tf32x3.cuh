@@ -50,6 +50,16 @@ __device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
   lo = to_tf32(a - __uint_as_float(hi));
 }
 
+// One more run of this kernel in `*launches`: thread 0 of block (0, 0,
+// 0) adds one, so the device counts every launch, each replay of a
+// CUDA graph that holds it included.
+__device__ __forceinline__ void count_launch(unsigned long long* launches) {
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 &&
+      blockIdx.z == 0) {
+    atomicAdd(launches, 1ULL);
+  }
+}
+
 // ---- mbarriers
 __device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),

@@ -87,6 +87,13 @@ class StepAux:
     content_score: torch.Tensor
     n_evals: torch.Tensor        # evaluations consumed by this step
 
+    def at(self, j: int) -> StepAux:
+        """Step ``j`` of a chunk's metrics, stacked along axis 0."""
+        return StepAux(
+            self.loss[j], self.style_score[j], self.content_score[j],
+            self.n_evals[j],
+        )
+
 
 def lbfgs_init(
     n: int,

@@ -12,7 +12,11 @@ Behavioral contracts kept from the JAX package:
 - metrics, frames and callbacks fire once per *accepted* step, however
   many function evaluations L-BFGS used;
 - steps run in chunks that divide every per-step cadence (CSV rows,
-  frames), so frames land exactly on the ``save_every`` grid;
+  frames, checkpoints), so frames land exactly on the ``save_every``
+  grid; ``hardware.steps_per_dispatch`` tunes the chunk as in the JAX
+  package (1 is single steps). Every dispatch, a single step too, goes
+  through ``chunked_update_fn`` when there is one: on the card that is
+  ``engine.step.GraphedChunk``, CUDA-graph replays of the step;
 - the one-shot intro crossfade precedes the first saved stylized frame;
 - closure-evaluation telemetry is reported at the end of the run;
 - non-finite losses produce warnings, at the sync cadence;
@@ -85,6 +89,17 @@ def aligned_chunk(cadences: list[int]) -> int:
             d for d in range(1, _MAX_CHUNK + 1) if chunk % d == 0
         )
     return max(1, chunk)
+
+
+def dispatch_chunk(requested: int, cadences: list[int]) -> int:
+    """The chunk for ``hardware.steps_per_dispatch`` = ``requested``.
+
+    1 means single steps; any other value folds into the gcd of the
+    cadences (0 adds nothing), so it tunes but never breaks alignment.
+    """
+    if requested == 1:
+        return 1
+    return aligned_chunk([*cadences, requested] if requested else cadences)
 
 
 if TYPE_CHECKING:
@@ -304,9 +319,7 @@ class OptimizationRunner:
                 if self.callbacks.on_step_start is not None:
                     self.callbacks.on_step_start(step_idx)
 
-                self.input_img, self.opt_state, aux = self.update_fn(
-                    self.input_img, self.opt_state,
-                )
+                self.input_img, self.opt_state, aux = self._one_step()
                 self._finalize_step(step_idx, aux)
         finally:
             self._cleanup()
@@ -325,6 +338,16 @@ class OptimizationRunner:
 
     # ------------------------------------------------------------------
     # internals
+
+    def _one_step(self):
+        """One step: a dispatch of one through the chunk when there is
+        one (a graph replay on the card), else the eager update."""
+        if self.chunked_update_fn is None:
+            return self.update_fn(self.input_img, self.opt_state)
+        image, state, auxes = self.chunked_update_fn(
+            self.input_img, self.opt_state, 1,
+        )
+        return image, state, auxes.at(0)
 
     def _fetch_frame(self, image: torch.Tensor) -> torch.Tensor:
         # Denorm, scrub, the luminance transfer and uint8 packing run on
@@ -388,8 +411,9 @@ class OptimizationRunner:
         work at exact steps: CSV rows (``log_every``), frames
         (``save_every`` when a sink is attached) and checkpoints
         (``checkpoint_every``). The ring is not a
-        constraint: a chunk records every step's losses. Per-step
-        callbacks force single steps.
+        constraint: a chunk records every step's losses.
+        ``hardware.steps_per_dispatch`` tunes it (:func:`dispatch_chunk`);
+        per-step callbacks force single steps.
         """
         if self.chunked_update_fn is None:
             return 1
@@ -405,7 +429,9 @@ class OptimizationRunner:
             cadences.append(self.config.video.save_every)
         if self.config.output.checkpoint_every:
             cadences.append(self.config.output.checkpoint_every)
-        return aligned_chunk(cadences)
+        return dispatch_chunk(
+            self.config.hardware.steps_per_dispatch, cadences,
+        )
 
     def _finalize_chunk(self, first_step: int, k: int, auxes) -> None:
         """Bookkeeping for a k-step chunk (stacked StepAux tensors)."""

@@ -53,6 +53,7 @@ from style_transfer_visualizer_tpu_torch.engine.runner import (
     OptimizationRunner,
     SilentProgress,
     default_progress,
+    dispatch_chunk,
 )
 from style_transfer_visualizer_tpu_torch.engine.step import build_update_step
 from style_transfer_visualizer_tpu_torch.media import encode, segments
@@ -963,6 +964,28 @@ class _BatchFrames:
         return errors, failed
 
 
+def resolve_batch_chunk(bundle, config: StyleTransferConfig) -> int:
+    """Steps per batch dispatch: the JAX package's ``_resolve_batch_chunk``.
+
+    The single run's rule (``engine.runner``) minus the logging
+    cadence: a chunk stacks every step's losses, so CSV rows and the
+    plot history are read off its interior steps; only checkpoints and
+    timelapse frames (the image and state at an exact step) must land
+    on a chunk boundary. ``hardware.steps_per_dispatch`` tunes it as
+    there (``engine.runner.dispatch_chunk``).
+    """
+    if getattr(bundle, "chunked_update_fn", None) is None:
+        return 1
+    cadences = []
+    if config.output.checkpoint_every:
+        cadences.append(config.output.checkpoint_every)
+    if (
+        config.video.create_gif or config.video.create_video
+    ) and config.video.save_every:
+        cadences.append(config.video.save_every)
+    return dispatch_chunk(config.hardware.steps_per_dispatch, cadences)
+
+
 def run_multi_style_loop(
     bundle: StepBundle,
     images: torch.Tensor,
@@ -980,12 +1003,15 @@ def run_multi_style_loop(
 ):
     """The batch's step loop with its logging and timelapse contract.
 
-    The port of the JAX package's ``main._run_multi_style_loop``, with
-    single-step dispatch:
+    The port of the JAX package's ``main._run_multi_style_loop``:
 
+    - steps in chunks of :func:`resolve_batch_chunk` through
+      ``bundle.chunked_update_fn`` (CUDA-graph replays on the card),
+      single steps while a resumed run is off the chunk grid;
     - per-style loss CSVs ``<log_loss stem>_<style><suffix or .csv>``,
       or per-style histories for ``loss_plot_<style>.png``; one ``(3,
-      S)`` host read per ``log_every`` and none between;
+      k, S)`` host read per chunk that holds a ``log_every`` step, and
+      none between;
     - one timelapse per style (``timelapse_{content}_x_{style}.gif`` /
       ``.mp4``; a realtime MP4 is promoted to postprocess), fed at the
       ``save_every`` cadence and after the last step when ``steps``
@@ -1005,7 +1031,8 @@ def run_multi_style_loop(
 
     ``make_sink(kind, file_name)``, ``kind`` ``"gif"`` or ``"mp4"``,
     stands in for the encoders; ``on_step_end(step, images, aux)`` sees
-    each step's images and device metrics (no host read). Returns
+    each step's images and device metrics (no host read), and makes
+    every dispatch a single step. Returns
     ``(images, state, close_errors)``: the caller saves the PNGs before
     it raises the first close error.
     """
@@ -1086,15 +1113,15 @@ def run_multi_style_loop(
         for _ in style_names
     ]
     save_every = video.save_every
+    chunk = 1 if on_step_end is not None else resolve_batch_chunk(
+        bundle, config,
+    )
     bar = progress_bar or default_progress(
         opt_cfg.steps, start_step, desc="Multi-Style Transfer",
     )
 
-    def log_step(step: int, aux: StepAux) -> None:
-        # One (3, S) host read: style, content, total.
-        vals = torch.stack(
-            [aux.style_score, aux.content_score, aux.loss],
-        ).cpu().numpy()
+    def log_step(step: int, vals: np.ndarray) -> None:
+        # One (3, S) row: style, content, total.
         for i in range(len(style_names)):
             row = [float(v) for v in vals[:, i]]
             if csv_loggers[i] is not None:
@@ -1111,15 +1138,35 @@ def run_multi_style_loop(
     failed: set[str] = set()
     try:
         with _profiled(config, images.device):
-            for step in range(start_step + 1, opt_cfg.steps + 1):
-                images, state, aux = bundle.update_fn(images, state)
-                bar.update(1)
+            step = start_step
+            while step < opt_cfg.steps:
+                # Chunks only while their ends stay on the cadence
+                # grid: a resumed run may start off it.
+                k = (
+                    chunk
+                    if opt_cfg.steps - step >= chunk and step % chunk == 0
+                    else 1
+                )
+                images, state, auxes = bundle.chunked_update_fn(
+                    images, state, k,
+                )
+                logged = [
+                    j for j in range(k)
+                    if (step + j + 1) % out_cfg.log_every == 0
+                ]
+                if logged:
+                    # One (3, k, S) host read for the whole chunk.
+                    vals = torch.stack(
+                        [auxes.style_score, auxes.content_score, auxes.loss],
+                    ).cpu().numpy()
+                    for j in logged:
+                        log_step(step + j + 1, vals[:, j])
+                step += k
+                bar.update(k)
                 if on_step_end is not None:
-                    on_step_end(step, images, aux)
+                    on_step_end(step, images, auxes.at(0))
                 if frame_stream is not None and step % save_every == 0:
                     submit_frames(images)
-                if step % out_cfg.log_every == 0:
-                    log_step(step, aux)
                 maybe_checkpoint(step)
         if frame_stream is not None:
             if opt_cfg.steps % save_every:

@@ -62,6 +62,17 @@ class Architecture:
         )
 
 
+def pools_before_in(table: LayerTable, idx: int) -> int:
+    """Pools crossed at or before ``idx`` in a layer table.
+
+    Spatial dims at a tap are the input dims divided by
+    ``2**pools_before_in(table, idx)``.
+    """
+    return sum(
+        1 for j, (kind, _, _) in enumerate(table) if j <= idx and kind == POOL
+    )
+
+
 def layer_table_from_params(params: Mapping[int, Mapping]) -> LayerTable:
     """Reconstruct the layer table from a params dict's structure.
 

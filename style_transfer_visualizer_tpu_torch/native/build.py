@@ -23,7 +23,7 @@ import re
 import shutil
 import subprocess
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
@@ -150,6 +150,9 @@ def sm_count(index: int) -> int:
 
 
 _counters: dict[int, object] = {}
+# Outgrown counter buffers, kept (all zero) for the graphs captured
+# over them.
+_retired: list[object] = []
 
 
 def arrival_counters(device, count: int):
@@ -167,11 +170,31 @@ def arrival_counters(device, count: int):
     with _lock:
         have = _counters.get(index)
         if have is None or have.numel() < count:
+            if torch.cuda.is_current_stream_capturing():
+                # Allocated now, the buffer would live in the graph's
+                # pool and be freed with it; the eager step before a
+                # capture sizes it.
+                msg = (
+                    f"arrival counters must grow to {count} during a CUDA "
+                    "graph capture; run the step once eagerly first"
+                )
+                raise RuntimeError(msg)
+            if have is not None:
+                # A captured graph may hold the old buffer's address.
+                _retired.append(have)
             have = torch.zeros(
                 max(count, 4096), dtype=torch.int32, device=device,
             )
             _counters[index] = have
         return have
+
+
+def counter_buffer(device):
+    """The arrival-counter buffer of ``device``, or None before any
+    launch that took one. Every kernel leaves its counters at 0."""
+    import torch  # noqa: PLC0415
+
+    return _counters.get(torch.device(device).index or 0)
 
 
 def check(status: int, what: str) -> None:
@@ -187,17 +210,51 @@ def check(status: int, what: str) -> None:
         raise RuntimeError(msg)
 
 
-@dataclass
+@dataclass(eq=False)
 class LaunchCounter:
-    """Number of kernel launches a wrapper has made.
+    """Launches of one kernel, counted on the host and on the device.
 
-    The wrapper adds one where it launches its kernel and nowhere else,
-    so a run can show that its main path went through the kernel.
+    ``count``: the wrapper adds one where it launches its kernel and
+    nowhere else (a launch recorded into a CUDA graph under capture is
+    one call of the wrapper too). A graph's replays do not call the
+    wrapper, so ``count`` misses them; the kernel counts itself:
+    thread 0 of its block (0, 0, 0) adds one to a device counter of
+    :meth:`slot` at every run, replays included, and :meth:`launched`
+    reads it. The two agree on a run with no graph.
     """
 
     name: str
     count: int = 0
+    _slots: dict[int, object] = field(default_factory=dict, repr=False)
+
+    def slot(self, device):
+        """The kernel's int64 device counter on ``device``, made at the
+        first launch there (never during a capture: a graph's pool
+        would hold it)."""
+        import torch  # noqa: PLC0415
+
+        index = torch.device(device).index or 0
+        with _lock:
+            have = self._slots.get(index)
+            if have is None:
+                if torch.cuda.is_current_stream_capturing():
+                    msg = (
+                        f"{self.name}: its launch counter must be made "
+                        "before a CUDA graph capture; run the step once "
+                        "eagerly first"
+                    )
+                    raise RuntimeError(msg)
+                have = torch.zeros(1, dtype=torch.int64, device=device)
+                self._slots[index] = have
+            return have
+
+    def launched(self) -> int:
+        """The kernel's runs on every device since the last reset, as
+        the device counted them (waits for the device)."""
+        return sum(int(t.item()) for t in self._slots.values())
 
     def reset(self) -> None:
-        """Set the count back to zero."""
+        """Set both counts back to zero."""
         self.count = 0
+        for t in self._slots.values():
+            t.zero_()

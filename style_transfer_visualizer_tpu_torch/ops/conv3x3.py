@@ -162,8 +162,8 @@ def conv3x3_plain(
 def _entry():
     fn = build.load("conv3x3").conv3x3_forward
     fn.argtypes = [
-        *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 20, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 20, *[ctypes.c_void_p] * 3,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -237,7 +237,8 @@ def conv3x3_kernel(
         plan.bn, plan.rows, plan.cols, int(plan.halo), plan.slabs,
         plan.taps, plan.a_stages, plan.b_stages, plan.a_slot_bytes,
         plan.splits, plan.split_slabs, plan.blocks, plan.smem_bytes,
-        _ptr(ws), _ptr(counters), x.device.index,
+        _ptr(ws), _ptr(counters), launches.slot(x.device).data_ptr(),
+        x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(status, "conv3x3")

@@ -92,7 +92,8 @@ def _entry():
     fn.argtypes = [
         *[ctypes.c_void_p] * 5, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, *[ctypes.c_int] * 3,
-        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -171,7 +172,7 @@ def _launch(
         flat.data_ptr(), buf[cc:].data_ptr(), counters.data_ptr(),
         raw.data_ptr(), g.data_ptr(), s, p, c, plan.splits, plan.rows,
         plan.group, plan.stages, plan.smem_bytes, clamp_max, norm,
-        dev.index,
+        launches.slot(dev).data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(status, "gram")

@@ -47,6 +47,7 @@ from style_transfer_visualizer_tpu_torch.engine.step import (
     chunked,
     drive_chunked,
     make_objective,
+    refill,
     targets_update,
 )
 from style_transfer_visualizer_tpu_torch.media import encode
@@ -157,11 +158,15 @@ def build_targets_update(
 
     ``update(x, state, params, targets) -> (x, state, StepAux)`` and
     ``update_many(x, state, params, targets, k)`` (``k`` steps, the
-    metrics stacked along a leading ``k`` axis) take the weights and
-    the targets on every call; ``init_state()`` makes a fresh optimizer
-    state on the weights' device; ``run_params`` are the weights to
-    pass. By default the objective is the single run's
-    (``engine.step.make_objective`` with ``cfg``'s weights and terms):
+    metrics stacked along a leading ``k`` axis; an
+    ``engine.step.GraphedChunk``, CUDA-graph replays on the card, so
+    targets that change between calls go through
+    ``engine.step.refill``) take the weights and the targets on every
+    call; ``init_state()`` makes a fresh optimizer state on the
+    weights' device (``init_state(state)`` resets ``state`` in place);
+    ``run_params`` are the weights to pass. By default the objective
+    is the single run's (``engine.step.make_objective`` with ``cfg``'s
+    weights and terms):
     with ``lap_w`` set, ``targets`` is then the pair ``(Targets,
     lap_target)``, so a sequence holds each frame to its own source's
     Laplacian. ``loss_fn(params, image, targets) -> (total, (style,
@@ -488,6 +493,7 @@ def _stylize_frames(
     frame_losses: list[float] = []
     total_steps = 0
     x: torch.Tensor | None = None
+    held = state = None
     decoder = ThreadPoolExecutor(max_workers=1, thread_name_prefix="stv-seq")
     saver = AsyncFrameStream(max_queue=_MAX_PENDING_SAVES)
     next_decode = None
@@ -524,12 +530,14 @@ def _stylize_frames(
                     blend_imgs=blend_imgs, generator=generator,
                 )
             # else: the warm start, x carried over from the last frame.
-            x, _, auxes = drive_chunked(
-                lambda img, st, k: update_many(
-                    img, st, run_params, targets, k,  # noqa: B023
-                ),
-                x, init_state(), opt.steps,
-                min(opt.steps, _SEQUENCE_MAX_CHUNK),
+            # The captured step reads its targets and state where they
+            # are: this frame's targets are copied into those held,
+            # and the optimizer restarts in place.
+            held = refill(held, targets)
+            state = init_state(state)
+            x, state, auxes = drive_chunked(
+                lambda img, st, k: update_many(img, st, run_params, held, k),
+                x, state, opt.steps, min(opt.steps, _SEQUENCE_MAX_CHUNK),
             )
             total_steps += opt.steps
 

@@ -12,10 +12,14 @@ multi-style batch's stacked step of S styles as
 ``main.prepare_multi_style`` builds it; runs 3 warm-up steps, then times
 ``--steps`` steps with CUDA events, split into the VGG loss-and-gradient
 evaluation and (for L-BFGS) the direction, and traces them with
-``torch.profiler``. It prints the card, the times, the device-busy
-share of the traced window, each ``csrc/`` kernel's launches and share
-of device time, and the operators by device time, and writes the Chrome
-trace under ``--out``. Needs a CUDA device.
+``torch.profiler``: the eager step (``update_fn``, hundreds of launches
+from the host) and the graphed step (one replay of the CUDA graph of
+``chunked_update_fn``, as every run dispatches it; its capture is
+timed first). For each it prints the times, the device-busy share of
+the traced window and of the untraced step, each ``csrc/`` kernel's
+launches and share of device time (the kernels inside a replay show
+in the device time), and the operators by device time, and writes the
+Chrome traces under ``--out``. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -226,38 +230,64 @@ def main(argv: list[str] | None = None) -> int:
                 if batch else holder["state"],
             )
 
-    torch.cuda.reset_peak_memory_stats()
+    def graphed():
+        holder["image"], holder["state"], _ = bundle.chunked_update_fn(
+            holder["image"], holder["state"], 1,
+        )
+
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    step_ms = _event_ms(step, args.steps)
-    host_ms = (time.perf_counter() - t0) / args.steps * 1e3
-    peak = torch.cuda.max_memory_allocated()
+    graphed()
+    torch.cuda.synchronize()
+    _emit(
+        f"graphed step: first dispatch (one eager step, then the capture) "
+        f"{time.perf_counter() - t0:.4f} s, of which the capture "
+        f"{bundle.chunked_update_fn.capture_seconds[-1]:.4f} s; "
+        f"max_memory_allocated with the graph {_peak_and_reset()}",
+    )
+    label = (
+        f"{args.size}x{args.size} {opt.model} {opt.optimizer}"
+        f"{' objective' if args.objective else ''}"
+        f"{f' batch of {batch} styles' if batch else ''}"
+    )
     vag_ms = _event_ms(loss_and_grad, args.steps)
     dir_ms = (
         f"{_event_ms(direction, args.steps):.3f}"
         if opt.optimizer == "lbfgs" else "none"
     )
     _emit(
-        f"{args.size}x{args.size} {opt.model} {opt.optimizer}"
-        f"{' objective' if args.objective else ''}"
-        f"{f' batch of {batch} styles' if batch else ''}: step_ms "
-        f"{step_ms:.3f} (host clock {host_ms:.3f}), vgg loss_and_grad_ms "
-        f"{vag_ms:.3f}, compact_direction_ms {dir_ms}, "
-        f"max_memory_allocated over the steps {peak}",
+        f"{label}: vgg loss_and_grad_ms {vag_ms:.3f}, compact_direction_ms "
+        f"{dir_ms}",
     )
-
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
+    for mode, fn in (("eager", step), ("graphed", graphed)):
+        _profile(f"{label} {mode}", fn, args.steps, out / f"{mode}.json")
+    return 0
+
+
+def _profile(label: str, fn, steps: int, trace: Path) -> None:
+    """Time ``steps`` calls of ``fn`` (one step each), then trace them."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step_ms = _event_ms(fn, steps)
+    host_ms = (time.perf_counter() - t0) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    _emit(
+        f"{label}: step_ms {step_ms:.3f} (host clock {host_ms:.3f}), "
+        f"max_memory_allocated over the steps {peak}",
+    )
     acts = [
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA,
     ]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
-            step()
+        for _ in range(steps):
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    prof.export_chrome_trace(str(out / "step_trace.json"))
+    prof.export_chrome_trace(str(trace))
     events = prof.key_averages()
     busy_us = sum(
         e.self_device_time_total for e in events
@@ -267,27 +297,28 @@ def main(argv: list[str] | None = None) -> int:
     # low whenever the host issues slower than the device runs; the
     # device time per step over the untraced step time is the share
     # without the profiler.
-    busy_ms_step = busy_us / args.steps / 1e3
+    busy_ms_step = busy_us / steps / 1e3
     _emit(
-        f"traced {args.steps} steps: wall_ms {wall_us / 1e3:.3f}, "
+        f"{label}: traced {steps} steps: wall_ms {wall_us / 1e3:.3f}, "
         f"device kernel time ms {busy_us / 1e3:.3f}, device busy share "
-        f"{busy_us / wall_us:.3f} traced, {busy_ms_step / step_ms:.3f} of "
-        f"the untraced step ({busy_ms_step:.3f} ms/step)",
+        f"{busy_us / max(wall_us, 1e-9):.3f} traced, "
+        f"{busy_ms_step / step_ms:.3f} of the untraced step "
+        f"({busy_ms_step:.3f} ms/step)",
     )
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA and any(
             k in e.key for k in _PORT_KERNELS
         ):
             _emit(
-                f"port kernel {e.key[:60]}: {e.count / args.steps:g} "
-                f"launches/step, {e.self_device_time_total / 1e3:.3f} ms, "
-                f"share {e.self_device_time_total / busy_us:.4f}",
+                f"{label}: port kernel {e.key[:60]}: "
+                f"{e.count / steps:g} launches/step, "
+                f"{e.self_device_time_total / 1e3:.3f} ms, share "
+                f"{e.self_device_time_total / max(busy_us, 1e-9):.4f}",
             )
     _emit(events.table(
         sort_by="self_device_time_total", row_limit=25,
         max_name_column_width=60,
     ))
-    return 0
 
 
 if __name__ == "__main__":

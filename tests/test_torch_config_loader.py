@@ -7,6 +7,9 @@
   does; out-of-range values raise in both;
 - each key of the JAX config with no port yet loads at its JAX default
   only, and raises ``NotImplementedError`` at any other value;
+  ``steps_per_dispatch`` loads any value >= 0 equal to the JAX
+  package's, from the TOML and from ``--steps-per-dispatch`` through
+  ``cli.main``, and a negative one raises in both;
   ``device = "tpu"`` raises ``ValueError`` naming ``cuda``;
 - a table of argv x TOML cases: the port's ``cli.config_from_args``
   over its ``ConfigLoader`` gives the merged config of the JAX
@@ -207,7 +210,6 @@ def test_missing_file_raises(tmp_path) -> None:
         ("optimization", "remat", "true", "Memory"),
         ("optimization", "tile_rows", "432", "Memory"),
         ("hardware", "spatial_shards", "2", "Spatial"),
-        ("hardware", "steps_per_dispatch", "4", "Step dispatch"),
         ("hardware", "conv_backend", '"pallas"', "no backend knob"),
         ("hardware", "gram_backend", '"xla"', "no backend knob"),
     ],
@@ -218,6 +220,55 @@ def test_unported_keys_load_only_at_their_default(
     path = _write(tmp_path, f"[{section}]\n{key} = {value}\n")
     jax_config.ConfigLoader.load(str(path))
     with pytest.raises(NotImplementedError, match=item):
+        port_config.ConfigLoader.load(path)
+
+
+@pytest.mark.parametrize("value", [0, 1, 4, 60])
+def test_steps_per_dispatch_loads_like_jax(tmp_path, value) -> None:
+    path = _write(
+        tmp_path,
+        f'[hardware]\ndevice = "cpu"\nsteps_per_dispatch = {value}\n',
+    )
+    ours = port_config.ConfigLoader.load(path)
+    ref = jax_config.ConfigLoader.load(str(path))
+    assert ours.hardware.steps_per_dispatch == value
+    _assert_same(ours, ref)
+
+
+@pytest.mark.parametrize("value", [4, 0])
+def test_steps_per_dispatch_flag_through_cli_main(
+    tmp_path, monkeypatch, value,
+) -> None:
+    """``--steps-per-dispatch N`` reaches the run's config through
+    ``cli.main`` over a TOML, as the JAX CLI's merge gives it."""
+    seen = {}
+
+    def capture(paths, config, **kwargs):
+        del paths, kwargs
+        seen["config"] = config
+
+    monkeypatch.setattr(cli, "style_transfer", capture)
+    path = _write(tmp_path, '[hardware]\nsteps_per_dispatch = 7\n')
+    argv = ["--content", "c.png", "--style", "s.png", "--config", str(path),
+            "--steps-per-dispatch", str(value)]
+    assert cli.main(argv) == 0
+    ref = jax_config.build_config_from_cli(
+        vars(jax_cli.build_arg_parser().parse_args(argv)),
+        base_config=jax_config.ConfigLoader.load(str(path)),
+    )
+    assert seen["config"].hardware.steps_per_dispatch == value
+    assert ref.hardware.steps_per_dispatch == value
+
+
+@pytest.mark.parametrize("text", [
+    "[hardware]\nsteps_per_dispatch = -1\n",
+    "[hardware]\nsteps_per_dispatch = 1.5\n",
+])
+def test_bad_steps_per_dispatch_raises_in_both(tmp_path, text) -> None:
+    path = _write(tmp_path, text)
+    with pytest.raises(ValueError):  # noqa: PT011 - pydantic's subclass
+        jax_config.ConfigLoader.load(str(path))
+    with pytest.raises(ValueError, match="steps_per_dispatch"):
         port_config.ConfigLoader.load(path)
 
 

@@ -70,12 +70,15 @@ def test_conv_kernel_matches_plain(cuda, n, h, w, ci, co, relu) -> None:
     x = _rand(0, n, h, w, ci)
     w9 = _rand(1, 9, ci, co, scale=0.2)
     b = _rand(2, co)
-    before = conv3x3.launches.count
+    before = conv3x3.launches.count, conv3x3.launches.launched()
     _close(
         conv3x3.conv3x3_kernel(x, pack_stencil(w9), b, relu),
         conv3x3.conv3x3_plain(x, w9, b, relu),
     )
-    assert conv3x3.launches.count == before + 1
+    # One wrapper call, one run counted by the kernel on the device.
+    assert (conv3x3.launches.count, conv3x3.launches.launched()) == (
+        before[0] + 1, before[1] + 1,
+    )
 
 
 @pytest.mark.parametrize(("n", "h", "w", "ci", "co"), _CONV_SHAPES)
@@ -112,13 +115,15 @@ def test_conv_input_gradient_matches_cudnn(cuda) -> None:
 )
 def test_gram_kernel_matches_plain(cuda, p, c, scale) -> None:
     f = _rand(7, p, c, scale=scale)
-    before = gram.launches.count
+    before = gram.launches.count, gram.launches.launched()
     raw_k, g_k = gram.gram_kernel(f, GRAM_MATRIX_CLAMP_MAX, float(p * c))
     raw_p, g_p = gram.gram_plain(f, GRAM_MATRIX_CLAMP_MAX, float(p * c))
     _close(raw_k, raw_p)
     _close(g_k, g_p)
     assert torch.equal(raw_k, raw_k.T)
-    assert gram.launches.count == before + 1
+    assert (gram.launches.count, gram.launches.launched()) == (
+        before[0] + 1, before[1] + 1,
+    )
 
 
 @pytest.mark.parametrize(
