@@ -2,8 +2,11 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --dispatch-ab
+    python3 chip_smoke.py --modes
 
-The second form runs two graphed A/Bs alone, rounds interleaved, and
+The third form builds the kernels and runs only the kernel-mode check
+(phase 4b below) and what ``mixed`` moves to IEEE fp32 (the end of
+phase 5b). The second form runs two graphed A/Bs alone, rounds interleaved, and
 checks nothing else: ``steps_per_dispatch`` 1 against 0 (one dispatch
 of 25) on the 512x512 main path through the runner and on the S = 4
 batch with a CSV row a step; and the regional phase's run with a CSV
@@ -14,11 +17,11 @@ Phases, one line each, in order; any failure raises and the script
 exits non-zero:
 
 1. card: name and power limit from ``nvidia-smi``;
-2. build: both CUDA sources under
+2. build: the three CUDA sources under
    ``style_transfer_visualizer_tpu_torch/csrc/`` with ``nvcc`` for
    ``sm_90a``, with each library's count of ``HGMMA`` instructions
    (``wgmma`` on the tensor cores) from ``cuobjdump -sass`` where the
-   toolkit has it;
+   toolkit has it (none in ``conv3x3_ieee``, on the CUDA cores);
 3. conv check: the conv kernel against its plain PyTorch version at
    every conv shape of the 512x512 main path, of the objective phase's
    1024x1024 steps and of the batch phase's 512x512 steps at N = 4
@@ -37,10 +40,33 @@ exits non-zero:
    at the 528x960 coarse level's, where P is not a multiple of the
    kernel's 32-row slot, each image against its plain Gram and
    bit-equal to the single launch on that image, and S = 1 too;
+4b. mode check: each kernel's two other modes (``ops/precision.py``),
+   IEEE fp32 and TF32, against that mode's plain version (the fp32
+   conv or product; that of tf32-rounded operands) at every shape set
+   the script drives (conv: 512, 1024, N = 4, the 2048 level's first
+   two, 1280x720, forward with and without ReLU and the masked input
+   gradient; Gram: 512, 1024, S = 4 in one launch, the 2048 level's
+   first tap, 1280x720, with and without an active clamp, each batched
+   image bit-equal to the mode's single launch), within 1e-4; timed
+   beside the plain version and cuDNN / ``torch.mm`` (fp32 for IEEE,
+   TF32 on for TF32), two graph-timed calls a timing;
 5. main path: ``run_style_transfer`` at 512x512 on full-width VGG19
    (seeded weights, shipped defaults) for 20 L-BFGS steps through the
    port's runner (no progress bar), with the launch counts set to 0
    just before and read just after;
+5b. precision: the main path at each tier (``highest``, ``mixed``,
+   ``high``, ``default``, through ``config.hardware.precision``): losses
+   decreasing, launches by kernel and mode on the device equal to what
+   the tier's policy implies (``_policy_launches``), graphed ms/step,
+   the device's busy share (the profiler's device ms of 5 graphed steps
+   over it), the run's own peak; at ``default`` and ``highest`` the
+   graphed run bit-equal to the eager loop; then Adam at 64x64, 20
+   steps, lr 0.05 (the JAX package's certified Adam curve), card
+   against CPU at each tier, every step within 1e-3 at ``highest``,
+   ``mixed`` and ``high`` (``default`` printed), beside the control
+   (the CPU run against itself from a content perturbed by 1e-7, at lr
+   0.05 and 0.1); then the
+   device ms of what ``mixed`` moves to IEEE fp32 in each mode;
 6. timelapse: the port's runner on the main path's configuration with
    ``save_every=1`` into an in-memory frame sink (20 frames through the
    pinned-buffer frame stream), launch counts again 0 just before and
@@ -170,14 +196,21 @@ step at 512x512, under ``at_1024`` at 1024x1024, and for the batch
 phase's step at S = 4 under ``n4_512`` (conv) and ``batched_s4_512``
 (Gram), for the 2048x2048 level's first shapes under
 ``level_2048_first``, and for a 1280x720 frame's step under
-``at_720p``); the last line is the run's JSON verdict. Times
+``at_720p``). The conv and Gram entries are their 3xTF32 kernels;
+``conv3x3_ieee``, ``conv3x3_tf32``, ``gram_ieee`` and ``gram_tf32``
+the other modes, with the same keys; each entry's ``launches`` is its
+mode's count on the main path at ``mixed`` or, where ``mixed`` runs
+none, at the tier that runs it everywhere (``launches_tier``), with
+every tier's in ``launches_by_tier``; ``bound_ms`` counts each mode's
+operations at its own rate (IEEE at 67 TFLOP/s, TF32 at 495, 3xTF32
+at 495/3). The last line is the run's JSON verdict. Times
 come from CUDA events around replays of CUDA graphs of back-to-back
 calls on this run's card (device time; host launch overhead excluded
-for every version alike). Both
-kernels compute 3xTF32 on the tensor cores, so ``bound_ms`` is the
-larger of three TF32 products per operation at the H100 SXM's 495
-TFLOP/s and the bytes at 3.35 TB/s; ``fp32_bound_ms`` keeps the fp32
-figure (67 TFLOP/s outside the tensor cores).
+for every version alike). The
+3xTF32 entries' ``bound_ms`` is the larger of three TF32 products per
+operation at the H100 SXM's 495 TFLOP/s and the bytes at 3.35 TB/s;
+``fp32_bound_ms`` keeps the fp32 figure (67 TFLOP/s outside the tensor
+cores).
 """
 from __future__ import annotations
 
@@ -251,6 +284,15 @@ from style_transfer_visualizer_tpu_torch.models.vgg19 import (
 from style_transfer_visualizer_tpu_torch.native import build
 from style_transfer_visualizer_tpu_torch.ops.color import RGB_TO_YIQ
 from style_transfer_visualizer_tpu_torch.ops import conv3x3, gram
+from style_transfer_visualizer_tpu_torch.ops.precision import (
+    MODES,
+    PRECISION_NAMES,
+    conv_bwd_precision,
+    conv_precision,
+    gram_precision,
+    kernel_mode,
+    resolve_precision,
+)
 from style_transfer_visualizer_tpu_torch.runtime.checkpoint import (
     load_checkpoint,
     save_checkpoint,
@@ -261,7 +303,8 @@ from style_transfer_visualizer_tpu_torch.utils.logging import logger
 
 PACKAGE = "style_transfer_visualizer_tpu_torch"
 FP32_FLOPS = 67e12
-TF32X3_FLOPS = 495e12 / 3
+TF32_FLOPS = 495e12
+TF32X3_FLOPS = TF32_FLOPS / 3
 HBM_BYTES = 3.35e12
 CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"
 TOL = 1e-4
@@ -270,7 +313,7 @@ TOL = 1e-4
 CHROMA_TOL = 1e-5
 STEPS = 20
 LOG_EVERY = 10
-TIMELAPSE_ROUNDS = 3
+TIMELAPSE_ROUNDS = 2
 SIZE = 512
 # (H = W, C_in, C_out, convs of this shape up to layer 28, of which
 # fused with their ReLU) at 512x512. A tap (layers 0, 5, 10, 19, 21,
@@ -316,10 +359,31 @@ SEQ_STEPS = 10
 MAIN_MS_STEP: list[float] = []
 # The dispatch phase: graphed against eager, rounds interleaved, each
 # of so many steps through the runner.
-DISPATCH_ROUNDS = 5
+DISPATCH_ROUNDS = 3
 DISPATCH_STEPS = 6
 # The A/Bs within graphed runs (steps_per_dispatch, the regional CSV).
 AB_ROUNDS = 3
+# The precision tiers (ops/precision.py) and the kernels' modes: each
+# mode's operations at its peak on the H100 SXM (IEEE fp32 outside the
+# tensor cores; one TF32 product; three).
+TIERS = PRECISION_NAMES
+NEW_MODES = ("ieee", "tf32")
+MODE_RATE = {"ieee": FP32_FLOPS, "tf32x3": TF32X3_FLOPS, "tf32": TF32_FLOPS}
+# Graph-timed calls a mode's timing replays (the IEEE convs take up to
+# tens of ms a call at 1024x1024 and N = 4).
+MODE_REPS = 2
+# The curve gate of the tiers: Adam at 64x64 on the card against the
+# CPU, every step within 1e-3 relative at every tier but "default", at
+# the learning rate of the JAX package's certified Adam curve
+# (bench.py, benchmarks/curve_parity_bench.py). A control gives the
+# curve's own sensitivity: the CPU run against itself with the content
+# perturbed by 1e-7 relative, at that rate and at 0.1.
+GATE_STEPS = 20
+GATE_TOL = 1e-3
+GATE_LR = 0.05
+CONTROL_LRS = (GATE_LR, 0.1)
+# Launches per tier on the 512 main path, by kernel and mode.
+TIER_LAUNCHES: dict[str, dict[str, dict[str, int]]] = {}
 
 
 def _card() -> str:
@@ -342,7 +406,7 @@ def _timing_stream() -> torch.cuda.Stream:
     return torch.cuda.Stream()
 
 
-def _time_ms(fn, reps: int = 10, replays: int = 2) -> float:
+def _time_ms(fn, reps: int = 5, replays: int = 2) -> float:
     """Device ms of one call of ``fn``, from a CUDA graph of ``reps`` calls.
 
     Replaying captured calls times the device work alone: the host's
@@ -399,14 +463,20 @@ def _hgmma_count(library) -> int | None:
 class Record:
     """One kernel's line of the JSON record, summed over a step."""
 
-    def __init__(self, name: str, source: str, replaces: str) -> None:
-        """Start an empty record."""
+    def __init__(
+        self, name: str, source: str, replaces: str,
+        mode: str = "tf32x3",
+    ) -> None:
+        """Start an empty record of ``mode``'s kernel, whose operations
+        run at ``MODE_RATE[mode]``."""
         self.entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
+            "replaces": replaces, "mode": mode, "launches": 0,
+            "max_abs_err": 0.0, "max_rel_err": 0.0,
             "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
         }
-        self.ops_s = 0.0     # 3xTF32 operation time, summed
+        self.rate = MODE_RATE[mode]
+        self.ops_s = 0.0     # operation time at the mode's rate, summed
         self.bytes_s = 0.0
         self.bound_s = 0.0
         self.fp32_bound_s = 0.0
@@ -418,10 +488,11 @@ class Record:
             msg = f"{self.entry['name']} {what}: rel err {rel:.3g} > {TOL}"
             raise AssertionError(msg)
         self.entry["max_abs_err"] = max(self.entry["max_abs_err"], err)
+        self.entry["max_rel_err"] = max(self.entry["max_rel_err"], rel)
 
     def add(self, count: int, ms, plain_ms, library_ms, flops, nbytes):
         """Add ``count`` launches per step of one shape to the sums."""
-        ops_s = flops / TF32X3_FLOPS
+        ops_s = flops / self.rate
         mem_s = nbytes / HBM_BYTES
         self.ops_s += count * ops_s
         self.bytes_s += count * mem_s
@@ -448,7 +519,8 @@ class Record:
         out.update(self._bounds())
         for key, rec in extras.items():
             out[key] = {
-                k: rec.entry[k] for k in ("ms", "plain_ms", "library_ms")
+                k: rec.entry[k]
+                for k in ("ms", "plain_ms", "library_ms", "max_rel_err")
             } | rec._bounds()  # noqa: SLF001 - same class
         return out
 
@@ -462,8 +534,10 @@ class Record:
         }
 
 
-def _bound_ms(flops: float, nbytes: float) -> float:
-    return max(flops / TF32X3_FLOPS, nbytes / HBM_BYTES) * 1e3
+def _bound_ms(
+    flops: float, nbytes: float, rate: float = TF32X3_FLOPS,
+) -> float:
+    return max(flops / rate, nbytes / HBM_BYTES) * 1e3
 
 
 def _conv_cases(rec: Record, rec_1024: Record, rec_n4: Record):
@@ -2873,7 +2947,11 @@ def _runner_ms(bundle, holder: dict, config, steps: int) -> float:
     return seconds / steps * 1e3
 
 
-_PORT_KERNELS = ("conv3x3_tf32x3_kernel", "gram_tf32x3_kernel")
+# The conv's and the Gram's device kernels, every mode.
+_PORT_KERNELS = (
+    ("conv3x3_tc_kernel", "conv3x3_ieee_kernel"),
+    ("gram_tc_kernel", "gram_ieee_kernel"),
+)
 
 
 def _profiled(run, steps: int) -> tuple[float, tuple[int, int]]:
@@ -2903,8 +2981,8 @@ def _profiled(run, steps: int) -> tuple[float, tuple[int, int]]:
         msg = "profiler: no device time"
         raise AssertionError(msg)
     seen = tuple(
-        sum(e.count for e in on_device if name in e.key)
-        for name in _PORT_KERNELS
+        sum(e.count for e in on_device if any(n in e.key for n in names))
+        for names in _PORT_KERNELS
     )
     return busy_us / steps / 1e3, seen
 
@@ -3350,6 +3428,522 @@ def _dispatch_ab(card: str) -> int:
     return 0
 
 
+# ---- the precision tiers: the kernels' IEEE and TF32 modes, and the
+# main path at each tier
+
+
+def _few_ms(fn) -> float:
+    """``_time_ms`` over ``MODE_REPS`` calls and one replay."""
+    return _time_ms(fn, reps=MODE_REPS, replays=1)
+
+
+def _tf32_on(fn):
+    """``fn`` run with cuDNN's and cuBLAS's TF32 on (the library
+    yardstick of the TF32 mode), the flags restored after each call."""
+    def call():
+        prev = (
+            torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32,
+        )
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return fn()
+        finally:
+            (
+                torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32,
+            ) = prev
+
+    return call
+
+
+def _library(mode: str, fn):
+    return _tf32_on(fn) if mode == "tf32" else fn
+
+
+def _mode_conv_sets() -> dict[str, list]:
+    """Every conv shape set the script drives, by record key:
+    ``(n, h, w, C_in, C_out, per step, of which fused)``."""
+    h7, w7 = SEQ_HW
+    side = WARM_SIDE // 2
+    return {
+        "512": [(1, hw, hw, ci, co, n, f) for hw, ci, co, n, f in CONV_SHAPES],
+        "at_1024": [
+            (1, 2 * hw, 2 * hw, ci, co, n, f)
+            for hw, ci, co, n, f in CONV_SHAPES
+        ],
+        "n4_512": [
+            (BATCH_STYLES, hw, hw, ci, co, n, f)
+            for hw, ci, co, n, f in CONV_SHAPES
+        ],
+        "level_2048_first": [
+            (1, side, side, ci, co, n, f)
+            for _, ci, co, n, f in CONV_SHAPES[:2]
+        ],
+        "at_720p": [
+            (1, h7 * hw // SIZE, w7 * hw // SIZE, ci, co, n, f)
+            for hw, ci, co, n, f in CONV_SHAPES
+        ],
+    }
+
+
+def _mode_gram_sets() -> dict[str, list]:
+    """Every Gram shape set the script drives, by record key: ``(S, P,
+    C)``; S > 1 is one batched launch."""
+    h7, w7 = SEQ_HW
+    side = WARM_SIDE // 2
+    return {
+        "512": [(1, p, c) for p, c in GRAM_SHAPES],
+        "at_1024": [(1, 4 * p, c) for p, c in GRAM_SHAPES],
+        "batched_s4_512": [(BATCH_STYLES, p, c) for p, c in GRAM_SHAPES],
+        "level_2048_first": [(1, side * side, GRAM_SHAPES[0][1])],
+        "at_720p": [
+            (1, (h7 >> k) * (w7 >> k), c)
+            for k, (_, c) in enumerate(GRAM_SHAPES)
+        ],
+    }
+
+
+def _check_conv_modes(recs: dict) -> None:
+    """The conv's IEEE and TF32 modes at every driven shape.
+
+    Each kernel against its mode's plain version (``conv3x3_plain``:
+    the fp32 conv; the fp32 conv of tf32-rounded operands): the forward
+    with and without its ReLU and the masked input gradient, within
+    1e-4 of the reference's largest magnitude; timed as the main path
+    runs it (``count`` forwards, ``fused`` masked and the rest unmasked
+    backwards a step) into ``recs[mode][key]``, beside the plain version
+    and cuDNN (fp32; with TF32 on for the TF32 mode).
+    """
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for key, cases in _mode_conv_sets().items():
+        for n, h, w, ci, co, count, fused in cases:
+            def rand(*shape, scale=1.0):
+                return torch.randn(shape, generator=gen, device="cuda") * scale
+
+            x = rand(n, h, w, ci)
+            w9 = rand(9, ci, co, scale=(2.0 / (9 * ci)) ** 0.5)
+            b = rand(co, scale=0.1)
+            g = rand(n, h, w, co)
+            w9f = flip_stencil(w9)
+            wk, wkf = pack_stencil(w9), pack_stencil(w9f)
+            w_oihw, wf_oihw = (
+                s.reshape(3, 3, *s.shape[1:]).permute(3, 2, 0, 1).contiguous()
+                for s in (w9, w9f)
+            )
+            label = f"{key} {n}x{h}x{w} {ci}->{co}"
+            pix = n * h * w
+            flops = 2.0 * 9 * pix * ci * co
+            nbytes = 4.0 * (pix * (ci + co) + 9 * ci * co)
+            for mode in NEW_MODES:
+                rec = recs[mode][key]
+                st = conv3x3.mode_stencil(mode, w9, wk)
+                stf = conv3x3.mode_stencil(mode, w9f, wkf)
+                kern = partial(conv3x3.conv3x3_kernel, mode=mode)
+                plain = partial(conv3x3.conv3x3_plain, mode=mode)
+                for relu in (True, False):
+                    rec.err(
+                        kern(x, st, b, relu), plain(x, w9, b, relu),
+                        f"{label} {mode} forward relu={relu}",
+                    )
+                out = kern(x, st, b, True)
+                rec.err(
+                    kern(g, stf, None, False, out),
+                    plain(g, w9f, None, False, out),
+                    f"{label} {mode} masked input gradient",
+                )
+                fwd = tuple(map(_few_ms, (
+                    partial(kern, x, st, b, True),
+                    partial(plain, x, w9, b, True),
+                    _library(mode, partial(
+                        F.conv2d, x.permute(0, 3, 1, 2), w_oihw, b,
+                        padding=1,
+                    )),
+                )))
+                rec.add(count, *fwd, flops, nbytes + 4.0 * co)
+                for n_bwd, mask, extra in (
+                    (fused, out, 4.0 * pix * co), (count - fused, None, 0.0),
+                ):
+                    if not n_bwd:
+                        continue
+                    g_nchw = (
+                        g if mask is None else torch.where(mask > 0, g, 0.0)
+                    ).permute(0, 3, 1, 2)
+                    bwd = tuple(map(_few_ms, (
+                        partial(kern, g, stf, None, False, mask),
+                        partial(plain, g, w9f, None, False, mask),
+                        _library(mode, partial(
+                            F.conv2d, g_nchw, wf_oihw, None, padding=1,
+                        )),
+                    )))
+                    rec.add(n_bwd, *bwd, flops, nbytes + extra)
+            del x, g, out, w9, w9f, wk, wkf
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _check_gram_modes(recs: dict) -> None:
+    """The Gram's IEEE and TF32 modes at every driven shape.
+
+    Raw and clamped Grams against the mode's plain version
+    (``gram_plain``: the fp32 product; that of tf32-rounded operands),
+    with and without an active clamp, the raw Gram bit-symmetric; a
+    batched launch's images each against the plain Gram and bit-equal
+    to the mode's single launch. Timed into ``recs[mode][key]`` beside
+    the plain version and ``torch.mm`` / ``torch.bmm`` (fp32; TF32 on
+    for the TF32 mode).
+    """
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    for key, cases in _mode_gram_sets().items():
+        for s, p, c in cases:
+            norm = float(p * c)
+            spread = 1.0 + torch.arange(s, device="cuda")[:, None, None] / s
+            for mode in NEW_MODES:
+                rec = recs[mode][key]
+                for scale in (1.0, (1e6 / p) ** 0.5):
+                    f = torch.randn(
+                        (s, p, c), generator=gen, device="cuda",
+                    ) * (scale * spread)
+                    raw_k, g_k = gram.gram_kernel_batched(f, CLAMP, norm, mode)
+                    raw_p, g_p = gram.gram_plain_batched(f, CLAMP, norm, mode)
+                    label = f"{key} S={s} ({p},{c}) {mode} scale {scale:.3g}"
+                    for i in range(s):
+                        rec.err(raw_k[i], raw_p[i], f"{label} image {i} raw")
+                        rec.err(g_k[i], g_p[i], f"{label} image {i} G")
+                        single, _ = gram.gram_kernel(
+                            f[i].contiguous(), CLAMP, norm, mode,
+                        )
+                        if not (torch.equal(raw_k[i], raw_k[i].T)
+                                and torch.equal(raw_k[i], single)):
+                            msg = (
+                                f"gram {label}: image {i} not symmetric or "
+                                "not the single launch's"
+                            )
+                            raise AssertionError(msg)
+                flat = f[0] if s == 1 else f
+                if s == 1:
+                    times = tuple(map(_few_ms, (
+                        partial(gram.gram_kernel, flat, CLAMP, norm, mode),
+                        partial(gram.gram_plain, flat, CLAMP, norm, mode),
+                        _library(mode, partial(torch.mm, flat.T, flat)),
+                    )))
+                else:
+                    times = tuple(map(_few_ms, (
+                        partial(
+                            gram.gram_kernel_batched, f, CLAMP, norm, mode,
+                        ),
+                        partial(
+                            gram.gram_plain_batched, f, CLAMP, norm, mode,
+                        ),
+                        _library(mode, partial(torch.bmm, f.mT, f)),
+                    )))
+                rec.add(
+                    1, *times, float(s * p * c * (c + 1)),
+                    4.0 * s * (p * c + 2 * c * c),
+                )
+            del f
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _mode_records() -> dict[str, dict[str, tuple[Record, dict]]]:
+    """``{kernel: {mode: (512 record, {key: record})}}`` of the new
+    modes' JSON entries."""
+    out: dict[str, dict] = {"conv3x3": {}, "gram": {}}
+    for name, replaces in (
+        ("conv3x3", "ops/pallas_conv.py:63"),
+        ("gram", "ops/pallas_gram.py:40"),
+    ):
+        for mode in NEW_MODES:
+            source = (
+                "csrc/conv3x3_ieee.cu" if (name, mode) == ("conv3x3", "ieee")
+                else f"csrc/{name}.cu"
+            )
+            keys = (
+                _mode_conv_sets() if name == "conv3x3" else _mode_gram_sets()
+            )
+            main_rec, *extra = (
+                Record(
+                    f"{name}_{mode}", f"{PACKAGE}/{source}",
+                    f"style_transfer_visualizer_tpu/{replaces}", mode,
+                )
+                for _ in keys
+            )
+            out[name][mode] = (main_rec, dict(zip(
+                list(keys)[1:], extra, strict=True,
+            )))
+    return out
+
+
+def _by_key(recs: dict, name: str, mode: str) -> dict[str, Record]:
+    main_rec, extras = recs[name][mode]
+    return {"512": main_rec, **extras}
+
+
+def _check_modes(recs: dict) -> None:
+    """Both kernels' new modes at every driven shape, with one line per
+    kernel, mode and shape set."""
+    conv_recs = {m: _by_key(recs, "conv3x3", m) for m in NEW_MODES}
+    gram_recs = {m: _by_key(recs, "gram", m) for m in NEW_MODES}
+    for name, check, sets, by_mode in (
+        ("conv3x3", _check_conv_modes, _mode_conv_sets(), conv_recs),
+        ("gram", _check_gram_modes, _mode_gram_sets(), gram_recs),
+    ):
+        check(by_mode)
+        for mode in NEW_MODES:
+            for key in sets:
+                e = by_mode[mode][key]
+                print(
+                    f"{name} {mode} {key}: ok against the mode's plain "
+                    f"version, worst rel err {e.entry['max_rel_err']:.3g} "
+                    f"(abs {e.entry['max_abs_err']:.3g}); ms/step kernel "
+                    f"{e.entry['ms']:.4f} plain {e.entry['plain_ms']:.4f} "
+                    f"library {e.entry['library_ms']:.4f} bound "
+                    f"{e.bound_s * 1e3:.4f}",
+                )
+
+
+def _mixed_split() -> str:
+    """What ``mixed`` moves to IEEE fp32 at 512x512, in each mode: the
+    four forward convs of the first two blocks (indices 0, 2, 5, 7)
+    and the five Grams' forwards, device ms of one step's calls."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    ms = dict.fromkeys(MODES, 0.0)
+    gram_ms = dict.fromkeys(MODES, 0.0)
+    for hw, ci, co, _, fused in CONV_SHAPES[:4]:
+        x = torch.randn((1, hw, hw, ci), generator=gen, device="cuda")
+        w9 = torch.randn((9, ci, co), generator=gen, device="cuda") * (
+            2.0 / (9 * ci)
+        ) ** 0.5
+        b = torch.zeros(co, device="cuda")
+        wk = pack_stencil(w9)
+        for mode in MODES:
+            ms[mode] += _few_ms(partial(
+                conv3x3.conv3x3_kernel, x,
+                conv3x3.mode_stencil(mode, w9, wk), b, bool(fused),
+                mode=mode,
+            ))
+    for p, c in GRAM_SHAPES:
+        f = torch.randn((p, c), generator=gen, device="cuda")
+        for mode in MODES:
+            gram_ms[mode] += _few_ms(
+                partial(gram.gram_kernel, f, CLAMP, float(p * c), mode),
+            )
+    cost = ms["ieee"] - ms["tf32x3"] + gram_ms["ieee"] - gram_ms["tf32x3"]
+    return (
+        f"mixed's IEEE share at {SIZE}x{SIZE} (device ms of a step's "
+        f"calls): forward convs 0, 2, 5, 7 ieee {ms['ieee']:.4f} tf32x3 "
+        f"{ms['tf32x3']:.4f} tf32 {ms['tf32']:.4f}; the five Grams ieee "
+        f"{gram_ms['ieee']:.4f} tf32x3 {gram_ms['tf32x3']:.4f} tf32 "
+        f"{gram_ms['tf32']:.4f}; mixed over high by these alone "
+        f"{cost:+.4f} ms/step"
+    )
+
+
+def _policy_launches(arch, opt, tier: str) -> dict[str, dict[str, int]]:
+    """Each kernel's launches by mode of a single-style run with no warm
+    start (the main path), from the tier's policy.
+
+    The style targets' sweep to the deepest style tap and the content
+    sweep to the deepest content tap run each conv's forward at its
+    level; every step runs each conv to the deepest tap forward and
+    backward at their levels, and the five Grams' forwards at the
+    Gram's (its backward is a product outside the kernel).
+    """
+    prec = resolve_precision(tier)
+    conv = dict.fromkeys(MODES, 0)
+    gram_n = dict.fromkeys(MODES, 0)
+    last_style = max(opt.style_layers)
+    last_content = max(opt.content_layers)
+    last = max(last_style, last_content)
+    for idx in arch.conv_indices:
+        fwd = kernel_mode(conv_precision(prec, idx))
+        conv[fwd] += (idx <= last_style) + (idx <= last_content)
+        if idx <= last:
+            conv[fwd] += opt.steps
+            conv[kernel_mode(conv_bwd_precision(prec, idx))] += opt.steps
+    gram_n[kernel_mode(gram_precision(prec))] += (
+        len(opt.style_layers) * (1 + opt.steps)
+    )
+    return {"conv3x3": conv, "gram": gram_n}
+
+
+def _tier_config(tier: str, steps: int = STEPS, device: str = "cuda",
+                 **opt):
+    config = _config(steps, device, **opt)
+    config.hardware.precision = tier
+    return config
+
+
+def _tiers() -> list[str]:
+    """The 512x512 main path at each tier through ``run_style_transfer``.
+
+    Per tier: losses finite and decreasing, launches by kernel and mode
+    counted on the device equal to what the tier's policy implies,
+    graphed ms/step (the run's dispatch events), the device's busy
+    share (the profiler's device ms of 5 graphed steps of the same
+    step, prepared, over that), the run's own peak memory. At
+    ``default`` and ``highest`` the graphed run is also held bit-equal
+    to the eager loop (image and every step's losses).
+    """
+    content, style = _images(SIZE, 0)
+    lines = []
+    for tier in TIERS:
+        config = _tier_config(tier)
+        before = _fresh_peak()
+        with _dispatch_log() as log:
+            (image, history), t_run, launches = _counted_run(
+                lambda config=config: run_style_transfer(
+                    content, style, config,
+                ),
+            )
+        peak = torch.cuda.max_memory_allocated() - before
+        by_mode = {
+            "conv3x3": conv3x3.launches.launched_by_mode(),
+            "gram": gram.launches.launched_by_mode(),
+        }
+        TIER_LAUNCHES[tier] = by_mode
+        losses = history["total_loss"]
+        _check_run(
+            f"tier {tier}", image, losses, launches,
+            _launches_wanted(VGG19, config.optimization, SIZE, 1), SIZE,
+        )
+        want = _policy_launches(VGG19, config.optimization, tier)
+        if by_mode != want:
+            msg = f"tier {tier}: launches by mode {by_mode}, policy {want}"
+            raise AssertionError(msg)
+        ms_step = log.ms_per_step()
+        bundle, start = prepare_model_and_input(
+            content, style, _tier_config(tier),
+        )
+        holder = {"image": start, "state": bundle.opt_state}
+        _runner_ms(bundle, holder, _tier_config(tier), 1)
+        device_ms, _, _ = _profiled_steps(bundle, holder, "graphed")
+        del bundle, holder
+        equal = ""
+        if tier in ("default", "highest"):
+            with _eager_dispatch():
+                e_image, e_history = run_style_transfer(
+                    content, style, _tier_config(tier),
+                )
+            _same_tensor(f"tier {tier} graphed vs eager", image, e_image)
+            _same_history(f"tier {tier} graphed vs eager", history, e_history)
+            equal = "; graphed bit-equal to eager (image, every step's losses)"
+        lines.append(
+            f"tier {tier} {SIZE}x{SIZE} main path {STEPS} steps: loss "
+            f"{losses[0]:.6g} -> {losses[-1]:.6g}; graphed ms/step "
+            f"{ms_step:.3f}; device ms/step {device_ms:.3f}, busy share "
+            f"{device_ms / ms_step:.3f}; the run's own peak {peak}; run s "
+            f"{t_run:.3f}; launches by mode on the device {by_mode}, as "
+            f"the policy implies{equal}",
+        )
+        gc.collect()
+    return lines
+
+
+def _tier_curves() -> list[str]:
+    """Adam (lr 0.05) at 64x64 from the content, 20 steps, at each tier
+    on the card against the CPU (fp32 at every tier): every step's loss
+    within 1e-3 relative at ``highest``, ``mixed`` and ``high``; at
+    ``default`` (TF32) the deviation is printed, not gated. First the
+    control: the CPU run against the CPU run from the content perturbed
+    by 1e-7 relative, at lr 0.05 and 0.1 (printed)."""
+    content, style = _images(64, 1)
+    perturbed = (content * (
+        1 + 1e-7 * np.random.default_rng(9).standard_normal(content.shape)
+    )).astype(np.float32)
+
+    def curve(device: str, tier: str, lr: float = GATE_LR,
+              start: np.ndarray = content) -> np.ndarray:
+        config = _tier_config(
+            tier, GATE_STEPS, device, init_method="content",
+            optimizer="adam", lr=lr,
+        )
+        return np.asarray(run_style_transfer(start, style, config)[1][
+            "total_loss"
+        ])
+
+    def worst(a: np.ndarray, ref: np.ndarray) -> float:
+        return float((np.abs(a - ref) / np.abs(ref)).max())
+
+    cpu = curve("cpu", "mixed")
+    controls = {
+        lr: worst(
+            curve("cpu", "mixed", lr, perturbed),
+            cpu if lr == GATE_LR else curve("cpu", "mixed", lr),
+        )
+        for lr in CONTROL_LRS
+    }
+    lines = [
+        f"curve gate control: Adam 64x64 {GATE_STEPS} steps on the CPU "
+        "against the same from the content perturbed by 1e-7 relative, "
+        "worst rel diff "
+        + ", ".join(f"lr {lr} {v:.3g}" for lr, v in controls.items()),
+    ]
+    for tier in TIERS:
+        rel = np.abs(curve("cuda", tier) - cpu) / np.abs(cpu)
+        gated = tier != "default"
+        if gated and not float(rel.max()) <= GATE_TOL:
+            msg = (
+                f"tier {tier}: Adam curve off the CPU's by {rel.max():.3g} "
+                f"> {GATE_TOL} at step {int(rel.argmax()) + 1}"
+            )
+            raise AssertionError(msg)
+        lines.append(
+            f"curve gate tier {tier}: Adam lr {GATE_LR} 64x64 {GATE_STEPS} "
+            f"steps, card vs CPU worst rel diff {rel.max():.3g} at step "
+            f"{int(rel.argmax()) + 1}"
+            + (f" (gate {GATE_TOL})" if gated else " (printed, not gated)"),
+        )
+    return lines
+
+
+def _precision() -> tuple[int, int]:
+    """The tiers' phase: the main path at each tier, the curve gate,
+    and what ``mixed`` moves to IEEE; returns the launches at the
+    shipped tier (``mixed``, the main path's)."""
+    for line in (*_tiers(), *_tier_curves(), _mixed_split()):
+        print(line)
+    mixed = TIER_LAUNCHES["mixed"]
+    return (sum(mixed["conv3x3"].values()), sum(mixed["gram"].values()))
+
+
+def _mode_entries(recs: dict) -> list[dict]:
+    """The new modes' JSON entries. ``launches``: the mode's count on
+    the main path at the shipped tier (``mixed``), or, for a mode that
+    tier does not run, at the tier that runs it everywhere;
+    ``launches_by_tier`` every tier's."""
+    uniform = {"ieee": "highest", "tf32": "default"}
+    out = []
+    for name in ("conv3x3", "gram"):
+        for mode in NEW_MODES:
+            main_rec, extras = recs[name][mode]
+            by_tier = {t: TIER_LAUNCHES[t][name][mode] for t in TIERS}
+            tier = "mixed" if by_tier["mixed"] else uniform[mode]
+            entry = main_rec.finish({"main path": by_tier[tier]}, extras)
+            entry["launches_tier"] = tier
+            entry["launches_by_tier"] = by_tier
+            del entry["launches_by_phase"]
+            out.append(entry)
+    return out
+
+
+def _modes_only(card: str) -> int:
+    """``--modes``: build, both kernels' new modes at every driven
+    shape against their plain versions, and what ``mixed`` moves to
+    IEEE fp32 (a check and a measurement, nothing else)."""
+    print(f"card: {card}")
+    t0 = time.perf_counter()
+    built = build.build_all()
+    print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
+    recs = _mode_records()
+    _check_modes(recs)
+    print(_mixed_split())
+    print(f"card: {card}")
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     """Run every phase; return 0 when all pass (failures raise).
 
@@ -3363,8 +3957,11 @@ def main(argv: list[str] | None = None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     card = _card()
-    if (argv if argv is not None else sys.argv[1:]) == ["--dispatch-ab"]:
+    args = argv if argv is not None else sys.argv[1:]
+    if args == ["--dispatch-ab"]:
         return _dispatch_ab(card)
+    if args == ["--modes"]:
+        return _modes_only(card)
     print(f"card: {card}")
     start = time.perf_counter()
     seconds: dict[str, float] = {}
@@ -3381,7 +3978,9 @@ def main(argv: list[str] | None = None) -> int:
     for kernel in built:
         hgmma = _hgmma_count(kernel.library)
         print(f"  {kernel.name}: HGMMA instructions in SASS: {hgmma}")
-        if hgmma == 0:
+        # The IEEE conv runs on the CUDA cores; the other two libraries
+        # hold tensor-core kernels.
+        if hgmma == 0 and kernel.name != "conv3x3_ieee":
             msg = f"{kernel.name}: no wgmma (HGMMA) in the built library"
             raise AssertionError(msg)
         for line in kernel.ptxas_log.splitlines():
@@ -3414,9 +4013,12 @@ def main(argv: list[str] | None = None) -> int:
         "gram checks", _check_gram,
         gram_rec, gram_extra["at_1024"], gram_extra["batched_s4_512"],
     )
+    mode_recs = _mode_records()
+    timed("mode checks", _check_modes, mode_recs)
     phases = {}
     for name, phase, *args in (
         ("main path", _main_path),
+        ("precision", _precision),
         ("timelapse", _timelapse),
         ("objective", _objective),
         ("adam vgg16", _adam_vgg16),
@@ -3455,6 +4057,14 @@ def main(argv: list[str] | None = None) -> int:
         rec.finish({k: v[i] for k, v in phases.items()}, extras)
         for i, (rec, extras) in enumerate(records.values())
     ]
+    # The 3xTF32 entries' launches: that mode's on the main path at the
+    # shipped tier, or at "high" where "mixed" runs none (the Gram).
+    for name, entry in zip(records, kernels, strict=True):
+        by_tier = {t: TIER_LAUNCHES[t][name]["tf32x3"] for t in TIERS}
+        entry["launches_tier"] = "mixed" if by_tier["mixed"] else "high"
+        entry["launches"] = by_tier[entry["launches_tier"]]
+        entry["launches_by_tier"] = by_tier
+    kernels += _mode_entries(mode_recs)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({

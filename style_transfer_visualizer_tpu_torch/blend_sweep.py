@@ -41,6 +41,9 @@ from style_transfer_visualizer_tpu_torch.models.vgg19 import (
 )
 from style_transfer_visualizer_tpu_torch.ops.color import maybe_restore_color
 from style_transfer_visualizer_tpu_torch.ops.lap import lap_response
+from style_transfer_visualizer_tpu_torch.ops.precision import (
+    resolve_precision,
+)
 from style_transfer_visualizer_tpu_torch.runtime.device import (
     setup_device,
     setup_random_seed,
@@ -195,10 +198,11 @@ def _sweep_on_device(
     content_layers = tuple(opt.content_layers)
     # One Targets per style, made once; the content features ride on
     # the first entry (blend_targets carries them through every mix).
+    precision = resolve_precision(config.hardware.precision)
     per_style = [
         compute_targets(
             params, s_img, content_img, style_layers,
-            content_layers if i == 0 else (),
+            content_layers if i == 0 else (), precision,
         )
         for i, s_img in enumerate(style_imgs)
     ]

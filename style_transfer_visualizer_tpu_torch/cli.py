@@ -19,7 +19,8 @@ model, the coarse warm start), the style blend, and the output and
 video flags of the timelapse (``--save-every``, ``--no-video``,
 ``--gif``, ``--log-loss``, ``--compare-inputs`` and the rest), the
 checkpoint flags (``--checkpoint-every``, ``--checkpoint-path``,
-``--resume-from``), ``--profile-dir``, ``--steps-per-dispatch`` (on the
+``--resume-from``), ``--profile-dir``, ``--precision`` (the four tiers,
+``ops/precision.py``), ``--steps-per-dispatch`` (on the
 card every step is a CUDA-graph replay; the value sets the chunk
 between host reads), and ``--config`` (a TOML in the
 JAX package's layout, under the typed flags) with
@@ -50,6 +51,7 @@ from style_transfer_visualizer_tpu_torch.main import (
     multi_style_transfer,
     style_transfer,
 )
+from style_transfer_visualizer_tpu_torch.ops.precision import PRECISION_NAMES
 from style_transfer_visualizer_tpu_torch.regional import stylize_regional
 from style_transfer_visualizer_tpu_torch.runtime.comparison import (
     ComparisonRequest,
@@ -70,6 +72,21 @@ def _float_list(text: str) -> list[float]:
 def _add_optimization_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--steps", type=int)
     p.add_argument("--device")
+    p.add_argument(
+        "--precision", choices=list(PRECISION_NAMES),
+        help=(
+            "Matmul precision tier of the conv and Gram kernels on the "
+            "card: 'highest' runs IEEE fp32 on the CUDA cores "
+            "everywhere; 'mixed' (the default) runs the first two VGG "
+            "blocks' forward convs and the Gram products in IEEE fp32 "
+            "and the rest in 3xTF32 (the JAX package's curve-parity "
+            "policy); 'high' runs 3xTF32 on the tensor cores "
+            "everywhere (about 21 mantissa bits); 'default' runs one "
+            "TF32 product (about 11 bits an operand) for top speed, "
+            "with gradients that deviate. On the CPU every tier is "
+            "plain fp32."
+        ),
+    )
     p.add_argument(
         "--steps-per-dispatch", dest="steps_per_dispatch", type=int,
         help=(
@@ -414,7 +431,7 @@ _COPIED = {
         "metadata_artist", "create_gif", "gif_include_intro",
         "gif_include_outro", "final_frame_compare",
     ),
-    "hardware": ("device", "steps_per_dispatch"),
+    "hardware": ("device", "precision", "steps_per_dispatch"),
 }
 
 
@@ -651,6 +668,7 @@ def main(argv: Sequence[str] | None = None) -> int:
         parser.error(str(exc))
     if args.config:
         logger.info("Loaded config from: %s", args.config)
+    logger.info("Matmul Precision: %s", config.hardware.precision)
     if config.hardware.steps_per_dispatch:
         logger.info(
             "Steps per Dispatch: %d", config.hardware.steps_per_dispatch,

@@ -33,6 +33,7 @@ from style_transfer_visualizer_tpu_torch.type_defs import (
     InitMethod,
     ModelName,
     OptimizerName,
+    PrecisionName,
     VideoMode,
 )
 from style_transfer_visualizer_tpu_torch.utils.logging import logger
@@ -199,9 +200,15 @@ class OptimizationConfig:
 class HardwareConfig:
     """Device selection, checked by ``runtime.device.setup_device``.
 
-    There is no precision field yet: both kernels compute 3xTF32 on the
-    tensor cores (each fp32 operand split into tf32 hi and lo halves,
-    three products), about 21 mantissa bits, at every setting.
+    ``precision`` is the JAX package's tier name, resolved by
+    ``ops.precision.resolve_precision``. On the card: ``highest`` runs
+    both kernels in IEEE fp32 on the CUDA cores; ``high`` in 3xTF32 on
+    the tensor cores (each fp32 operand split into tf32 hi and lo
+    halves, three products, about 21 mantissa bits); ``default`` in TF32
+    (one product of tf32-rounded operands); ``mixed``, the default, the
+    JAX package's policy: the first two VGG blocks' forward convs and
+    every Gram's forward at ``highest``, everything else at ``high``.
+    On the CPU every tier computes plain fp32.
 
     ``steps_per_dispatch`` is the JAX package's: 0 picks the chunk from
     the cadences (``engine.runner.aligned_chunk``), 1 dispatches single
@@ -210,6 +217,7 @@ class HardwareConfig:
     """
 
     device: str = d.DEFAULT_DEVICE
+    precision: PrecisionName = d.DEFAULT_PRECISION
     steps_per_dispatch: int = 0
 
     def __post_init__(self) -> None:
@@ -225,6 +233,7 @@ class HardwareConfig:
             f"device {self.device!r}: the port runs on 'cuda' (or "
             "'cuda:N'), or on 'cpu' when asked for by name",
         )
+        _check_choice("precision", self.precision, PrecisionName)
         _check(self.steps_per_dispatch >= 0, "steps_per_dispatch must be >= 0")
 
 
@@ -329,9 +338,6 @@ _SECTIONS = {
 #: the JAX default and then ignored; any other value raises
 #: ``NotImplementedError`` naming what it waits for.
 _UNPORTED: dict[tuple[str, str], tuple[object, str]] = {
-    ("hardware", "precision"): (
-        "mixed", "ROADMAP.md queue item 'Precision tiers'",
-    ),
     ("optimization", "remat"): (
         False, "ROADMAP.md queue item 'Memory: banded evaluation and remat'",
     ),

@@ -12,6 +12,7 @@ from style_transfer_visualizer_tpu_torch.type_defs import (
     InitMethod,
     ModelName,
     OptimizerName,
+    PrecisionName,
     VideoMode,
 )
 
@@ -22,6 +23,11 @@ DEFAULT_LOG_EVERY = 10
 
 # --- Hardware ---------------------------------------------------------
 DEFAULT_DEVICE = "cuda"
+# "mixed" runs the first two VGG blocks' forward convs and every Gram's
+# forward in IEEE fp32 and the rest in 3xTF32 (ops/precision.py's
+# MIXED, the JAX package's policy); "highest" is IEEE fp32 throughout,
+# "high" 3xTF32, "default" TF32.
+DEFAULT_PRECISION: PrecisionName = "mixed"
 
 # --- Optimization -----------------------------------------------------
 DEFAULT_STEPS = 1500

@@ -1,5 +1,7 @@
 // 3x3 SAME convolution + bias + optional ReLU on NHWC float32, on
-// Hopper's tensor cores in 3xTF32 (see tf32x3.cuh).
+// Hopper's tensor cores in 3xTF32 or in TF32 (see tf32x3.cuh): the
+// `high` and the `default` precision tiers. The `highest` tier's IEEE
+// fp32 conv is conv3x3_ieee.cu.
 //
 // Replaces the Pallas TPU kernel `_conv_kernel` (with its driver
 // `_run_conv`) of style_transfer_visualizer_tpu/ops/pallas_conv.py. The
@@ -30,14 +32,16 @@
 //     row offset). Otherwise (Cin = 3 of the first layer, odd test widths)
 //     the producer warpgroup gathers each K step's 128 x 32 slab with
 //     plain loads (masking, zero-padding K): one K step per slab.
-//   - B comes per K step: two 32 x BN TMA boxes, hi and lo.
+//   - B comes per K step: two 32 x BN TMA boxes, hi and lo (one, hi,
+//     in the TF32 mode, whose B slots are half the size).
 //   - two rings of shared-memory slots guarded by mbarriers, one for A
 //     slabs and one for B steps. One producer thread issues the TMA
 //     loads; two consumer warpgroups (threads 0..255), 64 pixel rows
 //     each, read their A fragments from the slab, mask them, split them
 //     into tf32 hi/lo in registers and issue per k8 slice the three
 //     wgmma m64nBNk8 of 3xTF32 against B hi/lo in the slot (K-major,
-//     128-byte swizzle). Each K step's products go to a fresh tile
+//     128-byte swizzle); in the TF32 mode they round A to tf32 and
+//     issue one wgmma against B hi. Each K step's products go to a fresh tile
 //     that is added to the running sum in registers (tf32x3.cuh).
 //   - when the tiles cannot fill the SMs, K is split over blocks by
 //     slabs; each block writes its partial tile and the last to finish
@@ -48,7 +52,8 @@
 //
 // Bound on the H100 SXM: 2*9*Cin*Cout flops per pixel, far above the
 // bytes, so the VGG convs are bound by operations; 3xTF32 issues three
-// tf32 products, 495/3 = 165 TFLOP/s effective. Conv 0's forward (Cin
+// tf32 products, 495/3 = 165 TFLOP/s effective (TF32: one product,
+// 495 TFLOP/s). Conv 0's forward (Cin
 // = 3) and backward (Cout = 3) are bound by bytes. What holds the
 // kernel back from that bound is each consumer warpgroup's work
 // between its K steps' products (barrier waits, fragment loads and
@@ -119,8 +124,9 @@ __device__ __forceinline__ Tile tile_at(const ConvArgs& args, int t) {
 }
 
 // The shared-memory plan: A slots, B slots, then the four barrier
-// arrays and the split-K ticket.
-template <int BN>
+// arrays and the split-K ticket. A B slot holds the hi box and, in
+// 3xTF32 (X3), the lo box after it.
+template <int BN, bool X3>
 struct Smem {
   uint8_t* a;
   uint8_t* b;
@@ -131,11 +137,12 @@ struct Smem {
   int* flag;
   int a_slot;  // bytes of an A slot (slab, then the mask's slab)
   static constexpr int kBBytes = BN * kRowFloats * 4;  // hi (or lo) box
+  static constexpr int kBSlot = (X3 ? 2 : 1) * kBBytes;
 
   __device__ Smem(uint8_t* base, const ConvArgs& args)
       : a(base),
         b(base + args.a_stages * args.a_slot_bytes),
-        a_full(reinterpret_cast<uint64_t*>(b + args.b_stages * 2 * kBBytes)),
+        a_full(reinterpret_cast<uint64_t*>(b + args.b_stages * kBSlot)),
         a_empty(a_full + args.a_stages),
         b_full(a_empty + args.a_stages),
         b_empty(b_full + args.b_stages),
@@ -145,7 +152,7 @@ struct Smem {
   __device__ float* slab(int slot) const {
     return reinterpret_cast<float*>(a + slot * a_slot);
   }
-  __device__ uint8_t* b_hi(int slot) const { return b + slot * 2 * kBBytes; }
+  __device__ uint8_t* b_hi(int slot) const { return b + slot * kBSlot; }
   __device__ uint8_t* b_lo(int slot) const { return b_hi(slot) + kBBytes; }
 };
 
@@ -190,13 +197,14 @@ __device__ __forceinline__ void gather_a(const ConvArgs& args, const Tile& tl,
   }
 }
 
-template <int BN>
+template <int BN, bool X3>
 __device__ __forceinline__ void consume(const ConvArgs& args,
-                                        const Smem<BN>& sm);
+                                        const Smem<BN, X3>& sm);
 
-template <int BN>
+// X3: 3xTF32; otherwise TF32 (map_blo is not read).
+template <int BN, bool X3>
 __global__ void __launch_bounds__(kThreads, 1)
-conv3x3_tf32x3_kernel(const __grid_constant__ CUtensorMap map_x,
+conv3x3_tc_kernel(const __grid_constant__ CUtensorMap map_x,
                       const __grid_constant__ CUtensorMap map_m,
                       const __grid_constant__ CUtensorMap map_bhi,
                       const __grid_constant__ CUtensorMap map_blo,
@@ -204,8 +212,8 @@ conv3x3_tf32x3_kernel(const __grid_constant__ CUtensorMap map_x,
   extern __shared__ __align__(16) uint8_t smem_raw[];
   // Offset from the array itself (not via an integer address) so that
   // the compiler keeps the accesses as shared-memory loads and stores.
-  const Smem<BN> sm(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023),
-                    args);
+  const Smem<BN, X3> sm(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023), args);
   const int tid = threadIdx.x;
   count_launch(args.launches);
   if (tid == 0) {
@@ -222,7 +230,7 @@ conv3x3_tf32x3_kernel(const __grid_constant__ CUtensorMap map_x,
   __syncthreads();
 
   if (tid < kConsumers) {
-    consume<BN>(args, sm);
+    consume<BN, X3>(args, sm);
     return;
   }
   // ---- producer warpgroup; its registers go to the consumers. The
@@ -265,9 +273,11 @@ conv3x3_tf32x3_kernel(const __grid_constant__ CUtensorMap map_x,
         if (bround > 0) bar_wait(&sm.b_empty[bslot], (bround - 1) & 1);
         const int k0 =
             args.halo ? tap * args.cin + c * kRowFloats : c * kRowFloats;
-        bar_arrive_tx(&sm.b_full[bslot], 2 * Smem<BN>::kBBytes);
+        bar_arrive_tx(&sm.b_full[bslot], Smem<BN, X3>::kBSlot);
         tma_2d(sm.b_hi(bslot), &map_bhi, &sm.b_full[bslot], k0, tl.n0);
-        tma_2d(sm.b_lo(bslot), &map_blo, &sm.b_full[bslot], k0, tl.n0);
+        if constexpr (X3) {
+          tma_2d(sm.b_lo(bslot), &map_blo, &sm.b_full[bslot], k0, tl.n0);
+        }
       }
     }
   }
@@ -323,11 +333,11 @@ __device__ __forceinline__ bool sum_splits(const ConvArgs& args, int w,
   return true;
 }
 
-// The consumer warpgroups' part of conv3x3_tf32x3_kernel: per work
-// item, the K loop on the tensor cores, then the epilogue.
-template <int BN>
+// The consumer warpgroups' part of conv3x3_tc_kernel: per work item,
+// the K loop on the tensor cores, then the epilogue.
+template <int BN, bool X3>
 __device__ __forceinline__ void consume(const ConvArgs& args,
-                                        const Smem<BN>& sm) {
+                                        const Smem<BN, X3>& sm) {
   regs_up<kConsumerRegs>();
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -376,17 +386,17 @@ __device__ __forceinline__ void consume(const ConvArgs& args,
           for (int e = 0; e < 4; ++e) {
             float v = a[off[e]];
             if (mask_slab && !(msk[off[e]] > 0.f)) v = 0.f;
-            split(v, hi[kk][e], lo[kk][e]);
+            operand<X3>(v, hi[kk][e], lo[kk][e]);
           }
         }
         const uint64_t dhi = desc_k_major(sm.b_hi(bslot));
-        const uint64_t dlo = desc_k_major(sm.b_lo(bslot));
+        const uint64_t dlo = X3 ? desc_k_major(sm.b_lo(bslot)) : 0;
         fence_regs(part);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          mma3<BN>(part, hi[kk], lo[kk], dhi + 2 * kk, dlo + 2 * kk,
-                   kk == 0);
+          mma_mode<BN, X3>(part, hi[kk], lo[kk], dhi + 2 * kk, dlo + 2 * kk,
+                           kk == 0);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -438,24 +448,46 @@ __device__ __forceinline__ void consume(const ConvArgs& args,
   }
 }
 
-template <int BN>
+template <int BN, bool X3>
 int launch(const CUtensorMap& mx, const CUtensorMap& mm,
            const CUtensorMap& mbhi, const CUtensorMap& mblo,
            const ConvArgs& args, int blocks, int smem_bytes,
            cudaStream_t stream) {
-  // The opt-in to the most dynamic shared memory is made once.
+  // The opt-in to the most dynamic shared memory is made once per
+  // instantiation.
   static const cudaError_t opt_in = cudaFuncSetAttribute(
-      conv3x3_tf32x3_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv3x3_tc_kernel<BN, X3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemLimit);
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  conv3x3_tf32x3_kernel<BN><<<blocks, kThreads, smem_bytes, stream>>>(
+  conv3x3_tc_kernel<BN, X3><<<blocks, kThreads, smem_bytes, stream>>>(
       mx, mm, mbhi, mblo, args);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool X3>
+int launch_bn(int bn, const CUtensorMap& mx, const CUtensorMap& mm,
+              const CUtensorMap& mbhi, const CUtensorMap& mblo,
+              const ConvArgs& args, int blocks, int smem_bytes,
+              cudaStream_t stream) {
+  switch (bn) {
+    case 8:
+      return launch<8, X3>(mx, mm, mbhi, mblo, args, blocks, smem_bytes,
+                           stream);
+    case 64:
+      return launch<64, X3>(mx, mm, mbhi, mblo, args, blocks, smem_bytes,
+                            stream);
+    case 128:
+      return launch<128, X3>(mx, mm, mbhi, mblo, args, blocks, smem_bytes,
+                             stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
-// Launch on `stream`; returns 0, a cudaError_t, or
+// Launch on `stream` in 3xTF32 (x3 = 1: b_hi and b_lo) or TF32 (x3 =
+// 0: b_hi only, b_lo not read); returns 0, a cudaError_t, or
 // tf32x3::kTensorMapError + a driver code. The plan (bn, rows, cols,
 // halo, slabs, taps, ring sizes, splits, blocks, smem_bytes) comes from
 // ops/conv3x3.py's conv_plan; `blocks` persistent blocks walk the work
@@ -471,8 +503,8 @@ extern "C" int conv3x3_forward(const float* x, const float* mask,
                                int b_stages, int a_slot_bytes, int splits,
                                int split_slabs, int blocks, int smem_bytes,
                                float* ws, int* counters,
-                               unsigned long long* launches, int device,
-                               void* stream) {
+                               unsigned long long* launches, int x3,
+                               int device, void* stream) {
   // The calling thread (autograd's, for the backward) may have no
   // current context yet; the tensor-map encoder needs one.
   const cudaError_t set = cudaSetDevice(device);
@@ -509,17 +541,13 @@ extern "C" int conv3x3_forward(const float* x, const float* mask,
   const cuuint64_t bstrides[1] = {static_cast<cuuint64_t>(k_pad) * 4};
   const cuuint32_t bbox[2] = {kRowFloats, static_cast<cuuint32_t>(bn)};
   if (rc == 0) rc = make_map(&mbhi, b_hi, 2, bdims, bstrides, bbox);
-  if (rc == 0) rc = make_map(&mblo, b_lo, 2, bdims, bstrides, bbox);
+  if (rc == 0 && x3) rc = make_map(&mblo, b_lo, 2, bdims, bstrides, bbox);
   if (rc != 0) return rc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bn) {
-    case 8:
-      return launch<8>(mx, mm, mbhi, mblo, args, blocks, smem_bytes, s);
-    case 64:
-      return launch<64>(mx, mm, mbhi, mblo, args, blocks, smem_bytes, s);
-    case 128:
-      return launch<128>(mx, mm, mbhi, mblo, args, blocks, smem_bytes, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (x3) {
+    return launch_bn<true>(bn, mx, mm, mbhi, mblo, args, blocks, smem_bytes,
+                           s);
   }
+  return launch_bn<false>(bn, mx, mm, mbhi, mblo, args, blocks, smem_bytes,
+                          s);
 }

@@ -1,6 +1,10 @@
 // Raw Gram matrices F_s^T F_s of a (S, P, C) float32 batch, plus the
-// clamped and normalized G_s = min(raw_s, clamp) / n, on Hopper's tensor
-// cores in 3xTF32 (see tf32x3.cuh), in one launch for all S images.
+// clamped and normalized G_s = min(raw_s, clamp) / n, in one launch for
+// all S images, in one of three modes (the precision tiers of
+// ops/precision.py): on Hopper's tensor cores in 3xTF32 or in TF32 (see
+// tf32x3.cuh; gram_tc_kernel), or in IEEE fp32 on the CUDA cores
+// (gram_ieee_kernel). All three share the grid, the split over P and
+// the fixed-order sum of the partial tiles described below.
 //
 // Replaces the Pallas TPU kernel `_gram_accumulate_kernel` (with its
 // driver `_raw_gram`) of style_transfer_visualizer_tpu/ops/pallas_gram.py.
@@ -22,7 +26,13 @@
 //     the hi/lo split in registers, read transposed from the slot; B
 //     must be K-major (pixels contiguous) for a tf32 wgmma, so one pass
 //     splits and transposes the F_j slab into hi and lo tiles in shared
-//     memory; then three wgmma m64n64k8 per k8 slice (3xTF32);
+//     memory; then three wgmma m64n64k8 per k8 slice (3xTF32). In the
+//     TF32 mode both operands are only rounded to tf32 (no lo tile) and
+//     one wgmma runs per k8 slice;
+//   - in the IEEE mode a 128-thread block stages 32-row slabs of F_i and
+//     F_j in shared memory (two buffers, the next slab's loads in flight
+//     in registers during this one's products) and each thread keeps 4
+//     x 8 of the 64 x 64 tile in registers, one fp32 FMA per product;
 //   - each block writes its partial tile to the workspace (per image
 //     and pair); the sum of the partials is taken in two levels, each
 //     in fixed order, so
@@ -40,7 +50,8 @@
 //
 // Bound on the H100 SXM: the symmetric product needs P*C*(C+1) flops
 // against 4*P*C bytes read: bound by bytes at C <= 128 and by the
-// 3xTF32 rate (495/3 TFLOP/s) at C >= 256.
+// 3xTF32 rate (495/3 TFLOP/s) at C >= 256 (TF32: by bytes up to C = 512
+// at 495 TFLOP/s; IEEE: by the 67 TFLOP/s of fp32 FMA from C = 64).
 #define TF32X3_HOST
 #include "tf32x3.cuh"
 
@@ -113,9 +124,48 @@ __device__ __forceinline__ int slab_off(int k, int m) {
   return (m >> 5) * kSubFloats + swz(k, m & 31);
 }
 
+// This block's tile pair (i0, j0) of the upper triangle, its image and
+// its range [p_begin, p_end) of pixel rows.
+struct Pair {
+  int i0, j0, image;
+  bool diag;
+  long long p_begin, p_end;
+};
+
+__device__ __forceinline__ Pair pair_of_block(const GramArgs& args) {
+  int bi = 0;
+  int rem = static_cast<int>(blockIdx.x);
+  while (rem >= args.tiles - bi) {
+    rem -= args.tiles - bi;
+    ++bi;
+  }
+  const int bj = bi + rem;
+  const long long p_begin =
+      static_cast<long long>(blockIdx.y) * args.rows_per_split;
+  const long long p_stop = p_begin + args.rows_per_split;
+  return {bi * kT, bj * kT, static_cast<int>(blockIdx.z), bi == bj,
+          p_begin, p_stop < args.p ? p_stop : args.p};
+}
+
+// This block's partial tile in the workspace (row-major 64 x 64).
+__device__ __forceinline__ float* partial_tile(const GramArgs& args) {
+  const int pair = static_cast<int>(blockIdx.z * gridDim.x + blockIdx.x);
+  return args.ws + (static_cast<long long>(pair) *
+                        (args.splits + args.groups) +
+                    blockIdx.y) * kTileFloats;
+}
+
+// After the block's 128 consumer threads wrote its partial tile: the
+// two-level fixed-order sum, and the last block of the pair writes raw
+// and G (both triangles).
+__device__ void sum_partials(const GramArgs& args, const Pair& pr,
+                             int* flag);
+
+// X3: 3xTF32; otherwise TF32 (no lo tiles).
+template <bool X3>
 __global__ void __launch_bounds__(kThreads, 2)
-gram_tf32x3_kernel(const __grid_constant__ CUtensorMap map_f,
-                   const GramArgs args) {
+gram_tc_kernel(const __grid_constant__ CUtensorMap map_f,
+               const GramArgs args) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   // Offset from the array itself (not via an integer address) so that
   // the compiler keeps the accesses as shared-memory loads and stores.
@@ -124,27 +174,19 @@ gram_tf32x3_kernel(const __grid_constant__ CUtensorMap map_f,
   // Slots (F_i slab, F_j slab) then the transposed B hi and lo tiles.
   float* bt_hi = reinterpret_cast<float*>(smem + stages * 2 * kSlabBytes);
   float* bt_lo = bt_hi + kT * kRowFloats;
-  uint64_t* full = reinterpret_cast<uint64_t*>(bt_lo + kT * kRowFloats);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(bt_hi + (X3 ? 2 : 1) * kT * kRowFloats);
   uint64_t* empty = full + stages;
   __shared__ int flag;
   count_launch(args.launches);
 
-  int bi = 0;
-  int rem = static_cast<int>(blockIdx.x);
-  while (rem >= args.tiles - bi) {
-    rem -= args.tiles - bi;
-    ++bi;
-  }
-  const int bj = bi + rem;
-  const int image = static_cast<int>(blockIdx.z);
-  const bool diag = bi == bj;
-  const int i0 = bi * kT;
-  const int j0 = bj * kT;
-  const long long p_begin =
-      static_cast<long long>(blockIdx.y) * args.rows_per_split;
-  const long long p_stop = p_begin + args.rows_per_split;
-  const long long p_end = p_stop < args.p ? p_stop : args.p;
-  const int steps = static_cast<int>((p_end - p_begin + kKP - 1) / kKP);
+  const Pair pr = pair_of_block(args);
+  const int image = pr.image;
+  const bool diag = pr.diag;
+  const int i0 = pr.i0;
+  const int j0 = pr.j0;
+  const long long p_begin = pr.p_begin;
+  const int steps = static_cast<int>((pr.p_end - p_begin + kKP - 1) / kKP);
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -212,12 +254,16 @@ gram_tf32x3_kernel(const __grid_constant__ CUtensorMap map_f,
       uint32_t h[4];
       uint32_t l[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) split(fj[slab_off(k + e, tn)], h[e], l[e]);
+      for (int e = 0; e < 4; ++e) {
+        operand<X3>(fj[slab_off(k + e, tn)], h[e], l[e]);
+      }
       const int off = swz(tn, k);
       *reinterpret_cast<uint4*>(bt_hi + off) = make_uint4(h[0], h[1], h[2],
                                                           h[3]);
-      *reinterpret_cast<uint4*>(bt_lo + off) = make_uint4(l[0], l[1], l[2],
-                                                          l[3]);
+      if constexpr (X3) {
+        *reinterpret_cast<uint4*>(bt_lo + off) = make_uint4(l[0], l[1], l[2],
+                                                            l[3]);
+      }
     }
     // A = F_i^T from registers: element (m, k) is F_i[k][m].
     uint32_t hi[4][4];
@@ -228,7 +274,9 @@ gram_tf32x3_kernel(const __grid_constant__ CUtensorMap map_f,
       const int off[4] = {slab_off(c0, row0), slab_off(c0, row1),
                           slab_off(c0 + 4, row0), slab_off(c0 + 4, row1)};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) split(fi[off[e]], hi[kk][e], lo[kk][e]);
+      for (int e = 0; e < 4; ++e) {
+        operand<X3>(fi[off[e]], hi[kk][e], lo[kk][e]);
+      }
     }
     fence_async_smem();
     named_sync(1, kConsumers);
@@ -236,7 +284,8 @@ gram_tf32x3_kernel(const __grid_constant__ CUtensorMap map_f,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      mma3<kT>(part, hi[kk], lo[kk], dhi + 2 * kk, dlo + 2 * kk, kk == 0);
+      mma_mode<kT, X3>(part, hi[kk], lo[kk], dhi + 2 * kk, dlo + 2 * kk,
+                       kk == 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -246,13 +295,7 @@ gram_tf32x3_kernel(const __grid_constant__ CUtensorMap map_f,
   }
 
   // ---- partial tile, then the two-level fixed-order sum
-  // This image's pair: its partial tiles, counters and output.
-  const int pair = image * static_cast<int>(gridDim.x) +
-                   static_cast<int>(blockIdx.x);
-  const int split = static_cast<int>(blockIdx.y);
-  float* tiles = args.ws + static_cast<long long>(pair) *
-                               (args.splits + args.groups) * kTileFloats;
-  float* mine = tiles + static_cast<long long>(split) * kTileFloats;
+  float* mine = partial_tile(args);
 #pragma unroll
   for (int j = 0; j < kT / 8; ++j) {
     const int col = 8 * j + 2 * tig;
@@ -261,11 +304,120 @@ gram_tf32x3_kernel(const __grid_constant__ CUtensorMap map_f,
     *reinterpret_cast<float2*>(mine + row1 * kT + col) =
         make_float2(acc[4 * j + 2], acc[4 * j + 3]);
   }
+  sum_partials(args, pr, &flag);
+}
+
+// The IEEE fp32 mode on the CUDA cores: the same grid, split and sum as
+// gram_tc_kernel, 128 threads a block, each thread 4 rows x 8 columns
+// (columns 4t..4t+3 and 32+4t..32+4t+3, so a warp's B reads are
+// conflict-free) of the 64 x 64 tile, one fp32 FMA per product in
+// pixel order.
+constexpr int kIeeeRows = 32;  // pixel rows per slab
+
+__global__ void __launch_bounds__(kConsumers)
+gram_ieee_kernel(const float* __restrict__ f, const GramArgs args) {
+  __shared__ __align__(16) float a_s[2][kIeeeRows][kT];
+  __shared__ __align__(16) float b_s[2][kIeeeRows][kT];
+  __shared__ int flag;
+  count_launch(args.launches);
+  const Pair pr = pair_of_block(args);
+  const int tid = threadIdx.x;
+  const float* img =
+      f + static_cast<long long>(pr.image) * args.p * args.c;
+  // Load role: rows lr + 8u (u = 0..3), channels lc..lc+3 of both tiles.
+  const int lr = tid >> 4;
+  const int lc = (tid & 15) * 4;
+  // Compute role.
+  const int ti = (tid >> 3) * 4;
+  const int tj = (tid & 7) * 4;
+  const int steps =
+      static_cast<int>((pr.p_end - pr.p_begin + kIeeeRows - 1) / kIeeeRows);
+  float4 ra[4];
+  float4 rb[4];
+  auto load = [&](int s) {
+    const long long p0 = pr.p_begin + static_cast<long long>(s) * kIeeeRows;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const long long r = p0 + lr + 8 * u;
+      const bool row = r < pr.p_end;
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      ra[u] = row && pr.i0 + lc < args.c
+                  ? *reinterpret_cast<const float4*>(img + r * args.c +
+                                                     pr.i0 + lc)
+                  : zero;
+      rb[u] = row && pr.j0 + lc < args.c
+                  ? *reinterpret_cast<const float4*>(img + r * args.c +
+                                                     pr.j0 + lc)
+                  : zero;
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      *reinterpret_cast<float4*>(&a_s[buf][lr + 8 * u][lc]) = ra[u];
+      *reinterpret_cast<float4*>(&b_s[buf][lr + 8 * u][lc]) = rb[u];
+    }
+  };
+  float acc[4][8];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+#pragma unroll
+    for (int y = 0; y < 8; ++y) acc[x][y] = 0.f;
+  }
+  if (steps > 0) {
+    load(0);
+    store(0);
+  }
+  __syncthreads();
+  for (int s = 0; s < steps; ++s) {
+    const int cur = s & 1;
+    const bool more = s + 1 < steps;
+    if (more) load(s + 1);
+#pragma unroll 8
+    for (int k = 0; k < kIeeeRows; ++k) {
+      const float4 av = *reinterpret_cast<const float4*>(&a_s[cur][k][ti]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&b_s[cur][k][tj]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&b_s[cur][k][32 + tj]);
+      const float a[4] = {av.x, av.y, av.z, av.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+#pragma unroll
+        for (int y = 0; y < 8; ++y) acc[x][y] = fmaf(a[x], b[y], acc[x][y]);
+      }
+    }
+    if (more) store(cur ^ 1);
+    __syncthreads();
+  }
+  float* mine = partial_tile(args);
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    float* row = mine + (ti + x) * kT;
+    *reinterpret_cast<float4*>(row + tj) =
+        make_float4(acc[x][0], acc[x][1], acc[x][2], acc[x][3]);
+    *reinterpret_cast<float4*>(row + 32 + tj) =
+        make_float4(acc[x][4], acc[x][5], acc[x][6], acc[x][7]);
+  }
+  sum_partials(args, pr, &flag);
+}
+
+__device__ void sum_partials(const GramArgs& args, const Pair& pr,
+                             int* flag) {
+  const int tid = threadIdx.x;
+  const int pair = static_cast<int>(blockIdx.z * gridDim.x + blockIdx.x);
+  const int split = static_cast<int>(blockIdx.y);
+  float* tiles = args.ws + static_cast<long long>(pair) *
+                               (args.splits + args.groups) * kTileFloats;
+  const int image = pr.image;
+  const bool diag = pr.diag;
+  const int i0 = pr.i0;
+  const int j0 = pr.j0;
   int* counters = args.counters + pair * (args.groups + 1);
   const int grp = split / args.group;
   const int first = grp * args.group;
   const int in_group = min(args.group, args.splits - first);
-  if (!last_to_arrive(&counters[grp], in_group, &flag)) return;
+  if (!last_to_arrive(&counters[grp], in_group, flag)) return;
   float4 sum[kVecs];
   sum_tiles(tiles + static_cast<long long>(first) * kTileFloats, in_group,
             sum);
@@ -273,7 +425,7 @@ gram_tf32x3_kernel(const __grid_constant__ CUtensorMap map_f,
       tiles + static_cast<long long>(args.splits + grp) * kTileFloats);
 #pragma unroll
   for (int v = 0; v < kVecs; ++v) gtile[tid + v * kConsumers] = sum[v];
-  if (!last_to_arrive(&counters[args.groups], args.groups, &flag)) return;
+  if (!last_to_arrive(&counters[args.groups], args.groups, flag)) return;
   sum_tiles(tiles + static_cast<long long>(args.splits) * kTileFloats,
             args.groups, sum);
 #pragma unroll
@@ -299,24 +451,50 @@ gram_tf32x3_kernel(const __grid_constant__ CUtensorMap map_f,
   }
 }
 
+template <bool X3>
+int launch_tc(const float* f, const GramArgs& args, int batch,
+              const dim3& grid, int smem_bytes, cudaStream_t stream) {
+  CUtensorMap map{};
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(args.c),
+                              static_cast<cuuint64_t>(args.p),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(args.c) * 4,
+                                 static_cast<cuuint64_t>(args.p) * args.c *
+                                     4};
+  const cuuint32_t box[3] = {kRowFloats, kKP, 1};
+  const int rc = make_map(&map, f, 3, dims, strides, box);
+  if (rc != 0) return rc;
+  // The opt-in to more than 48 KB of dynamic shared memory is made once
+  // per mode (a mode's plan always asks for the same size; the static
+  // `flag` leaves the block less than the SM's 227 KB of dynamic).
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      gram_tc_kernel<X3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  gram_tc_kernel<X3><<<grid, kThreads, smem_bytes, stream>>>(map, args);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launch on `stream` (one kernel launch for all `batch` images of the
-// contiguous (batch, p, c) block `f`); returns 0, a cudaError_t, or
+// contiguous (batch, p, c) block `f`) in `mode` 0 (IEEE fp32), 1
+// (3xTF32) or 2 (TF32); returns 0, a cudaError_t, or
 // tf32x3::kTensorMapError + a driver code. `raw` and `g` are (batch, c,
 // c); `ws` holds batch * pairs * (splits + groups) * 64 * 64 floats;
 // `counters` holds batch * pairs * (groups + 1) zeroed ints and is left
 // zeroed; each run adds one to `*launches`. The split ranges are
 // `rows_per_split` rows long (a multiple of 32) and cover all p rows of
 // an image; groups = ceil(splits / group); c % 4 == 0 (TMA row stride).
-// The plan comes from ops/gram.py's gram_plan.
+// The plan comes from ops/gram.py's gram_plan (smem_bytes is 0 for the
+// IEEE mode, whose shared memory is static).
 extern "C" int gram_forward(const float* f, float* ws, int* counters,
                             float* raw, float* g, int batch, long long p,
                             int c, int splits, long long rows_per_split,
                             int group, int stages, int smem_bytes,
                             float clamp, float norm,
-                            unsigned long long* launches, int device,
-                            void* stream) {
+                            unsigned long long* launches, int mode,
+                            int device, void* stream) {
   // The calling thread may have no current context yet; the
   // tensor-map encoder needs one.
   const cudaError_t set = cudaSetDevice(device);
@@ -326,25 +504,19 @@ extern "C" int gram_forward(const float* f, float* ws, int* counters,
   GramArgs args{ws,     counters, raw,    g,      p,     rows_per_split,
                 c,      tiles,    splits, group,  groups, stages,
                 clamp,  norm,     launches};
-  CUtensorMap map{};
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(c),
-                              static_cast<cuuint64_t>(p),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(c) * 4,
-                                 static_cast<cuuint64_t>(p) * c * 4};
-  const cuuint32_t box[3] = {kRowFloats, kKP, 1};
-  const int rc = make_map(&map, f, 3, dims, strides, box);
-  if (rc != 0) return rc;
-  // The opt-in to more than 48 KB of dynamic shared memory is made once
-  // (the plan's size does not change).
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      gram_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
   const dim3 grid(static_cast<unsigned>(tiles * (tiles + 1) / 2),
                   static_cast<unsigned>(splits),
                   static_cast<unsigned>(batch));
-  gram_tf32x3_kernel<<<grid, kThreads, smem_bytes,
-                       static_cast<cudaStream_t>(stream)>>>(map, args);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case 0:
+      gram_ieee_kernel<<<grid, kConsumers, 0, s>>>(f, args);
+      return static_cast<int>(cudaGetLastError());
+    case 1:
+      return launch_tc<true>(f, args, batch, grid, smem_bytes, s);
+    case 2:
+      return launch_tc<false>(f, args, batch, grid, smem_bytes, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

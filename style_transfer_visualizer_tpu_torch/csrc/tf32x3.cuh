@@ -1,5 +1,7 @@
-// Shared building blocks of the port's 3xTF32 tensor-core kernels
-// (conv3x3.cu, gram.cu) for Hopper (sm_90a).
+// Shared building blocks of the port's tensor-core kernels (conv3x3.cu,
+// gram.cu) for Hopper (sm_90a), in their two tensor-core modes: 3xTF32
+// and TF32. (The IEEE fp32 mode runs on the CUDA cores:
+// conv3x3_ieee.cu, and gram.cu's gram_ieee_kernel.)
 //
 // 3xTF32: an fp32 operand a is split into a_hi = tf32(a) and
 // a_lo = tf32(a - a_hi), both rounded to nearest with ties away (as
@@ -7,6 +9,9 @@
 // a_hi*b_hi + a_hi*b_lo + a_lo*b_hi, each term on the tensor cores
 // (wgmma, tf32 inputs, fp32 accumulators); the dropped a_lo*b_lo is
 // below fp32's last bit. The result keeps about 21 bits of mantissa.
+// TF32: the one product tf32(a)*tf32(b) (tf32 rounded to nearest, ties
+// away, as the split's hi), exact in fp32, accumulated in fp32: about
+// 11 bits of each operand, the `default` precision tier.
 //
 // Here: the split, the mbarrier and TMA wrappers, the wgmma wrappers
 // (m64nNk8, A from registers, B K-major in shared memory with the
@@ -297,6 +302,32 @@ __device__ __forceinline__ void mma3(float (&d)[N / 2],
   mma<N>(d, a_lo, b_hi, fresh ? 0 : 1);
   mma<N>(d, a_hi, b_lo, 1);
   mma<N>(d, a_hi, b_hi, 1);
+}
+
+// One k8 step in the kernel's mode: 3xTF32 (X3) or, in the TF32 mode,
+// the one product tf32(a)*tf32(b), where a_lo and b_lo are not read.
+template <int N, bool X3>
+__device__ __forceinline__ void mma_mode(float (&d)[N / 2],
+                                         const uint32_t (&a_hi)[4],
+                                         const uint32_t (&a_lo)[4],
+                                         uint64_t b_hi, uint64_t b_lo,
+                                         bool fresh) {
+  if constexpr (X3) {
+    mma3<N>(d, a_hi, a_lo, b_hi, b_lo, fresh);
+  } else {
+    mma<N>(d, a_hi, b_hi, fresh ? 0 : 1);
+  }
+}
+
+// An fp32 operand for the mode: split into hi and lo (X3), or only
+// rounded to tf32 (lo is left unset and unread).
+template <bool X3>
+__device__ __forceinline__ void operand(float a, uint32_t& hi, uint32_t& lo) {
+  if constexpr (X3) {
+    split(a, hi, lo);
+  } else {
+    hi = to_tf32(a);
+  }
 }
 
 // The tensor cores' fp32 sum does not round to nearest: each product

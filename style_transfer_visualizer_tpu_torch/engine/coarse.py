@@ -32,6 +32,9 @@ from style_transfer_visualizer_tpu_torch.models.features import (
     initialize_input,
     targets_maybe_blended,
 )
+from style_transfer_visualizer_tpu_torch.ops.precision import (
+    resolve_precision,
+)
 from style_transfer_visualizer_tpu_torch.ops.lap import lap_response
 from style_transfer_visualizer_tpu_torch.parallel.multistyle import (
     build_multi_style_update,
@@ -251,6 +254,7 @@ def _optimize_level(
     level; None starts the coarsest level from ``init_method``.
     """
     opt_cfg = config.optimization
+    prec = resolve_precision(config.hardware.precision)
     coarse_content = resize_image(content_img, ch, cw)
     coarse_style = resize_image(style_img, ch, cw)
     style_layers = tuple(opt_cfg.style_layers)
@@ -259,6 +263,7 @@ def _optimize_level(
     def one_targets(s_img, content_layers_):
         return compute_targets(
             params, s_img, coarse_content, style_layers, content_layers_,
+            prec,
         )
 
     coarse_blend = None
@@ -288,6 +293,7 @@ def _optimize_level(
         lbfgs_history_size=opt_cfg.lbfgs_history_size,
         lbfgs_history_dtype=opt_cfg.lbfgs_history_dtype,
         lbfgs_direction=opt_cfg.lbfgs_direction,
+        precision=prec,
     )
     x = (
         initialize_input(coarse_content, opt_cfg.init_method, generator)
@@ -331,13 +337,14 @@ def multi_coarse_init(
     if not schedule:
         return None
     n_styles = len(style_imgs)
+    prec = resolve_precision(config.hardware.precision)
     x: torch.Tensor | None = None
     for ch, cw, steps in schedule:
         coarse_content = resize_image(content_img, ch, cw)
         targets = multi_style_targets(
             params, coarse_content,
             [resize_image(s, ch, cw) for s in style_imgs],
-            tuple(opt_cfg.style_layers), tuple(opt_cfg.content_layers),
+            tuple(opt_cfg.style_layers), tuple(opt_cfg.content_layers), prec,
         )
         lap_w, lap_target = _level_lap(opt_cfg, coarse_content, ch, cw)
         bundle = build_multi_style_update(
@@ -358,6 +365,7 @@ def multi_coarse_init(
             lbfgs_history_size=opt_cfg.lbfgs_history_size,
             lbfgs_history_dtype=opt_cfg.lbfgs_history_dtype,
             lbfgs_direction=opt_cfg.lbfgs_direction,
+            precision=prec,
         )
         if x is None:
             x = initialize_multi_inputs(

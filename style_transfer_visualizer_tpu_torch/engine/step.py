@@ -45,6 +45,10 @@ from style_transfer_visualizer_tpu_torch.models.features import (
 )
 from style_transfer_visualizer_tpu_torch.models.vgg19 import Params
 from style_transfer_visualizer_tpu_torch.ops.lap import lap_loss
+from style_transfer_visualizer_tpu_torch.ops.precision import (
+    MIXED,
+    PrecisionLike,
+)
 from style_transfer_visualizer_tpu_torch.ops.tv import tv_loss
 
 HISTORY_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -109,13 +113,17 @@ def make_objective(
     style_layers: tuple[int, ...],
     content_layers: tuple[int, ...],
     style_weights: tuple[float, ...] | None = None,
+    precision: PrecisionLike = MIXED,
 ) -> LossFn:
     """The style + content objective, plus the optional TV and Laplacian
     terms, as ``loss_fn(params, image, targets)``.
 
     ``targets`` is a ``Targets``; with ``lap_w`` set it is the pair
     ``(Targets, lap_target)``, the Laplacian response
-    (``ops.lap.lap_response``) the image is held to.
+    (``ops.lap.lap_response``) the image is held to. ``precision`` is
+    the resolved tier (``ops.precision.resolve_precision``): a run's
+    tier is fixed, so a captured step (:class:`GraphedChunk`) holds its
+    kernels' modes.
     """
     style_layers = tuple(style_layers)
     content_layers = tuple(content_layers)
@@ -126,7 +134,7 @@ def make_objective(
             targets, lap_target = targets
         total, aux = total_loss(
             params, img, targets, style_w, content_w,
-            style_layers, content_layers, style_weights,
+            style_layers, content_layers, style_weights, precision,
         )
         if tv_w:
             total = total + tv_w * tv_loss(img)
@@ -250,6 +258,7 @@ def build_update_step(
     lbfgs_history_size: int = 100,
     lbfgs_history_dtype: str = "float32",
     lbfgs_direction: str = "two-loop",
+    precision: PrecisionLike = MIXED,
 ) -> StepBundle:
     """Build ``update(image, state) -> (image, state, StepAux)``.
 
@@ -258,9 +267,10 @@ def build_update_step(
     the weights, which is the run's device. ``tv_w`` adds the TV term
     (``ops/tv.py``), ``lap_w`` the Laplacian term (``ops/lap.py``)
     against ``lap_target``, ``lap_response(content, lap_pool)``;
-    ``style_weights`` weighs each style layer (``models/features.py``).
-    The update is :func:`targets_update`'s over :func:`make_objective`,
-    with the weights and ``targets`` bound.
+    ``style_weights`` weighs each style layer (``models/features.py``);
+    ``precision`` is the resolved tier. The update is
+    :func:`targets_update`'s over :func:`make_objective`, with the
+    weights and ``targets`` bound.
     """
     if lap_w and lap_target is None:
         msg = "lap_w > 0 requires a precomputed lap_target response"
@@ -270,6 +280,7 @@ def build_update_step(
         style_w=style_w, content_w=content_w, tv_w=tv_w, lap_w=lap_w,
         lap_pool=lap_pool, style_layers=style_layers,
         content_layers=content_layers, style_weights=style_weights,
+        precision=precision,
     )
     update, init_state = targets_update(
         loss_fn, image_shape, device,

@@ -70,6 +70,9 @@ from style_transfer_visualizer_tpu_torch.models.vgg19 import (
 )
 from style_transfer_visualizer_tpu_torch.ops.color import maybe_restore_color
 from style_transfer_visualizer_tpu_torch.ops.lap import lap_response
+from style_transfer_visualizer_tpu_torch.ops.precision import (
+    resolve_precision,
+)
 from style_transfer_visualizer_tpu_torch.parallel.multistyle import (
     build_multi_style_update,
     initialize_multi_inputs,
@@ -171,10 +174,12 @@ def prepare_model_and_input(
         )
     style_layers = tuple(opt.style_layers)
     content_layers = tuple(opt.content_layers)
+    precision = resolve_precision(config.hardware.precision)
 
     def one_targets(s_img: torch.Tensor, layers: tuple[int, ...]):
         return compute_targets(
             params, s_img, content_img, style_layers, layers,
+            precision=precision,
         )
 
     targets = targets_maybe_blended(
@@ -203,6 +208,7 @@ def prepare_model_and_input(
         lbfgs_history_size=opt.lbfgs_history_size,
         lbfgs_history_dtype=opt.lbfgs_history_dtype,
         lbfgs_direction=opt.lbfgs_direction,
+        precision=precision,
     )
     input_img = _initial_image(
         params, content_img, style_img, config, generator,
@@ -702,9 +708,11 @@ def prepare_multi_style(
             allow_random=opt.allow_random_weights, seed=opt.seed,
         )
     n_styles = len(style_imgs)
+    precision = resolve_precision(config.hardware.precision)
     targets = multi_style_targets(
         params, content_img, style_imgs,
         tuple(opt.style_layers), tuple(opt.content_layers),
+        precision=precision,
     )
     bundle = build_multi_style_update(
         params, targets, tuple(content_img.shape), n_styles,
@@ -727,6 +735,7 @@ def prepare_multi_style(
         lbfgs_history_size=opt.lbfgs_history_size,
         lbfgs_history_dtype=opt.lbfgs_history_dtype,
         lbfgs_direction=opt.lbfgs_direction,
+        precision=precision,
     )
     images = _multi_initial_images(
         params, content_img, style_imgs, config, generator,

@@ -11,6 +11,12 @@ The multi-style batch (:func:`batched_total_loss`) runs S independent
 problems through one sweep: the conv at N = S, one Gram launch per
 style layer for all S images (``ops.gram.gram_matrix_batched``), and
 per-style losses, ``(S,)`` each.
+
+Every function takes ``precision``, a level or a policy
+(``ops/precision.py``), as the JAX package's do: each conv runs its
+forward at ``conv_precision(precision, idx)`` and its backward at
+``conv_bwd_precision``, each Gram at ``gram_precision`` and
+``gram_bwd_precision``. Unset, it is the pipeline default, ``MIXED``.
 """
 from __future__ import annotations
 
@@ -32,6 +38,13 @@ from style_transfer_visualizer_tpu_torch.ops.gram import (
     gram_matrix_batched,
 )
 from style_transfer_visualizer_tpu_torch.ops.pool import maxpool_2x2, relu
+from style_transfer_visualizer_tpu_torch.ops.precision import (
+    MIXED,
+    PrecisionLike,
+    conv_bwd_precision,
+    conv_precision,
+    kernel_mode,
+)
 from style_transfer_visualizer_tpu_torch.type_defs import InitMethod
 
 
@@ -104,11 +117,16 @@ def _validate_layers(indices: tuple[int, ...], table: LayerTable) -> None:
             raise ValueError(msg)
 
 
-def _conv(params: Params, idx: int, x: torch.Tensor, fuse: bool):
+def _conv(
+    params: Params, idx: int, x: torch.Tensor, fuse: bool,
+    precision: PrecisionLike,
+):
     layer = params[idx]
     return conv3x3_bias_relu(
         x, layer["w9"], layer["w9_flip"], layer["b"], fuse,
         (layer["wk_hi"], layer["wk_lo"]), (layer["wkf_hi"], layer["wkf_lo"]),
+        mode=kernel_mode(conv_precision(precision, idx)),
+        bwd_mode=kernel_mode(conv_bwd_precision(precision, idx)),
     )
 
 
@@ -116,10 +134,12 @@ def extract_features(
     params: Params,
     x: torch.Tensor,
     taps: tuple[int, ...],
+    precision: PrecisionLike = MIXED,
 ) -> dict[int, torch.Tensor]:
     """Run the feature stack up to the deepest tap, recording activations.
 
-    Layers beyond the last tap never run.
+    Layers beyond the last tap never run; each conv runs at its level
+    of ``precision``.
     """
     if not taps:
         return {}
@@ -137,7 +157,7 @@ def extract_features(
                 and table[idx + 1][0] == RELU
                 and idx not in tap_set
             )
-            x = _conv(params, idx, x, fuse)
+            x = _conv(params, idx, x, fuse, precision)
             if fuse:
                 idx += 1
         elif kind == RELU:
@@ -157,13 +177,17 @@ def compute_targets(
     content_img: torch.Tensor,
     style_layers: tuple[int, ...],
     content_layers: tuple[int, ...],
+    precision: PrecisionLike = MIXED,
 ) -> Targets:
     """Precompute style Gram targets and content activation targets."""
-    style_acts = extract_features(params, style_img, style_layers)
-    content_acts = extract_features(params, content_img, content_layers)
+    style_acts = extract_features(params, style_img, style_layers, precision)
+    content_acts = extract_features(
+        params, content_img, content_layers, precision,
+    )
     return Targets(
         style_grams={
-            idx: gram_matrix(act) for idx, act in style_acts.items()
+            idx: gram_matrix(act, precision=precision)
+            for idx, act in style_acts.items()
         },
         content_feats=dict(content_acts),
     )
@@ -174,13 +198,16 @@ def compute_content_targets(
     params: Params,
     content_img: torch.Tensor,
     content_layers: tuple[int, ...],
+    precision: PrecisionLike = MIXED,
 ) -> dict[int, torch.Tensor]:
     """Content activation targets only (the style Grams are unchanged).
 
     The frame sequence's per-frame targets: its style Grams are
     computed once for the clip, its content targets for every frame.
     """
-    return dict(extract_features(params, content_img, content_layers))
+    return dict(
+        extract_features(params, content_img, content_layers, precision),
+    )
 
 
 def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -218,6 +245,7 @@ def style_content_losses(
     style_layers: tuple[int, ...],
     content_layers: tuple[int, ...],
     style_weights: tuple[float, ...] | None = None,
+    precision: PrecisionLike = MIXED,
 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     """Per-layer style (Gram MSE) and content (feature MSE) losses.
 
@@ -226,9 +254,15 @@ def style_content_losses(
     """
     weights = _resolve_style_weights(style_weights, style_layers)
     taps = tuple(sorted(set(style_layers) | set(content_layers)))
-    acts = extract_features(params, x, taps)
+    acts = extract_features(params, x, taps, precision)
     style_losses = [
-        _weighted(w, _mse(gram_matrix(acts[idx]), targets.style_grams[idx]))
+        _weighted(
+            w,
+            _mse(
+                gram_matrix(acts[idx], precision=precision),
+                targets.style_grams[idx],
+            ),
+        )
         for idx, w in zip(style_layers, weights, strict=True)
     ]
     content_losses = [
@@ -246,6 +280,7 @@ def total_loss(
     style_layers: tuple[int, ...],
     content_layers: tuple[int, ...],
     style_weights: tuple[float, ...] | None = None,
+    precision: PrecisionLike = MIXED,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Weighted total loss plus (style_score, content_score).
 
@@ -254,6 +289,7 @@ def total_loss(
     """
     style_losses, content_losses = style_content_losses(
         params, x, targets, style_layers, content_layers, style_weights,
+        precision,
     )
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     style_score = torch.stack(style_losses).sum() if style_losses else zero
@@ -280,6 +316,7 @@ def batched_style_content_losses(
     style_layers: tuple[int, ...],
     content_layers: tuple[int, ...],
     style_weights: tuple[float, ...] | None = None,
+    precision: PrecisionLike = MIXED,
 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     """Per-layer style and content losses of S images, each ``(S,)``.
 
@@ -291,12 +328,13 @@ def batched_style_content_losses(
     """
     weights = _resolve_style_weights(style_weights, style_layers)
     taps = tuple(sorted(set(style_layers) | set(content_layers)))
-    acts = extract_features(params, x, taps)
+    acts = extract_features(params, x, taps, precision)
     style_losses = [
         _weighted(
             w,
             _mse_per_image(
-                gram_matrix_batched(acts[idx]), targets.style_grams[idx],
+                gram_matrix_batched(acts[idx], precision=precision),
+                targets.style_grams[idx],
             ),
         )
         for idx, w in zip(style_layers, weights, strict=True)
@@ -317,6 +355,7 @@ def batched_total_loss(
     style_layers: tuple[int, ...],
     content_layers: tuple[int, ...],
     style_weights: tuple[float, ...] | None = None,
+    precision: PrecisionLike = MIXED,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """:func:`total_loss` of each of S images: ``(S,)`` each.
 
@@ -325,6 +364,7 @@ def batched_total_loss(
     """
     style_losses, content_losses = batched_style_content_losses(
         params, x, targets, style_layers, content_layers, style_weights,
+        precision,
     )
     zero = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
     style_score = (

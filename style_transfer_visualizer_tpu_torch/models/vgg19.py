@@ -8,9 +8,12 @@ bias. For the tensor-core kernel each stencil is also packed K-major,
 ``(C_out, Kp)`` with ``K = tap * C_in + c`` zero-padded to ``Kp``, a
 multiple of 32, and split into tf32 hi and lo halves (``ops/tf32.py``):
 ``wk_hi``/``wk_lo`` from ``w9`` for the forward, ``wkf_hi``/``wkf_lo``
-from ``w9_flip`` for the input gradient. The backbone is frozen: only
-pixels are optimized, so the flipped and packed copies are made once
-when the weights are loaded, never per step.
+from ``w9_flip`` for the input gradient. Each kernel mode reads its own
+form (``ops.conv3x3.mode_stencil``): the IEEE fp32 kernel the unsplit
+``w9``/``w9_flip``, the TF32 kernel ``wk_hi``/``wkf_hi``, the 3xTF32
+kernel both halves. The backbone is frozen: only pixels are optimized,
+so the flipped and packed copies are made once when the weights are
+loaded, never per step.
 
 Params: ``{layer_index: {"w9", "w9_flip", "b", "wk_hi", "wk_lo",
 "wkf_hi", "wkf_lo"}}``.

@@ -29,7 +29,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build" / "kernels"
-SOURCES = ("conv3x3", "gram")
+SOURCES = ("conv3x3", "conv3x3_ieee", "gram")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -258,3 +258,50 @@ class LaunchCounter:
         self.count = 0
         for t in self._slots.values():
             t.zero_()
+
+
+@dataclass(eq=False)
+class ModeCounters:
+    """A :class:`LaunchCounter` for each mode of one kernel function.
+
+    The conv and the Gram each run in the modes of
+    ``ops.precision.MODES``, each mode its own kernel counting its own
+    runs: ``counters[mode]`` is that kernel's counter. ``count``,
+    :meth:`launched` and :meth:`reset` cover every mode at once.
+    """
+
+    name: str
+    modes: tuple[str, ...]
+    by_mode: dict[str, LaunchCounter] = field(init=False, repr=False)
+
+    def __post_init__(self) -> None:
+        """One counter per mode, named ``name[mode]``."""
+        self.by_mode = {
+            mode: LaunchCounter(f"{self.name}[{mode}]") for mode in self.modes
+        }
+
+    def __getitem__(self, mode: str) -> LaunchCounter:
+        """The counter of ``mode``; an unknown mode raises ValueError."""
+        try:
+            return self.by_mode[mode]
+        except KeyError:
+            msg = f"{self.name}: unknown kernel mode {mode!r}"
+            raise ValueError(msg) from None
+
+    @property
+    def count(self) -> int:
+        """The wrappers' launches in every mode."""
+        return sum(c.count for c in self.by_mode.values())
+
+    def launched(self) -> int:
+        """The device's count of runs in every mode (waits for it)."""
+        return sum(c.launched() for c in self.by_mode.values())
+
+    def launched_by_mode(self) -> dict[str, int]:
+        """The device's count of runs of each mode (waits for it)."""
+        return {mode: c.launched() for mode, c in self.by_mode.items()}
+
+    def reset(self) -> None:
+        """Set every mode's counts back to zero."""
+        for c in self.by_mode.values():
+            c.reset()

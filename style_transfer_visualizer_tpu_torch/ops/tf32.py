@@ -1,12 +1,15 @@
-"""The 3xTF32 split, as the kernels compute it, in plain PyTorch.
+"""The TF32 rounding and the 3xTF32 split, as the kernels compute them.
 
 The CUDA kernels (``csrc/tf32x3.cuh``) split each float32 operand ``a``
 into ``hi = tf32(a)`` and ``lo = tf32(a - hi)``, both rounded to
 nearest with ties away from zero (``cvt.rna.tf32.f32``), and sum
-``hi*hi + hi*lo + lo*hi`` on the tensor cores. TF32 keeps float32's
-exponent and the top 10 bits of its mantissa; here the rounding is done
-on the bit pattern. The packed stencils are split with it once, when the
-weights are loaded (``models/vgg19.py``).
+``hi*hi + hi*lo + lo*hi`` on the tensor cores (3xTF32, the ``high``
+tier); in TF32 (``default``) they take the one product ``hi*hi``.
+TF32 keeps float32's exponent and the top 10 bits of its mantissa; here
+the rounding is done on the bit pattern. The packed stencils are split
+with it once, when the weights are loaded (``models/vgg19.py``); the
+plain versions of the modes (``ops/conv3x3.py``, ``ops/gram.py``) and
+the ``default`` tier's Gram backward on the card round with it.
 """
 from __future__ import annotations
 

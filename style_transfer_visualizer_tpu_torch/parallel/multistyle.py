@@ -39,6 +39,10 @@ from style_transfer_visualizer_tpu_torch.models.features import (
 )
 from style_transfer_visualizer_tpu_torch.models.vgg19 import Params
 from style_transfer_visualizer_tpu_torch.ops.lap import lap_loss_per_image
+from style_transfer_visualizer_tpu_torch.ops.precision import (
+    MIXED,
+    PrecisionLike,
+)
 from style_transfer_visualizer_tpu_torch.ops.tv import tv_loss_per_image
 from style_transfer_visualizer_tpu_torch.type_defs import InitMethod
 
@@ -49,6 +53,7 @@ def multi_style_targets(
     style_imgs: Sequence[torch.Tensor],
     style_layers: tuple[int, ...],
     content_layers: tuple[int, ...],
+    precision: PrecisionLike = MIXED,
 ) -> Targets:
     """Per-style targets stacked along a leading style axis.
 
@@ -58,11 +63,13 @@ def multi_style_targets(
     layer-21 copy would be about 134 MB.
     """
     per_style = [
-        compute_targets(params, style, content_img, style_layers, ())
+        compute_targets(
+            params, style, content_img, style_layers, (), precision,
+        )
         for style in style_imgs
     ]
     content_only = compute_targets(
-        params, content_img, content_img, (), content_layers,
+        params, content_img, content_img, (), content_layers, precision,
     ).content_feats
     n = len(style_imgs)
     return Targets(
@@ -123,6 +130,7 @@ def build_multi_style_update(
     lap_pool: int = 4,
     lap_target: torch.Tensor | None = None,
     style_weights: tuple[float, ...] | None = None,
+    precision: PrecisionLike = MIXED,
 ) -> StepBundle:
     """Build the stacked step of S independent problems.
 
@@ -133,6 +141,7 @@ def build_multi_style_update(
     gives ``(S,)`` metrics; its chunks stack them to ``(k, S)``. The loss of
     each style is the single run's (``engine/step.py``); the backward
     runs once, on their sum, and gives each image its own gradient.
+    ``precision`` is the resolved tier.
     """
     if lap_w and lap_target is None:
         msg = "lap_w > 0 requires a precomputed lap_target response"
@@ -153,7 +162,7 @@ def build_multi_style_update(
             img = x.reshape(sweep_shape)
             total, (style, content) = batched_total_loss(
                 params, img, targets, style_w, content_w,
-                style_layers, content_layers, style_weights,
+                style_layers, content_layers, style_weights, precision,
             )
             if tv_w:
                 total = total + tv_w * tv_loss_per_image(img)

@@ -42,6 +42,11 @@ from style_transfer_visualizer_tpu_torch.models.vgg19 import (
     load_pretrained_params,
 )
 from style_transfer_visualizer_tpu_torch.ops.gram import gram_matrix
+from style_transfer_visualizer_tpu_torch.ops.precision import (
+    HIGH,
+    PrecisionLike,
+    resolve_precision,
+)
 from style_transfer_visualizer_tpu_torch.ops.lap import lap_loss, lap_response
 from style_transfer_visualizer_tpu_torch.ops.tv import tv_loss
 from style_transfer_visualizer_tpu_torch.runtime.device import (
@@ -126,7 +131,11 @@ def load_region_masks(
     ).astype(np.float32)
 
 
-def masked_gram(features: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_gram(
+    features: torch.Tensor,
+    mask: torch.Tensor,
+    precision: PrecisionLike = HIGH,
+) -> torch.Tensor:
     """Region-average Gram ``sum_p m F F / (mass * C)`` of (B, H, W, C).
 
     ``mask`` is (H', W') at any resolution; it is resized to the
@@ -134,14 +143,15 @@ def masked_gram(features: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     antialiased when it shrinks, as ``jax.image.resize``) and applied
     as the feature weight ``sqrt(m * P / mass)``, so the Gram's ``/ (P
     * C)`` lands on ``/ (mass * C)``. The Gram's clamp (5e5, before the
-    divide) applies to the scaled raw sum, as in the JAX package.
+    divide) applies to the scaled raw sum, as in the JAX package. The
+    Gram runs at ``precision`` as ``ops.gram.gram_matrix`` does.
     """
     b, h, w, _ = features.shape
     mask_l = resize_image(mask[None, :, :, None], h, w)[0, :, :, 0]
     mask_l = torch.clamp(mask_l, min=0.0)
     mass = torch.clamp(torch.sum(mask_l), min=_MASK_EPS)
     scale = torch.sqrt(mask_l * (b * h * w / mass))
-    return gram_matrix(features * scale[None, :, :, None])
+    return gram_matrix(features * scale[None, :, :, None], precision=precision)
 
 
 def regional_style_loss(
@@ -150,17 +160,19 @@ def regional_style_loss(
     style_layers: tuple[int, ...],
     *,
     style_weights: tuple[float, ...] | None = None,
+    precision: PrecisionLike = HIGH,
 ) -> torch.Tensor:
     """Sum over styles and layers of the masked-Gram MSE to each target.
 
     ``style_weights`` weighs each layer as in the unmasked loss
-    (``models/features.py``), the same for every region.
+    (``models/features.py``), the same for every region; the Grams run
+    at ``precision``.
     """
     weights = _resolve_style_weights(style_weights, style_layers)
     total = torch.zeros((), dtype=rt.masks.dtype, device=rt.masks.device)
     for s in range(rt.masks.shape[0]):
         for idx, w in zip(style_layers, weights, strict=True):
-            g = masked_gram(acts[idx], rt.masks[s])
+            g = masked_gram(acts[idx], rt.masks[s], precision)
             total = total + _weighted(
                 w, torch.mean(torch.square(g - rt.style_grams[s][idx])),
             )
@@ -173,9 +185,10 @@ def make_regional_loss(cfg: StyleTransferConfig):
     ``targets`` is a :class:`RegionalTargets`; with ``lap_w`` set, the
     pair ``(RegionalTargets, lap_target)``: the Laplacian holds the
     whole content photo's edges, like the content term, whatever the
-    regions.
+    regions. The convs and Grams run at ``cfg.hardware.precision``.
     """
     opt = cfg.optimization
+    precision = resolve_precision(cfg.hardware.precision)
     style_layers = tuple(opt.style_layers)
     content_layers = tuple(opt.content_layers)
     taps = tuple(sorted(set(style_layers) | set(content_layers)))
@@ -185,9 +198,10 @@ def make_regional_loss(cfg: StyleTransferConfig):
         lap_target = None
         if opt.lap_w:
             rt, lap_target = rt
-        acts = extract_features(params, img, taps)
+        acts = extract_features(params, img, taps, precision)
         style_score = regional_style_loss(
             acts, rt, style_layers, style_weights=style_weights,
+            precision=precision,
         )
         content_losses = [
             torch.mean(torch.square(acts[idx] - rt.content_feats[idx]))
@@ -298,10 +312,11 @@ def _regional_on_device(
     )
     style_layers = tuple(opt.style_layers)
     content_layers = tuple(opt.content_layers)
+    precision = resolve_precision(config.hardware.precision)
     per_style = [
         compute_targets(
             params, s_img, content_img, style_layers,
-            content_layers if i == 0 else (),
+            content_layers if i == 0 else (), precision,
         )
         for i, s_img in enumerate(style_imgs)
     ]

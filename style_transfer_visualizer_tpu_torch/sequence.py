@@ -70,6 +70,9 @@ from style_transfer_visualizer_tpu_torch.models.vgg19 import (
 )
 from style_transfer_visualizer_tpu_torch.ops.color import maybe_restore_color
 from style_transfer_visualizer_tpu_torch.ops.lap import lap_response
+from style_transfer_visualizer_tpu_torch.ops.precision import (
+    resolve_precision,
+)
 from style_transfer_visualizer_tpu_torch.runtime.device import (
     setup_device,
     setup_random_seed,
@@ -171,7 +174,8 @@ def build_targets_update(
     lap_target)``, so a sequence holds each frame to its own source's
     Laplacian. ``loss_fn(params, image, targets) -> (total, (style,
     content))`` replaces it (the regional run's); ``targets`` is then
-    whatever that function takes.
+    whatever that function takes. The default objective runs at
+    ``cfg.hardware.precision``, resolved here.
     """
     opt = cfg.optimization
     if loss_fn is None:
@@ -184,6 +188,7 @@ def build_targets_update(
             style_layers=tuple(opt.style_layers),
             content_layers=tuple(opt.content_layers),
             style_weights=opt.style_weights_tuple(),
+            precision=resolve_precision(cfg.hardware.precision),
         )
     update, init_state = targets_update(
         loss_fn,
@@ -355,9 +360,11 @@ def stylize_sequence(
         style_layers = tuple(opt.style_layers)
         # The style Grams are the clip's: made once; each frame makes
         # only its content targets.
+        precision = resolve_precision(config.hardware.precision)
         base_targets = targets_maybe_blended(
             lambda s_img, c_layers: compute_targets(
                 params, s_img, first_content, style_layers, c_layers,
+                precision,
             ),
             style_img,
             tuple(opt.content_layers),
@@ -424,6 +431,7 @@ def _frame_targets(
             style_grams=base_targets.style_grams,
             content_feats=compute_content_targets(
                 params, content, tuple(opt.content_layers),
+                resolve_precision(config.hardware.precision),
             ),
         )
     if opt.lap_w:

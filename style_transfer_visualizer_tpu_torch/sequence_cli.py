@@ -8,9 +8,9 @@ names and help:
 
 ``--config`` loads a TOML in the JAX package's layout under the typed
 flags (a flag the user did not type is absent, ``argparse.SUPPRESS``),
-as ``cli.py`` does. ``--precision`` and ``--spatial-shards`` are
-accepted only at their JAX defaults (``mixed``, 1): each other value
-exits naming the ROADMAP.md item it waits for (``config._UNPORTED``).
+as ``cli.py`` does. ``--precision`` takes the four tiers. ``--spatial-shards``
+is accepted only at its JAX default (1): each other value exits naming
+the ROADMAP.md item it waits for (``config._UNPORTED``).
 The run is ``sequence.stylize_sequence`` on ``--device`` (``cuda`` by
 default).
 """
@@ -30,11 +30,12 @@ from style_transfer_visualizer_tpu_torch.config import (
     ConfigLoader,
     check_unported,
 )
+from style_transfer_visualizer_tpu_torch.ops.precision import PRECISION_NAMES
 from style_transfer_visualizer_tpu_torch.sequence import stylize_sequence
 from style_transfer_visualizer_tpu_torch.utils.logging import logger
 
 # Flags of JAX fields the port lacks: (flag dest, config section).
-_UNPORTED_FLAGS = (("precision", "hardware"), ("spatial_shards", "hardware"))
+_UNPORTED_FLAGS = (("spatial_shards", "hardware"),)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -154,10 +155,10 @@ def build_parser() -> argparse.ArgumentParser:
              "only 1 (not ported: ROADMAP.md, 'Spatial and dp×sp')",
     )
     p.add_argument(
-        "--precision", choices=["highest", "mixed", "high", "default"],
-        default=s,
-        help="Matmul precision tier; the port takes only 'mixed' (not "
-             "ported: ROADMAP.md, 'Precision tiers')",
+        "--precision", choices=list(PRECISION_NAMES), default=s,
+        help="Matmul precision tier of the kernels on the card (see "
+             "style-visualizer-torch --help; 'mixed' is the "
+             "curve-parity default)",
     )
     p.add_argument("--allow-random-weights", action="store_true", default=s)
     p.add_argument(

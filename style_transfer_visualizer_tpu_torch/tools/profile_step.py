@@ -2,14 +2,15 @@
 
     python -m style_transfer_visualizer_tpu_torch.tools.profile_step \\
         [--size 512] [--steps 5] [--model vgg19] [--optimizer lbfgs] \\
-        [--objective] [--styles S] [--out DIR]
+        [--objective] [--styles S] [--precision mixed] [--out DIR]
 
 Builds the step as ``main.run_style_transfer`` does (seeded weights of
 ``--model``, shipped defaults, ``--optimizer``; ``--objective`` adds
 ``chip_smoke.py``'s objective terms: TV 1e-2, Laplacian 1e2 at pool 4,
 style weights 1,1,0.5,0.25,0.25), or with ``--styles S`` the
 multi-style batch's stacked step of S styles as
-``main.prepare_multi_style`` builds it; runs 3 warm-up steps, then times
+``main.prepare_multi_style`` builds it, at the ``--precision`` tier
+(``ops/precision.py``; ``mixed`` by default); runs 3 warm-up steps, then times
 ``--steps`` steps with CUDA events, split into the VGG loss-and-gradient
 evaluation and (for L-BFGS) the direction, and traces them with
 ``torch.profiler``: the eager step (``update_fn``, hundreds of launches
@@ -47,6 +48,10 @@ from style_transfer_visualizer_tpu_torch.models.vgg19 import (
     init_random_params,
 )
 from style_transfer_visualizer_tpu_torch.ops.lap import lap_response
+from style_transfer_visualizer_tpu_torch.ops.precision import (
+    PRECISION_NAMES,
+    resolve_precision,
+)
 from style_transfer_visualizer_tpu_torch.parallel.multistyle import (
     build_multi_style_update,
     initialize_multi_inputs,
@@ -54,8 +59,11 @@ from style_transfer_visualizer_tpu_torch.parallel.multistyle import (
 )
 
 
-# Device kernels of csrc/, listed by name whatever their rank.
-_PORT_KERNELS = ("conv3x3_tf32x3_kernel", "gram_tf32x3_kernel")
+# Device kernels of csrc/ (every mode), listed by name whatever their rank.
+_PORT_KERNELS = (
+    "conv3x3_tc_kernel", "conv3x3_ieee_kernel", "gram_tc_kernel",
+    "gram_ieee_kernel",
+)
 
 
 def _emit(line: str) -> None:
@@ -98,8 +106,10 @@ def main(argv: list[str] | None = None) -> int:
         "--styles", type=int, default=0,
         help="profile the multi-style batch's step of this many styles",
     )
+    p.add_argument("--precision", default="mixed", choices=PRECISION_NAMES)
     p.add_argument("--out", default="chiprun_out/profile")
     args = p.parse_args(argv)
+    precision = resolve_precision(args.precision)
     if not torch.cuda.is_available():
         msg = "profile_step needs a CUDA device"
         raise SystemExit(msg)
@@ -150,11 +160,11 @@ def main(argv: list[str] | None = None) -> int:
     if batch:
         styles = [style, *more][:batch]
         targets = multi_style_targets(
-            params, content, styles, style_layers, content_layers,
+            params, content, styles, style_layers, content_layers, precision,
         )
     else:
         targets = compute_targets(
-            params, style, content, style_layers, content_layers,
+            params, style, content, style_layers, content_layers, precision,
         )
     peaks["targets"] = _peak_and_reset()
     step_args = {
@@ -169,6 +179,7 @@ def main(argv: list[str] | None = None) -> int:
         "lbfgs_history_size": opt.lbfgs_history_size,
         "lbfgs_history_dtype": opt.lbfgs_history_dtype,
         "lbfgs_direction": opt.lbfgs_direction,
+        "precision": precision,
     }
     gen = torch.Generator(device=dev).manual_seed(opt.seed)
     if batch:
@@ -208,13 +219,14 @@ def main(argv: list[str] | None = None) -> int:
             total, _ = batched_total_loss(
                 params, x.reshape(-1, *x.shape[2:]), targets, opt.style_w,
                 opt.content_w, style_layers, content_layers,
-                opt.style_weights_tuple(),
+                opt.style_weights_tuple(), precision,
             )
             total = total.sum()
         else:
             total, _ = total_loss(
                 params, x, targets, opt.style_w, opt.content_w,
                 style_layers, content_layers, opt.style_weights_tuple(),
+                precision,
             )
         torch.autograd.grad(total, x)
 

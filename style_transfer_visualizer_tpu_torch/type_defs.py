@@ -26,6 +26,10 @@ ModelName = Literal["vgg19", "vgg16"]
 #: statistics before targets are computed.
 ColorPreservation = Literal["off", "luminance", "match"]
 
+#: Matmul-precision tiers (``ops/precision.py``): IEEE fp32, the mixed
+#: policy, 3xTF32, TF32 on the card.
+PrecisionName = Literal["highest", "mixed", "high", "default"]
+
 #: Storage type of the L-BFGS curvature ring.
 HistoryDtypeName = Literal["float32", "bfloat16"]
 

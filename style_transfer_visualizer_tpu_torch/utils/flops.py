@@ -19,9 +19,13 @@ update):
   again for its backward (``F S``).
 
 The share of peak is against the H100 SXM's dense TF32 tensor-core
-rate, 495 TFLOP/s at a 700 W power limit (NVIDIA's data sheet). Both
-kernels compute 3xTF32, three TF32 products for each counted
-operation, so a third of that peak (33.3%) is their ceiling.
+rate, 495 TFLOP/s at a 700 W power limit (NVIDIA's data sheet), at
+every precision tier, as the JAX package quotes one peak at every
+tier. In 3xTF32 (``high``) the kernels issue three TF32 products for
+each counted operation, so a third of that peak (33.3%) is their
+ceiling; in TF32 (``default``) the whole of it; in IEEE fp32
+(``highest``) 67 TFLOP/s, 13.5%, so there the share is a lower bound
+of how busy the units are.
 """
 from __future__ import annotations
 

@@ -496,9 +496,25 @@ def test_sequence_cli_style_exits_like_jax(argv) -> None:
         (["--precision", "high"], "Precision tiers"),
     ],
 )
-def test_sequence_cli_refuses_unported_values(capsys, flag, item) -> None:
+def test_sequence_cli_refuses_unported_values(
+    capsys, monkeypatch, flag, item,
+) -> None:
+    argv = ["--frames", "fr", "--style", "s.png", *flag]
+    if flag[0] == "--precision":
+        # Ported since (the precision tiers): the value reaches the
+        # config the run gets.
+        seen = {}
+        monkeypatch.setattr(
+            sequence_cli, "stylize_sequence",
+            lambda _f, _s, config, *a, **k: seen.setdefault(
+                "r", (config, sequence.SequenceResult([], 0)),
+            )[1],
+        )
+        assert sequence_cli.main(argv) == 0
+        assert seen["r"][0].hardware.precision == flag[1]
+        return
     with pytest.raises(SystemExit) as exc:
-        sequence_cli.main(["--frames", "fr", "--style", "s.png", *flag])
+        sequence_cli.main(argv)
     assert exc.value.code == 2
     assert item in capsys.readouterr().err
 
