@@ -21,7 +21,8 @@ exits non-zero:
    ``style_transfer_visualizer_tpu_torch/csrc/`` with ``nvcc`` for
    ``sm_90a``, with each library's count of ``HGMMA`` instructions
    (``wgmma`` on the tensor cores) from ``cuobjdump -sass`` where the
-   toolkit has it (none in ``conv3x3_ieee``, on the CUDA cores);
+   toolkit has it (none in ``conv3x3_ieee``, on the CUDA cores: no
+   ``HGMMA`` or ``HMMA`` there, and no spills in its ptxas report);
 3. conv check: the conv kernel against its plain PyTorch version at
    every conv shape of the 512x512 main path, of the objective phase's
    1024x1024 steps and of the batch phase's 512x512 steps at N = 4
@@ -49,7 +50,11 @@ exits non-zero:
    first tap, 1280x720, with and without an active clamp, each batched
    image bit-equal to the mode's single launch), within 1e-4; timed
    beside the plain version and cuDNN / ``torch.mm`` (fp32 for IEEE,
-   TF32 on for TF32), two graph-timed calls a timing;
+   TF32 on for TF32), two graph-timed calls a timing. The IEEE conv
+   also: at N = 4 and through VGG19's stack at a 528x960 batch of 2
+   (checked only), each image's output and masked input gradient
+   bit-equal to its launch alone; one line per 512x512 shape, forward
+   and input gradient, kernel ms against the fp32 bound and cuDNN;
 5. main path: ``run_style_transfer`` at 512x512 on full-width VGG19
    (seeded weights, shipped defaults) for 20 L-BFGS steps through the
    port's runner (no progress bar), with the launch counts set to 0
@@ -448,16 +453,32 @@ def _rel_err(ours, ref) -> tuple[float, float]:
     return err, err / max(float(ref.abs().max()), 1e-30)
 
 
-def _hgmma_count(library) -> int | None:
-    """``HGMMA`` instructions in a library's SASS; None without the tool."""
+def _sass(library) -> str | None:
+    """A library's SASS from ``cuobjdump``; None without the tool."""
     tool = shutil.which("cuobjdump") or CUOBJDUMP
     if not Path(tool).exists():
         return None
-    sass = subprocess.run(
+    return subprocess.run(
         [tool, "-sass", str(library)],
         capture_output=True, text=True, check=True, timeout=120,
     ).stdout
-    return sass.count("HGMMA")
+
+
+def _check_ieee_build(kernel: build.BuiltKernel, sass: str | None) -> None:
+    """The IEEE conv stays on the CUDA cores (no ``HGMMA`` or ``HMMA``
+    in its SASS) and keeps its accumulators in registers (no spills in
+    ``-Xptxas -v``'s report)."""
+    if sass is not None and re.search(r"\bH(G)?MMA", sass):
+        msg = "conv3x3_ieee: tensor-core instructions in its SASS"
+        raise AssertionError(msg)
+    spills = [
+        int(n) for n in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)", kernel.ptxas_log,
+        )
+    ]
+    if not spills or any(spills):
+        msg = f"conv3x3_ieee: spills in the ptxas report: {spills}"
+        raise AssertionError(msg)
 
 
 class Record:
@@ -674,22 +695,27 @@ def _check_conv(rec: Record, cases) -> None:
         print(line)
 
 
-def _check_batch_invariant(x, g, wk, wkf, b, label: str) -> None:
+def _check_batch_invariant(
+    x, g, wk, wkf, b, label: str, mode: str = "tf32x3",
+) -> None:
     """Each image of a batch gets, bit for bit, its output alone.
 
-    The forward (fused ReLU) and the fused-mask input gradient; the
-    launch plan picks the split over K per image, not per batch.
+    The forward (fused ReLU) and the fused-mask input gradient in
+    ``mode``; the launch plan picks the split over K per image, not per
+    batch.
     """
-    out = conv3x3.conv3x3_kernel(x, wk, b, True)
-    back = conv3x3.conv3x3_kernel(g, wkf, None, False, out)
+    kern = partial(conv3x3.conv3x3_kernel, mode=mode)
+    out = kern(x, wk, b, True)
+    back = kern(g, wkf, None, False, out)
     for i in range(x.shape[0]):
-        one = conv3x3.conv3x3_kernel(x[i:i + 1].contiguous(), wk, b, True)
-        one_back = conv3x3.conv3x3_kernel(
-            g[i:i + 1].contiguous(), wkf, None, False, one,
-        )
+        one = kern(x[i:i + 1].contiguous(), wk, b, True)
+        one_back = kern(g[i:i + 1].contiguous(), wkf, None, False, one)
         if not (torch.equal(out[i], one[0])
                 and torch.equal(back[i], one_back[0])):
-            msg = f"conv {label}: image {i} differs from its launch alone"
+            msg = (
+                f"conv {label} {mode}: image {i} differs from its launch "
+                "alone"
+            )
             raise AssertionError(msg)
 
 
@@ -3514,7 +3540,11 @@ def _check_conv_modes(recs: dict) -> None:
     1e-4 of the reference's largest magnitude; timed as the main path
     runs it (``count`` forwards, ``fused`` masked and the rest unmasked
     backwards a step) into ``recs[mode][key]``, beside the plain version
-    and cuDNN (fp32; with TF32 on for the TF32 mode).
+    and cuDNN (fp32; with TF32 on for the TF32 mode). The IEEE kernel
+    also: at N > 1 each image's output and masked input gradient
+    bit-equal to its launch alone, one line per 512x512 shape (forward
+    and input gradient against the bound and cuDNN), and VGG19's stack
+    at a 528x960 batch of 2 (check only, :func:`_check_ieee_528x960`).
     """
     gen = torch.Generator(device="cuda").manual_seed(21)
     for key, cases in _mode_conv_sets().items():
@@ -3553,6 +3583,8 @@ def _check_conv_modes(recs: dict) -> None:
                     plain(g, w9f, None, False, out),
                     f"{label} {mode} masked input gradient",
                 )
+                if mode == "ieee" and n > 1:
+                    _check_batch_invariant(x, g, st, stf, b, label, mode)
                 fwd = tuple(map(_few_ms, (
                     partial(kern, x, st, b, True),
                     partial(plain, x, w9, b, True),
@@ -3562,6 +3594,7 @@ def _check_conv_modes(recs: dict) -> None:
                     )),
                 )))
                 rec.add(count, *fwd, flops, nbytes + 4.0 * co)
+                line = ""
                 for n_bwd, mask, extra in (
                     (fused, out, 4.0 * pix * co), (count - fused, None, 0.0),
                 ):
@@ -3578,9 +3611,62 @@ def _check_conv_modes(recs: dict) -> None:
                         )),
                     )))
                     rec.add(n_bwd, *bwd, flops, nbytes + extra)
+                    if mode == "ieee" and key == "512":
+                        bound = _bound_ms(flops, nbytes + extra, FP32_FLOPS)
+                        line += (
+                            f" | bwd x{n_bwd} mask={mask is not None} "
+                            f"kernel_ms {bwd[0]:.4f} cudnn_ms {bwd[2]:.4f} "
+                            f"bound_ms {bound:.4f} ({bwd[0] / bound:.2f}x "
+                            f"bound, {bwd[0] / bwd[2]:.2f}x cudnn)"
+                        )
+                if mode == "ieee" and key == "512":
+                    bound = _bound_ms(flops, nbytes, FP32_FLOPS)
+                    print(
+                        f"conv ieee {label} x{count}: fwd kernel_ms "
+                        f"{fwd[0]:.4f} cudnn_ms {fwd[2]:.4f} bound_ms "
+                        f"{bound:.4f} ({fwd[0] / bound:.2f}x bound, "
+                        f"{fwd[0] / fwd[2]:.2f}x cudnn){line}",
+                    )
             del x, g, out, w9, w9f, wk, wkf
         gc.collect()
         torch.cuda.empty_cache()
+    _check_ieee_528x960(recs["ieee"]["512"], gen)
+
+
+def _check_ieee_528x960(rec: Record, gen: torch.Generator) -> None:
+    """The IEEE conv through VGG19's stack at a 528x960 coarse level
+    (widths that are not powers of two), a batch of 2: against the
+    plain version and each image bit-equal to its launch alone."""
+    h, w = NON_SQUARE
+    kern = partial(conv3x3.conv3x3_kernel, mode="ieee")
+    for hw, ci, co, _, _ in CONV_SHAPES:
+        scale = SIZE // hw
+        shape = (2, h // scale, w // scale)
+        x = torch.randn((*shape, ci), generator=gen, device="cuda")
+        g = torch.randn((*shape, co), generator=gen, device="cuda")
+        w9 = torch.randn((9, ci, co), generator=gen, device="cuda") * (
+            2.0 / (9 * ci)
+        ) ** 0.5
+        b = torch.randn((co,), generator=gen, device="cuda") * 0.1
+        w9f = flip_stencil(w9)
+        label = f"528x960 batch {'x'.join(map(str, shape))} {ci}->{co}"
+        for relu in (True, False):
+            rec.err(
+                kern(x, (w9,), b, relu),
+                conv3x3.conv3x3_plain(x, w9, b, relu),
+                f"{label} ieee forward relu={relu}",
+            )
+        out = kern(x, (w9,), b, True)
+        rec.err(
+            kern(g, (w9f,), None, False, out),
+            conv3x3.conv3x3_plain(g, w9f, None, False, out),
+            f"{label} ieee masked input gradient",
+        )
+        _check_batch_invariant(x, g, (w9,), (w9f,), b, label, "ieee")
+    print(
+        "conv ieee 528x960 batch of 2, VGG19's stack: ok against the plain "
+        "version, each image bit-equal to its launch alone",
+    )
 
 
 def _check_gram_modes(recs: dict) -> None:
@@ -3929,14 +4015,36 @@ def _mode_entries(recs: dict) -> list[dict]:
     return out
 
 
+def _build_phase() -> None:
+    """Build every kernel (one nvcc each, in parallel) and print, per
+    library, its ``HGMMA`` count and ptxas's registers and spills; the
+    tensor-core libraries must hold ``wgmma``, the IEEE conv none, and
+    no spills (:func:`_check_ieee_build`)."""
+    t0 = time.perf_counter()
+    built = build.build_all()
+    print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
+    for kernel in built:
+        sass = _sass(kernel.library)
+        hgmma = None if sass is None else sass.count("HGMMA")
+        print(f"  {kernel.name}: HGMMA instructions in SASS: {hgmma}")
+        # The IEEE conv runs on the CUDA cores; the other two libraries
+        # hold tensor-core kernels.
+        if kernel.name == "conv3x3_ieee":
+            _check_ieee_build(kernel, sass)
+        elif hgmma == 0:
+            msg = f"{kernel.name}: no wgmma (HGMMA) in the built library"
+            raise AssertionError(msg)
+        for line in kernel.ptxas_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {kernel.name}: {line.strip()}")
+
+
 def _modes_only(card: str) -> int:
     """``--modes``: build, both kernels' new modes at every driven
     shape against their plain versions, and what ``mixed`` moves to
     IEEE fp32 (a check and a measurement, nothing else)."""
     print(f"card: {card}")
-    t0 = time.perf_counter()
-    built = build.build_all()
-    print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
+    _build_phase()
     recs = _mode_records()
     _check_modes(recs)
     print(_mixed_split())
@@ -3972,20 +4080,7 @@ def main(argv: list[str] | None = None) -> int:
         seconds[name] = round(time.perf_counter() - t, 1)
         return out
 
-    t0 = time.perf_counter()
-    built = build.build_all()
-    print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
-    for kernel in built:
-        hgmma = _hgmma_count(kernel.library)
-        print(f"  {kernel.name}: HGMMA instructions in SASS: {hgmma}")
-        # The IEEE conv runs on the CUDA cores; the other two libraries
-        # hold tensor-core kernels.
-        if hgmma == 0 and kernel.name != "conv3x3_ieee":
-            msg = f"{kernel.name}: no wgmma (HGMMA) in the built library"
-            raise AssertionError(msg)
-        for line in kernel.ptxas_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {kernel.name}: {line.strip()}")
+    _build_phase()
 
     records = {}
     for name, source, replaces, batch_key in (

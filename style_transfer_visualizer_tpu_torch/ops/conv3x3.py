@@ -20,8 +20,8 @@ tier does not change the CPU path). Any other device raises. Each mode
 also has a plain version of its own rounding (:func:`conv3x3_plain`),
 which the card's checks hold the kernel against. The tensor-core
 kernel's launch plan (tile shape, stages, shared memory, persistent
-grid) is :func:`conv_plan`, here in Python where the CPU tests reach
-it.
+grid) is :func:`conv_plan`, the IEEE kernel's :func:`ieee_plan`, here
+in Python where the CPU tests reach them.
 
 The backbone is frozen, so the gradient is for the image only: the
 backward runs the same conv on ``g`` with the flipped stencil, no bias,
@@ -161,6 +161,102 @@ def conv_plan(
     )
 
 
+#: Channel slots of one K chunk of the IEEE kernel (two quads of 4).
+IEEE_BK = 8
+#: The IEEE kernel's block shapes: output channels -> threads; a thread
+#: holds 8 pixels by 8 channels, so a block covers threads * 64 / bn
+#: pixels.
+IEEE_BLOCKS = {128: 256, 64: 256, 8: 128}
+_IEEE_MAX_STAGES = 3
+_IEEE_MIN_SPLIT_CHUNKS = 4
+
+
+@dataclass(frozen=True)
+class IeeePlan:
+    """How ``csrc/conv3x3_ieee.cu`` covers one conv.
+
+    A block computes ``rows x cols`` (= ``bm``) pixels of one image by
+    ``bn`` output channels with ``threads`` threads; there are ``tiles``
+    such tiles. K comes in ``chunks`` chunks of ``4 * quads`` input
+    channels (``quads`` = 2, or 1 for ``C_in <= 4``: conv 0's three
+    channels run 36 K steps, 27 of them real), zero beyond ``C_in``;
+    a chunk's A is the ``(rows + 2) x (cols + 2)`` halo'd slab, which
+    serves all nine taps. A stage of the ring holds, in floats, A as
+    ``[quads][slab_px][4]`` (channel quads of ``slab_px`` pixels), the
+    mask's slab at ``mask_off`` when masked, and B as ``[9 *
+    IEEE_BK][bn]`` at ``b_off``; ``stages`` stages of ``stage_floats``.
+    When one image's tiles cannot fill the SMs, K is split ``splits``
+    ways (``split_chunks`` chunks each), chosen per image as if the
+    batch were 1, and the last block of a tile sums the partials in
+    split order: each image of a batch gets its output alone, bit for
+    bit. One block per work item: ``blocks = tiles * splits``.
+    """
+
+    bn: int
+    threads: int
+    bm: int
+    rows: int
+    cols: int
+    quads: int
+    chunks: int
+    slab_px: int
+    stages: int
+    stage_floats: int
+    mask_off: int
+    b_off: int
+    tiles: int
+    splits: int
+    split_chunks: int
+    blocks: int
+    smem_bytes: int
+
+
+@functools.cache
+def ieee_plan(
+    n: int, h: int, w: int, c_in: int, c_out: int, masked: bool, n_sm: int,
+) -> IeeePlan:
+    """The IEEE fp32 kernel's launch plan for an ``(n, h, w, c_in)``
+    input and ``c_out`` outputs; raises if no ring of two stages fits."""
+    bn = 8 if c_out <= 8 else 64 if c_out <= 64 else 128  # noqa: PLR2004
+    threads = IEEE_BLOCKS[bn]
+    bm = threads * 64 // bn
+    # A rectangle about square, cols >= rows, no wider than the image
+    # needs; at most 64 rows, so the slab stays within the ring.
+    square = 1 << -(-(bm.bit_length() - 1) // 2)
+    cols = max(min(square, 1 << (w - 1).bit_length()), bm // 64)
+    rows = bm // cols
+    quads = min(IEEE_BK // 4, -(-c_in // 4))
+    chunks = -(-c_in // (4 * quads))
+    slab_px = -(-(rows + 2) * (cols + 2) // 8) * 8
+    a_floats = 4 * quads * slab_px
+    mask_off = a_floats
+    b_off = a_floats * (2 if masked else 1)
+    stage_floats = -(-(b_off + 9 * IEEE_BK * bn) // 32) * 32
+    stages = min(_IEEE_MAX_STAGES, (SMEM_LIMIT - 16) // (4 * stage_floats))
+    if stages < 2:  # noqa: PLR2004
+        msg = (
+            f"ieee_plan: a {rows}x{cols} tile's stage ({4 * stage_floats} "
+            "bytes) leaves no ring of two in shared memory"
+        )
+        raise ValueError(msg)
+    per_image = -(-h // rows) * -(-w // cols) * -(-c_out // bn)
+    splits = max(
+        1, min(n_sm // per_image, chunks // _IEEE_MIN_SPLIT_CHUNKS),
+    )
+    split_chunks = -(-chunks // splits)
+    splits = -(-chunks // split_chunks)
+    tiles = n * per_image
+    return IeeePlan(
+        bn=bn, threads=threads, bm=bm, rows=rows, cols=cols, quads=quads,
+        chunks=chunks, slab_px=slab_px, stages=stages,
+        stage_floats=stage_floats, mask_off=mask_off, b_off=b_off,
+        tiles=tiles, splits=splits, split_chunks=split_chunks,
+        blocks=tiles * splits,
+        # The ring, then the split-K ticket.
+        smem_bytes=stages * stage_floats * 4 + 16,
+    )
+
+
 def _conv2d(
     x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor | None = None,
 ) -> torch.Tensor:
@@ -240,7 +336,7 @@ def _entry():
 def _ieee_entry():
     fn = build.load("conv3x3_ieee").conv3x3_ieee_forward
     fn.argtypes = [
-        *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 6, ctypes.c_void_p,
+        *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 21, *[ctypes.c_void_p] * 3,
         ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -347,13 +443,28 @@ def conv3x3_kernel(
 
 
 def _launch_ieee(x, w9, b, apply_relu, mask) -> torch.Tensor:
-    """One launch of ``csrc/conv3x3_ieee.cu`` (inputs checked)."""
+    """One launch of ``csrc/conv3x3_ieee.cu`` on its :func:`ieee_plan`
+    (inputs checked)."""
     n, h, w, c_in = x.shape
     c_out = w9.shape[2]
+    plan = ieee_plan(
+        n, h, w, c_in, c_out, mask is not None,
+        build.sm_count(x.device.index),
+    )
     out = torch.empty((n, h, w, c_out), device=x.device, dtype=x.dtype)
+    ws = counters = None
+    if plan.splits > 1:
+        ws = torch.empty(
+            plan.blocks * plan.bm * plan.bn, device=x.device, dtype=x.dtype,
+        )
+        counters = build.arrival_counters(x.device, plan.tiles)
     status = _ieee_entry()(
         x.data_ptr(), _ptr(mask), w9.data_ptr(), _ptr(b), out.data_ptr(),
-        n, h, w, c_in, c_out, int(apply_relu),
+        n, h, w, c_in, c_out, int(apply_relu), plan.bn, plan.threads,
+        plan.rows, plan.cols, plan.quads, plan.chunks, plan.slab_px,
+        plan.stages, plan.stage_floats, plan.mask_off,
+        plan.b_off, plan.splits, plan.split_chunks, plan.blocks,
+        plan.smem_bytes, _ptr(ws), _ptr(counters),
         launches["ieee"].slot(x.device).data_ptr(), x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
