@@ -3,10 +3,17 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --dispatch-ab
     python3 chip_smoke.py --modes
+    python3 chip_smoke.py --tf32-shapes
+    python3 chip_smoke.py --tf32-tiles
 
 The third form builds the kernels and runs only the kernel-mode check
 (phase 4b below) and what ``mixed`` moves to IEEE fp32 (the end of
-phase 5b). The second form runs two graphed A/Bs alone, rounds interleaved, and
+phase 5b). The fourth builds and prints only the TF32 kernels' line per
+512x512 shape (the end of phase 4b), with nothing but the wrappers'
+public calls, so that an older tree's kernels can be timed by the same
+lines. The fifth times the TF32 conv's two tile candidates, 128- and
+256-pixel tiles, at every 512x512 shape read through descriptors. The
+second form runs two graphed A/Bs alone, rounds interleaved, and
 checks nothing else: ``steps_per_dispatch`` 1 against 0 (one dispatch
 of 25) on the 512x512 main path through the runner and on the S = 4
 batch with a CSV row a step; and the regional phase's run with a CSV
@@ -17,12 +24,14 @@ Phases, one line each, in order; any failure raises and the script
 exits non-zero:
 
 1. card: name and power limit from ``nvidia-smi``;
-2. build: the three CUDA sources under
+2. build: the four CUDA sources under
    ``style_transfer_visualizer_tpu_torch/csrc/`` with ``nvcc`` for
    ``sm_90a``, with each library's count of ``HGMMA`` instructions
    (``wgmma`` on the tensor cores) from ``cuobjdump -sass`` where the
    toolkit has it (none in ``conv3x3_ieee``, on the CUDA cores: no
-   ``HGMMA`` or ``HMMA`` there, and no spills in its ptxas report);
+   ``HGMMA`` or ``HMMA`` there, and no spills in its ptxas report); the
+   TF32 kernels (``conv3x3_tf32``, ``gram``'s ``gram_tf32_kernel``)
+   with ``HGMMA``, their registers, and no spills;
 3. conv check: the conv kernel against its plain PyTorch version at
    every conv shape of the 512x512 main path, of the objective phase's
    1024x1024 steps and of the batch phase's 512x512 steps at N = 4
@@ -50,11 +59,15 @@ exits non-zero:
    first tap, 1280x720, with and without an active clamp, each batched
    image bit-equal to the mode's single launch), within 1e-4; timed
    beside the plain version and cuDNN / ``torch.mm`` (fp32 for IEEE,
-   TF32 on for TF32), two graph-timed calls a timing. The IEEE conv
+   TF32 on for TF32), two graph-timed calls a timing. Both conv modes
    also: at N = 4 and through VGG19's stack at a 528x960 batch of 2
    (checked only), each image's output and masked input gradient
-   bit-equal to its launch alone; one line per 512x512 shape, forward
-   and input gradient, kernel ms against the fp32 bound and cuDNN;
+   bit-equal to its launch alone; the IEEE conv one line per 512x512
+   shape, forward and input gradient, kernel ms against the fp32 bound
+   and cuDNN; then the TF32 conv's and the five TF32 Grams' line per
+   512x512 shape (forward, and the input gradient as the main path runs
+   it), kernel ms against the TF32 bound and cuDNN / ``torch.mm`` with
+   TF32 on, from graphs of 5 calls replayed twice;
 5. main path: ``run_style_transfer`` at 512x512 on full-width VGG19
    (seeded weights, shipped defaults) for 20 L-BFGS steps through the
    port's runner (no progress bar), with the launch counts set to 0
@@ -462,6 +475,49 @@ def _sass(library) -> str | None:
         [tool, "-sass", str(library)],
         capture_output=True, text=True, check=True, timeout=120,
     ).stdout
+
+
+def _ptxas_functions(log: str) -> dict[str, dict[str, int]]:
+    """Per entry function of a ptxas ``-v`` report: its registers and
+    spill bytes (stores plus loads)."""
+    out: dict[str, dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        if m := re.search(r"(?:entry function|Function properties for) '?"
+                          r"([\w$]+)", line):
+            name = m.group(1)
+            out.setdefault(name, {"registers": 0, "spill": 0})
+        elif name and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[name]["spill"] += int(m.group(1)) + int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def _check_tf32_build(kernel: build.BuiltKernel, hgmma: int | None) -> None:
+    """The TF32 kernels (all of ``conv3x3_tf32``, ``gram``'s
+    ``gram_tf32_kernel``) hold ``wgmma`` and spill nothing; prints each
+    one's registers."""
+    funcs = {
+        name: v for name, v in _ptxas_functions(kernel.ptxas_log).items()
+        if kernel.name == "conv3x3_tf32" or "gram_tf32" in name
+    }
+    if not funcs:
+        msg = f"{kernel.name}: no TF32 kernel in the ptxas report"
+        raise AssertionError(msg)
+    if hgmma == 0:
+        msg = f"{kernel.name}: no wgmma (HGMMA) in the built library"
+        raise AssertionError(msg)
+    for name, v in sorted(funcs.items()):
+        print(
+            f"  {kernel.name} TF32 {name}: {v['registers']} registers, "
+            f"{v['spill']} bytes spilled",
+        )
+    spilled = [name for name, v in funcs.items() if v["spill"]]
+    if spilled:
+        msg = f"{kernel.name}: TF32 kernels spill: {spilled}"
+        raise AssertionError(msg)
 
 
 def _check_ieee_build(kernel: build.BuiltKernel, sass: str | None) -> None:
@@ -2975,8 +3031,8 @@ def _runner_ms(bundle, holder: dict, config, steps: int) -> float:
 
 # The conv's and the Gram's device kernels, every mode.
 _PORT_KERNELS = (
-    ("conv3x3_tc_kernel", "conv3x3_ieee_kernel"),
-    ("gram_tc_kernel", "gram_ieee_kernel"),
+    ("conv3x3_tc_kernel", "conv3x3_tf32_kernel", "conv3x3_ieee_kernel"),
+    ("gram_tc_kernel", "gram_tf32_kernel", "gram_ieee_kernel"),
 )
 
 
@@ -3583,7 +3639,7 @@ def _check_conv_modes(recs: dict) -> None:
                     plain(g, w9f, None, False, out),
                     f"{label} {mode} masked input gradient",
                 )
-                if mode == "ieee" and n > 1:
+                if n > 1:
                     _check_batch_invariant(x, g, st, stf, b, label, mode)
                 fwd = tuple(map(_few_ms, (
                     partial(kern, x, st, b, True),
@@ -3630,15 +3686,18 @@ def _check_conv_modes(recs: dict) -> None:
             del x, g, out, w9, w9f, wk, wkf
         gc.collect()
         torch.cuda.empty_cache()
-    _check_ieee_528x960(recs["ieee"]["512"], gen)
+    for mode in NEW_MODES:
+        _check_528x960(recs[mode]["512"], gen, mode)
 
 
-def _check_ieee_528x960(rec: Record, gen: torch.Generator) -> None:
-    """The IEEE conv through VGG19's stack at a 528x960 coarse level
+def _check_528x960(rec: Record, gen: torch.Generator, mode: str) -> None:
+    """``mode``'s conv through VGG19's stack at a 528x960 coarse level
     (widths that are not powers of two), a batch of 2: against the
-    plain version and each image bit-equal to its launch alone."""
+    mode's plain version and each image bit-equal to its launch
+    alone."""
     h, w = NON_SQUARE
-    kern = partial(conv3x3.conv3x3_kernel, mode="ieee")
+    kern = partial(conv3x3.conv3x3_kernel, mode=mode)
+    plain = partial(conv3x3.conv3x3_plain, mode=mode)
     for hw, ci, co, _, _ in CONV_SHAPES:
         scale = SIZE // hw
         shape = (2, h // scale, w // scale)
@@ -3649,23 +3708,23 @@ def _check_ieee_528x960(rec: Record, gen: torch.Generator) -> None:
         ) ** 0.5
         b = torch.randn((co,), generator=gen, device="cuda") * 0.1
         w9f = flip_stencil(w9)
+        st = conv3x3.mode_stencil(mode, w9, pack_stencil(w9))
+        stf = conv3x3.mode_stencil(mode, w9f, pack_stencil(w9f))
         label = f"528x960 batch {'x'.join(map(str, shape))} {ci}->{co}"
         for relu in (True, False):
             rec.err(
-                kern(x, (w9,), b, relu),
-                conv3x3.conv3x3_plain(x, w9, b, relu),
-                f"{label} ieee forward relu={relu}",
+                kern(x, st, b, relu), plain(x, w9, b, relu),
+                f"{label} {mode} forward relu={relu}",
             )
-        out = kern(x, (w9,), b, True)
+        out = kern(x, st, b, True)
         rec.err(
-            kern(g, (w9f,), None, False, out),
-            conv3x3.conv3x3_plain(g, w9f, None, False, out),
-            f"{label} ieee masked input gradient",
+            kern(g, stf, None, False, out), plain(g, w9f, None, False, out),
+            f"{label} {mode} masked input gradient",
         )
-        _check_batch_invariant(x, g, (w9,), (w9f,), b, label, "ieee")
+        _check_batch_invariant(x, g, st, stf, b, label, mode)
     print(
-        "conv ieee 528x960 batch of 2, VGG19's stack: ok against the plain "
-        "version, each image bit-equal to its launch alone",
+        f"conv {mode} 528x960 batch of 2, VGG19's stack: ok against the "
+        "plain version, each image bit-equal to its launch alone",
     )
 
 
@@ -3743,7 +3802,7 @@ def _mode_records() -> dict[str, dict[str, tuple[Record, dict]]]:
     ):
         for mode in NEW_MODES:
             source = (
-                "csrc/conv3x3_ieee.cu" if (name, mode) == ("conv3x3", "ieee")
+                f"csrc/conv3x3_{mode}.cu" if name == "conv3x3"
                 else f"csrc/{name}.cu"
             )
             keys = (
@@ -3769,7 +3828,8 @@ def _by_key(recs: dict, name: str, mode: str) -> dict[str, Record]:
 
 def _check_modes(recs: dict) -> None:
     """Both kernels' new modes at every driven shape, with one line per
-    kernel, mode and shape set."""
+    kernel, mode and shape set; then the TF32 kernels' line per 512x512
+    shape (:func:`_tf32_shape_lines`)."""
     conv_recs = {m: _by_key(recs, "conv3x3", m) for m in NEW_MODES}
     gram_recs = {m: _by_key(recs, "gram", m) for m in NEW_MODES}
     for name, check, sets, by_mode in (
@@ -3788,6 +3848,173 @@ def _check_modes(recs: dict) -> None:
                     f"library {e.entry['library_ms']:.4f} bound "
                     f"{e.bound_s * 1e3:.4f}",
                 )
+    for line in _tf32_shape_lines():
+        print(line)
+
+
+def _tf32_shape_lines() -> list[str]:
+    """One line per 512x512 shape of the TF32 conv (the forward, and the
+    input gradient as the main path runs it: masked for a conv fused with
+    its ReLU) and of the five TF32 Grams, alone and at S = 4 in one
+    launch: kernel ms against the TF32 bound and cuDNN / ``torch.mm``
+    (``torch.bmm``) with TF32 on, each from a graph of 5 calls replayed
+    twice. Uses only the wrappers' public calls, so the
+    same lines can be taken on an older tree (``--tf32-shapes``)."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    kern = partial(conv3x3.conv3x3_kernel, mode="tf32")
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    lines = []
+    for hw, ci, co, count, fused in CONV_SHAPES:
+        x = rand(1, hw, hw, ci)
+        w9 = rand(9, ci, co, scale=(2.0 / (9 * ci)) ** 0.5)
+        b = rand(co, scale=0.1)
+        g = rand(1, hw, hw, co)
+        w9f = flip_stencil(w9)
+        st = conv3x3.mode_stencil("tf32", w9, pack_stencil(w9))
+        stf = conv3x3.mode_stencil("tf32", w9f, pack_stencil(w9f))
+        w_oihw, wf_oihw = (
+            t.reshape(3, 3, *t.shape[1:]).permute(3, 2, 0, 1).contiguous()
+            for t in (w9, w9f)
+        )
+        out = kern(x, st, b, True)
+        pix = hw * hw
+        flops = 2.0 * 9 * pix * ci * co
+        nbytes = 4.0 * (pix * (ci + co) + 9 * ci * co)
+        runs = [(
+            f"fwd x{count}", partial(kern, x, st, b, True),
+            partial(F.conv2d, x.permute(0, 3, 1, 2), w_oihw, b, padding=1),
+            4.0 * co,
+        )]
+        for n_bwd, mask, extra in (
+            (fused, out, 4.0 * pix * co), (count - fused, None, 0.0),
+        ):
+            if n_bwd:
+                gl = g if mask is None else torch.where(mask > 0, g, 0.0)
+                runs.append((
+                    f"bwd x{n_bwd} mask={mask is not None}",
+                    partial(kern, g, stf, None, False, mask),
+                    partial(F.conv2d, gl.permute(0, 3, 1, 2), wf_oihw, None,
+                            padding=1),
+                    extra,
+                ))
+        parts = []
+        for what, fn, lib, extra in runs:
+            k_ms, lib_ms = _time_ms(fn), _time_ms(_tf32_on(lib))
+            bound = _bound_ms(flops, nbytes + extra, TF32_FLOPS)
+            parts.append(
+                f"{what} kernel_ms {k_ms:.4f} cudnn_ms {lib_ms:.4f} "
+                f"bound_ms {bound:.4f} ({k_ms / bound:.2f}x bound, "
+                f"{k_ms / lib_ms:.2f}x cudnn)",
+            )
+        lines.append(
+            f"tf32 shape conv {SIZE} {hw}x{hw} {ci}->{co}: "
+            + " | ".join(parts),
+        )
+    for p, c in GRAM_SHAPES:
+        f = rand(p, c)
+        k_ms = _time_ms(partial(gram.gram_kernel, f, CLAMP, float(p * c),
+                                "tf32"))
+        lib_ms = _time_ms(_tf32_on(partial(torch.mm, f.T, f)))
+        bound = _bound_ms(
+            float(p * c * (c + 1)), 4.0 * (p * c + 2 * c * c), TF32_FLOPS,
+        )
+        lines.append(
+            f"tf32 shape gram {SIZE} ({p},{c}): kernel_ms {k_ms:.4f} "
+            f"torch_mm_ms {lib_ms:.4f} bound_ms {bound:.4f} "
+            f"({k_ms / bound:.2f}x bound, {k_ms / lib_ms:.2f}x torch.mm)",
+        )
+        f = rand(BATCH_STYLES, p, c)
+        k_ms = _time_ms(partial(gram.gram_kernel_batched, f, CLAMP,
+                                float(p * c), "tf32"))
+        lib_ms = _time_ms(_tf32_on(partial(torch.bmm, f.mT, f)))
+        lines.append(
+            f"tf32 shape gram S={BATCH_STYLES} ({p},{c}): kernel_ms "
+            f"{k_ms:.4f} torch_bmm_ms {lib_ms:.4f} bound_ms "
+            f"{BATCH_STYLES * bound:.4f}",
+        )
+    return lines
+
+
+def _tf32_tile_lines() -> list[str]:
+    """The TF32 conv's two tile candidates at every 512x512 shape read
+    through descriptors: 128-pixel tiles (``wm`` 1) against 256-pixel
+    ones (``wm`` 2, each B box serving twice the pixels), forward and
+    input gradient as the main path runs them, each forced through
+    ``tf32_plan``'s ``wm``; kernel ms a step, graphs of 5 calls."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    kern = partial(conv3x3.conv3x3_kernel, mode="tf32")
+    chosen = conv3x3.tf32_plan
+    lines = []
+    totals = {1: 0.0, 2: 0.0, "plan": 0.0}
+    for hw, ci, co, count, fused in CONV_SHAPES:
+        x = torch.randn((1, hw, hw, ci), generator=gen, device="cuda")
+        g = torch.randn((1, hw, hw, co), generator=gen, device="cuda")
+        w9 = torch.randn((9, ci, co), generator=gen, device="cuda") * (
+            2.0 / (9 * ci)
+        ) ** 0.5
+        b = torch.zeros(co, device="cuda")
+        st = (pack_stencil(w9)[0],)
+        stf = (pack_stencil(flip_stencil(w9))[0],)
+        out = kern(x, st, b, True)
+        calls = [(count, partial(kern, x, st, b, True), ci, co, False)]
+        calls += [
+            (n_bwd, partial(kern, g, stf, None, False, mask), co, ci,
+             mask is not None)
+            for n_bwd, mask in ((fused, out), (count - fused, None)) if n_bwd
+        ]
+        parts = []
+        for wm in (1, 2, "plan"):
+            ms = 0.0
+            for n_call, fn, c_in, c_out, masked in calls:
+                plan = chosen(1, hw, hw, c_in, c_out, masked,
+                              build.sm_count(0))
+                # Register fragments (the 32-wide layer) take 128 only.
+                forced = wm != "plan" and plan.ss
+                conv3x3.tf32_plan = (
+                    partial(chosen, wm=wm) if forced else chosen
+                )
+                try:
+                    ms += n_call * _time_ms(fn)
+                finally:
+                    conv3x3.tf32_plan = chosen
+            totals[wm] += ms
+            parts.append(f"{wm if wm == 'plan' else 128 * wm} {ms:.4f}")
+        lines.append(
+            f"tf32 tiles conv {SIZE} {hw}x{hw} {ci}->{co} ms/step by tile "
+            "pixels: " + ", ".join(parts),
+        )
+    lines.append(
+        "tf32 tiles conv 512 step: 128-pixel tiles "
+        f"{totals[1]:.4f}, 256-pixel {totals[2]:.4f}, as planned "
+        f"{totals['plan']:.4f} ms",
+    )
+    return lines
+
+
+def _tf32_shapes_only(card: str) -> int:
+    """``--tf32-shapes``: build, then :func:`_tf32_shape_lines` alone (a
+    measurement, no check)."""
+    print(f"card: {card}")
+    t0 = time.perf_counter()
+    built = build.build_all()
+    print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
+    for line in _tf32_shape_lines():
+        print(line)
+    print(f"card: {card}")
+    return 0
+
+
+def _tf32_tiles_only(card: str) -> int:
+    """``--tf32-tiles``: build, then :func:`_tf32_tile_lines` alone."""
+    print(f"card: {card}")
+    build.build_all()
+    for line in _tf32_tile_lines():
+        print(line)
+    print(f"card: {card}")
+    return 0
 
 
 def _mixed_split() -> str:
@@ -4019,7 +4246,8 @@ def _build_phase() -> None:
     """Build every kernel (one nvcc each, in parallel) and print, per
     library, its ``HGMMA`` count and ptxas's registers and spills; the
     tensor-core libraries must hold ``wgmma``, the IEEE conv none, and
-    no spills (:func:`_check_ieee_build`)."""
+    neither the IEEE conv nor the TF32 kernels spill
+    (:func:`_check_ieee_build`, :func:`_check_tf32_build`)."""
     t0 = time.perf_counter()
     built = build.build_all()
     print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
@@ -4034,6 +4262,8 @@ def _build_phase() -> None:
         elif hgmma == 0:
             msg = f"{kernel.name}: no wgmma (HGMMA) in the built library"
             raise AssertionError(msg)
+        if kernel.name in ("conv3x3_tf32", "gram"):
+            _check_tf32_build(kernel, hgmma)
         for line in kernel.ptxas_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {kernel.name}: {line.strip()}")
@@ -4070,6 +4300,10 @@ def main(argv: list[str] | None = None) -> int:
         return _dispatch_ab(card)
     if args == ["--modes"]:
         return _modes_only(card)
+    if args == ["--tf32-shapes"]:
+        return _tf32_shapes_only(card)
+    if args == ["--tf32-tiles"]:
+        return _tf32_tiles_only(card)
     print(f"card: {card}")
     start = time.perf_counter()
     seconds: dict[str, float] = {}

@@ -1,10 +1,10 @@
 // Raw Gram matrices F_s^T F_s of a (S, P, C) float32 batch, plus the
 // clamped and normalized G_s = min(raw_s, clamp) / n, in one launch for
 // all S images, in one of three modes (the precision tiers of
-// ops/precision.py): on Hopper's tensor cores in 3xTF32 or in TF32 (see
-// tf32x3.cuh; gram_tc_kernel), or in IEEE fp32 on the CUDA cores
-// (gram_ieee_kernel). All three share the grid, the split over P and
-// the fixed-order sum of the partial tiles described below.
+// ops/precision.py): on Hopper's tensor cores in 3xTF32 (see tf32x3.cuh;
+// gram_tc_kernel) or in TF32 (gram_tf32_kernel), or in IEEE fp32 on the
+// CUDA cores (gram_ieee_kernel). All three share the grid, the split
+// over P and the fixed-order sum of the partial tiles described below.
 //
 // Replaces the Pallas TPU kernel `_gram_accumulate_kernel` (with its
 // driver `_raw_gram`) of style_transfer_visualizer_tpu/ops/pallas_gram.py.
@@ -26,9 +26,20 @@
 //     the hi/lo split in registers, read transposed from the slot; B
 //     must be K-major (pixels contiguous) for a tf32 wgmma, so one pass
 //     splits and transposes the F_j slab into hi and lo tiles in shared
-//     memory; then three wgmma m64n64k8 per k8 slice (3xTF32). In the
-//     TF32 mode both operands are only rounded to tf32 (no lo tile) and
-//     one wgmma runs per k8 slice;
+//     memory; then three wgmma m64n64k8 per k8 slice (3xTF32);
+//   - the TF32 mode (one product, both operands rounded to tf32) keeps
+//     its products in flight instead: 8 slabs of 64 rows (two K steps,
+//     one wgmma group, a barrier round) accumulate in the wgmma
+//     accumulator before one promotion (the tensor cores' fp32 sum
+//     truncates, so a whole split range of up to 16K rows in one
+//     accumulator drifts by 1e-4), the transposed B tile and A's
+//     fragments are double-buffered so that slab s+1 is prepared while
+//     slab s's products are in flight (wgmma.wait_group 1), and on a
+//     diagonal pair A = B = F_i^T comes from that one tile through
+//     descriptors; its last blocks write raw and G through a tile staged
+//     in shared memory, rows and mirror rows on consecutive addresses
+//     (the mirror's element-by-element stores lie a row apart, about
+//     10 µs a launch);
 //   - in the IEEE mode a 128-thread block stages 32-row slabs of F_i and
 //     F_j in shared memory (two buffers, the next slab's loads in flight
 //     in registers during this one's products) and each thread keeps 4
@@ -54,6 +65,8 @@
 // at 495 TFLOP/s; IEEE: by the 67 TFLOP/s of fp32 FMA from C = 64).
 #define TF32X3_HOST
 #include "tf32x3.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -119,6 +132,28 @@ __device__ __forceinline__ bool last_to_arrive(int* counter, int expected,
   return true;
 }
 
+// The TF32 kernel's ticket: the CTA's partial-tile writes come before
+// thread 0's release-acquire add through the barrier (the release is
+// cumulative), and the other blocks' writes before this CTA's reads
+// through the acquire and the barrier after it; no fence of every
+// thread.
+__device__ __forceinline__ bool last_to_arrive_acq_rel(int* counter,
+                                                       int expected,
+                                                       int* flag) {
+  named_sync(1, kConsumers);
+  if (threadIdx.x == 0) {
+    int old;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
+                 : "=r"(old)
+                 : "l"(counter)
+                 : "memory");
+    *flag = old == expected - 1;
+    if (*flag) *counter = 0;
+  }
+  named_sync(1, kConsumers);
+  return *flag;
+}
+
 // Element (pixel k, channel m) of a slab: two 32-channel boxes.
 __device__ __forceinline__ int slab_off(int k, int m) {
   return (m >> 5) * kSubFloats + swz(k, m & 31);
@@ -157,12 +192,15 @@ __device__ __forceinline__ float* partial_tile(const GramArgs& args) {
 
 // After the block's 128 consumer threads wrote its partial tile: the
 // two-level fixed-order sum, and the last block of the pair writes raw
-// and G (both triangles).
+// and G (both triangles). With `stage` (shared memory for a 64 x 65
+// tile; the TF32 kernel's), the tickets are release-acquire adds and
+// the last block writes through the staged tile, row by row
+// (write_pair_staged), instead of element by element: kStaged.
+template <bool kStaged = false>
 __device__ void sum_partials(const GramArgs& args, const Pair& pr,
-                             int* flag);
+                             int* flag, float* stage = nullptr);
 
-// X3: 3xTF32; otherwise TF32 (no lo tiles).
-template <bool X3>
+// The 3xTF32 mode.
 __global__ void __launch_bounds__(kThreads, 2)
 gram_tc_kernel(const __grid_constant__ CUtensorMap map_f,
                const GramArgs args) {
@@ -174,8 +212,7 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap map_f,
   // Slots (F_i slab, F_j slab) then the transposed B hi and lo tiles.
   float* bt_hi = reinterpret_cast<float*>(smem + stages * 2 * kSlabBytes);
   float* bt_lo = bt_hi + kT * kRowFloats;
-  uint64_t* full =
-      reinterpret_cast<uint64_t*>(bt_hi + (X3 ? 2 : 1) * kT * kRowFloats);
+  uint64_t* full = reinterpret_cast<uint64_t*>(bt_hi + 2 * kT * kRowFloats);
   uint64_t* empty = full + stages;
   __shared__ int flag;
   count_launch(args.launches);
@@ -255,15 +292,13 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap map_f,
       uint32_t l[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        operand<X3>(fj[slab_off(k + e, tn)], h[e], l[e]);
+        split(fj[slab_off(k + e, tn)], h[e], l[e]);
       }
       const int off = swz(tn, k);
       *reinterpret_cast<uint4*>(bt_hi + off) = make_uint4(h[0], h[1], h[2],
                                                           h[3]);
-      if constexpr (X3) {
-        *reinterpret_cast<uint4*>(bt_lo + off) = make_uint4(l[0], l[1], l[2],
-                                                            l[3]);
-      }
+      *reinterpret_cast<uint4*>(bt_lo + off) = make_uint4(l[0], l[1], l[2],
+                                                          l[3]);
     }
     // A = F_i^T from registers: element (m, k) is F_i[k][m].
     uint32_t hi[4][4];
@@ -275,7 +310,7 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap map_f,
                           slab_off(c0 + 4, row0), slab_off(c0 + 4, row1)};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        operand<X3>(fi[off[e]], hi[kk][e], lo[kk][e]);
+        split(fi[off[e]], hi[kk][e], lo[kk][e]);
       }
     }
     fence_async_smem();
@@ -284,8 +319,7 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap map_f,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      mma_mode<kT, X3>(part, hi[kk], lo[kk], dhi + 2 * kk, dlo + 2 * kk,
-                       kk == 0);
+      mma3<kT>(part, hi[kk], lo[kk], dhi + 2 * kk, dlo + 2 * kk, kk == 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -305,6 +339,208 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap map_f,
         make_float2(acc[4 * j + 2], acc[4 * j + 3]);
   }
   sum_partials(args, pr, &flag);
+}
+
+// The TF32 mode: the one product tf32(F_i)^T tf32(F_j) a k8 slice, its
+// products kept in flight. Slabs of 64 pixel rows (two 64 x 32 TMA boxes
+// of F_i and of F_j); per slab, two K steps of 32 (eight wgmma m64n64k8)
+// committed as one group. The transposed B tile and A's register
+// fragments are double-buffered: right after slab s's group is issued
+// and the one before it has retired (wait_group 1), slab s+1's F_j is
+// transposed into the other tile and its F_i read into the other
+// fragments, and its slot is handed back, so that TMA keeps two slabs in
+// flight; a named barrier per slab publishes the tile. A = F_i^T comes
+// from registers, or, on a diagonal pair, from the transposed tile
+// itself through a descriptor, as B does. Every
+// kPromote slabs the accumulator is added to the running sum in
+// registers, rounded to nearest, and the next group starts it afresh.
+constexpr int kKP1 = 64;                        // pixel rows per slab
+constexpr int kSub1Floats = kKP1 * kRowFloats;  // one 64 x 32 TMA box
+constexpr int kSlab1Bytes = kKP1 * kT * 4;      // 64 rows x 64 channels
+constexpr int kBtFloats = kT * kRowFloats;      // 64 channels x 32 pixels
+constexpr int kBt1Floats = (kKP1 / kRowFloats) * kBtFloats;  // one tile
+constexpr int kPromote = 8;  // slabs a promotion (512 rows)
+
+// Element (pixel k, channel m) of a 64-row slab.
+__device__ __forceinline__ int slab1_off(int k, int m) {
+  return (m >> 5) * kSub1Floats + swz(k, m & 31);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+gram_tf32_kernel(const __grid_constant__ CUtensorMap map_f,
+                 const GramArgs args) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int stages = args.stages;
+  // Slots (F_i slab, F_j slab), then the two transposed tiles. With one
+  // tile a side every pair is diagonal and a slot holds F_i alone (the
+  // plan gives it twice the slots).
+  const int slot_bytes = (args.tiles == 1 ? 1 : 2) * kSlab1Bytes;
+  float* bt = reinterpret_cast<float*>(smem + stages * slot_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(bt + 2 * kBt1Floats);
+  uint64_t* empty = full + stages;
+  __shared__ int flag;
+  count_launch(args.launches);
+
+  const Pair pr = pair_of_block(args);
+  const bool diag = pr.diag;
+  const int steps =
+      static_cast<int>((pr.p_end - pr.p_begin + kKP1 - 1) / kKP1);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], kConsumers);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  auto slab_i = [&](int s) {
+    return reinterpret_cast<float*>(smem + s * slot_bytes);
+  };
+  auto slab_j = [&](int s) {
+    return diag ? slab_i(s) : slab_i(s) + kT * kKP1;
+  };
+
+  if (tid >= kConsumers) {
+    // ---- producer: one thread issues the TMA loads
+    if (tid != kConsumers) return;
+    const uint32_t bytes = (diag ? 1 : 2) * kSlab1Bytes;
+    for (int s = 0; s < steps; ++s) {
+      const int slot = s % stages;
+      const int round = s / stages;
+      if (round > 0) bar_wait(&empty[slot], (round - 1) & 1);
+      const int p0 = static_cast<int>(pr.p_begin) + s * kKP1;
+      bar_arrive_tx(&full[slot], bytes);
+      float* fi = slab_i(slot);
+      tma_3d(fi, &map_f, &full[slot], pr.i0, p0, pr.image);
+      tma_3d(fi + kSub1Floats, &map_f, &full[slot], pr.i0 + 32, p0,
+             pr.image);
+      if (!diag) {
+        float* fj = slab_j(slot);
+        tma_3d(fj, &map_f, &full[slot], pr.j0, p0, pr.image);
+        tma_3d(fj + kSub1Floats, &map_f, &full[slot], pr.j0 + 32, p0,
+               pr.image);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int row0 = (tid >> 5) * 16 + g;
+  const int row1 = row0 + 8;
+  const int tn = tid & (kT - 1);  // transpose role: channel n of F_j
+  const int tq = tid >> 6;        // and the pixel quads tq, tq + 2, ...
+  float acc[kT / 2];
+  float part[kT / 2];
+#pragma unroll
+  for (int i = 0; i < kT / 2; ++i) acc[i] = part[i] = 0.f;
+  // A's fragments (as in mma_n8) of a slab's two K steps, for the slab
+  // in flight and the next one.
+  uint32_t frag[2][kKP1 / kRowFloats][4][4] = {};
+  // Slab s made ready one slab ahead: F_j rounded and transposed into
+  // tile s & 1 (tile[n][k] = tf32(F_j[k][n]), K-major in two 32-pixel
+  // blocks, 4 pixels a store), F_i's fragments read into frag[P]; then
+  // its slot goes back to the producer, so two slabs load while one
+  // computes.
+  auto prepare = [&](int s, auto parity) {
+    constexpr int P = decltype(parity)::value;
+    const int slot = s % stages;
+    bar_wait(&full[slot], (s / stages) & 1);
+    const float* fi = slab_i(slot);
+    const float* fj = slab_j(slot);
+    float* tile = bt + P * kBt1Floats;
+#pragma unroll
+    for (int it = 0; it < kKP1 / 8; ++it) {
+      const int k = 4 * (tq + 2 * it);
+      uint32_t h[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h[e] = to_tf32(fj[slab1_off(k + e, tn)]);
+      *reinterpret_cast<uint4*>(tile + (k >> 5) * kBtFloats +
+                                swz(tn, k & 31)) =
+          make_uint4(h[0], h[1], h[2], h[3]);
+    }
+    if (!diag) {
+#pragma unroll
+      for (int c = 0; c < kKP1 / kRowFloats; ++c) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int k = c * kRowFloats + kk * 8 + tig;
+          frag[P][c][kk][0] = to_tf32(fi[slab1_off(k, row0)]);
+          frag[P][c][kk][1] = to_tf32(fi[slab1_off(k, row1)]);
+          frag[P][c][kk][2] = to_tf32(fi[slab1_off(k + 4, row0)]);
+          frag[P][c][kk][3] = to_tf32(fi[slab1_off(k + 4, row1)]);
+        }
+      }
+    }
+    bar_arrive(&empty[slot]);
+  };
+  // Slab s's two K steps from tile P and frag[P], one group; slab s + 1
+  // is made ready while it is in flight.
+  auto compute = [&](int s, auto parity) {
+    constexpr int P = decltype(parity)::value;
+    const float* tile = bt + P * kBt1Floats;
+    fence_regs(part);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kKP1 / kRowFloats; ++c) {
+      const uint64_t db = desc_k_major(tile + c * kBtFloats);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        // The first product after a promotion starts the tile afresh.
+        const int scale_d = c == 0 && kk == 0 && s % kPromote == 0 ? 0 : 1;
+        if (diag) {
+          mma_ss<kT>(part, db + 2 * kk, db + 2 * kk, scale_d);
+        } else {
+          mma<kT>(part, frag[P][c][kk], db + 2 * kk, scale_d);
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    // Slab s - 1's group has retired: the other tile and fragments are
+    // free.
+    fence_frag(frag[P ^ 1][0]);
+    fence_frag(frag[P ^ 1][1]);
+    if (s + 1 < steps) prepare(s + 1, std::integral_constant<int, P ^ 1>{});
+    if (s % kPromote == kPromote - 1 || s == steps - 1) {
+      wgmma_wait<0>();
+      fence_regs(part);
+      promote(acc, part);
+    }
+    fence_async_smem();
+    named_sync(1, kConsumers);
+  };
+  if (steps > 0) {
+    prepare(0, std::integral_constant<int, 0>{});
+    fence_async_smem();
+    named_sync(1, kConsumers);
+  }
+  for (int s = 0; s < steps; s += 2) {
+    compute(s, std::integral_constant<int, 0>{});
+    if (s + 1 < steps) compute(s + 1, std::integral_constant<int, 1>{});
+  }
+  fence_frag(frag[0][0]);
+  fence_frag(frag[0][1]);
+  fence_frag(frag[1][0]);
+  fence_frag(frag[1][1]);
+
+  // ---- partial tile, then the two-level fixed-order sum
+  float* mine = partial_tile(args);
+#pragma unroll
+  for (int j = 0; j < kT / 8; ++j) {
+    const int col = 8 * j + 2 * tig;
+    *reinterpret_cast<float2*>(mine + row0 * kT + col) =
+        make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(mine + row1 * kT + col) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  // The ring is idle now: its first 16.6 KB stage the final tile.
+  sum_partials<true>(args, pr, &flag, reinterpret_cast<float*>(smem));
 }
 
 // The IEEE fp32 mode on the CUDA cores: the same grid, split and sum as
@@ -402,8 +638,57 @@ gram_ieee_kernel(const float* __restrict__ f, const GramArgs args) {
   sum_partials(args, pr, &flag);
 }
 
+// The last block's write of a pair through shared memory: the summed
+// tile staged at a pitch of 65 floats (its columns read without bank
+// conflicts), then raw and G written row by row, each warp on
+// consecutive addresses: rows i0 + r (for a diagonal pair the lower
+// triangle taken from the upper, so raw stays bit-symmetric), then, off
+// the diagonal, the mirror rows j0 + c.
+constexpr int kStagePitch = kT + 1;
+
+__device__ void write_pair_staged(const GramArgs& args, const Pair& pr,
+                                  const float4 (&sum)[kVecs], float* stage) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int v = 0; v < kVecs; ++v) {
+    const int idx = 4 * (tid + v * kConsumers);
+    float* row = stage + (idx / kT) * kStagePitch + idx % kT;
+    row[0] = sum[v].x;
+    row[1] = sum[v].y;
+    row[2] = sum[v].z;
+    row[3] = sum[v].w;
+  }
+  named_sync(1, kConsumers);
+  const long long base = static_cast<long long>(pr.image) * args.c * args.c;
+  for (int e = tid; e < kTileFloats; e += kConsumers) {
+    const int r = e / kT;
+    const int cc = e % kT;
+    const int i = pr.i0 + r;
+    const int j = pr.j0 + cc;
+    if (i >= args.c || j >= args.c) continue;
+    const float v = pr.diag && r > cc ? stage[cc * kStagePitch + r]
+                                      : stage[r * kStagePitch + cc];
+    args.raw[base + static_cast<long long>(i) * args.c + j] = v;
+    args.g[base + static_cast<long long>(i) * args.c + j] =
+        fminf(v, args.clamp) / args.norm;
+  }
+  if (pr.diag) return;
+  for (int e = tid; e < kTileFloats; e += kConsumers) {
+    const int cc = e / kT;
+    const int r = e % kT;
+    const int i = pr.i0 + r;
+    const int j = pr.j0 + cc;
+    if (i >= args.c || j >= args.c) continue;
+    const float v = stage[r * kStagePitch + cc];
+    args.raw[base + static_cast<long long>(j) * args.c + i] = v;
+    args.g[base + static_cast<long long>(j) * args.c + i] =
+        fminf(v, args.clamp) / args.norm;
+  }
+}
+
+template <bool kStaged>
 __device__ void sum_partials(const GramArgs& args, const Pair& pr,
-                             int* flag) {
+                             int* flag, float* stage) {
   const int tid = threadIdx.x;
   const int pair = static_cast<int>(blockIdx.z * gridDim.x + blockIdx.x);
   const int split = static_cast<int>(blockIdx.y);
@@ -417,7 +702,14 @@ __device__ void sum_partials(const GramArgs& args, const Pair& pr,
   const int grp = split / args.group;
   const int first = grp * args.group;
   const int in_group = min(args.group, args.splits - first);
-  if (!last_to_arrive(&counters[grp], in_group, flag)) return;
+  auto ticket = [&](int* counter, int expected) {
+    if constexpr (kStaged) {
+      return last_to_arrive_acq_rel(counter, expected, flag);
+    } else {
+      return last_to_arrive(counter, expected, flag);
+    }
+  };
+  if (!ticket(&counters[grp], in_group)) return;
   float4 sum[kVecs];
   sum_tiles(tiles + static_cast<long long>(first) * kTileFloats, in_group,
             sum);
@@ -425,9 +717,13 @@ __device__ void sum_partials(const GramArgs& args, const Pair& pr,
       tiles + static_cast<long long>(args.splits + grp) * kTileFloats);
 #pragma unroll
   for (int v = 0; v < kVecs; ++v) gtile[tid + v * kConsumers] = sum[v];
-  if (!last_to_arrive(&counters[args.groups], args.groups, flag)) return;
+  if (!ticket(&counters[args.groups], args.groups)) return;
   sum_tiles(tiles + static_cast<long long>(args.splits) * kTileFloats,
             args.groups, sum);
+  if constexpr (kStaged) {
+    write_pair_staged(args, pr, sum, stage);
+    return;
+  }
 #pragma unroll
   for (int v = 0; v < kVecs; ++v) {
     const float vals[4] = {sum[v].x, sum[v].y, sum[v].z, sum[v].w};
@@ -451,9 +747,12 @@ __device__ void sum_partials(const GramArgs& args, const Pair& pr,
   }
 }
 
-template <bool X3>
+// kMode 1: 3xTF32 (gram_tc_kernel, 32-row slabs); 2: TF32
+// (gram_tf32_kernel, 64-row slabs).
+template <int kMode>
 int launch_tc(const float* f, const GramArgs& args, int batch,
               const dim3& grid, int smem_bytes, cudaStream_t stream) {
+  const auto kernel = kMode == 1 ? gram_tc_kernel : gram_tf32_kernel;
   CUtensorMap map{};
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(args.c),
                               static_cast<cuuint64_t>(args.p),
@@ -461,17 +760,16 @@ int launch_tc(const float* f, const GramArgs& args, int batch,
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(args.c) * 4,
                                  static_cast<cuuint64_t>(args.p) * args.c *
                                      4};
-  const cuuint32_t box[3] = {kRowFloats, kKP, 1};
+  const cuuint32_t box[3] = {kRowFloats, kMode == 1 ? kKP : kKP1, 1};
   const int rc = make_map(&map, f, 3, dims, strides, box);
   if (rc != 0) return rc;
   // The opt-in to more than 48 KB of dynamic shared memory is made once
   // per mode (a mode's plan always asks for the same size; the static
   // `flag` leaves the block less than the SM's 227 KB of dynamic).
   static const cudaError_t opt_in = cudaFuncSetAttribute(
-      gram_tc_kernel<X3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  gram_tc_kernel<X3><<<grid, kThreads, smem_bytes, stream>>>(map, args);
+  kernel<<<grid, kThreads, smem_bytes, stream>>>(map, args);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -484,7 +782,8 @@ int launch_tc(const float* f, const GramArgs& args, int batch,
 // c); `ws` holds batch * pairs * (splits + groups) * 64 * 64 floats;
 // `counters` holds batch * pairs * (groups + 1) zeroed ints and is left
 // zeroed; each run adds one to `*launches`. The split ranges are
-// `rows_per_split` rows long (a multiple of 32) and cover all p rows of
+// `rows_per_split` rows long (a multiple of the mode's slab: 32 rows, 64
+// in TF32) and cover all p rows of
 // an image; groups = ceil(splits / group); c % 4 == 0 (TMA row stride).
 // The plan comes from ops/gram.py's gram_plan (smem_bytes is 0 for the
 // IEEE mode, whose shared memory is static).
@@ -513,9 +812,9 @@ extern "C" int gram_forward(const float* f, float* ws, int* counters,
       gram_ieee_kernel<<<grid, kConsumers, 0, s>>>(f, args);
       return static_cast<int>(cudaGetLastError());
     case 1:
-      return launch_tc<true>(f, args, batch, grid, smem_bytes, s);
+      return launch_tc<1>(f, args, batch, grid, smem_bytes, s);
     case 2:
-      return launch_tc<false>(f, args, batch, grid, smem_bytes, s);
+      return launch_tc<2>(f, args, batch, grid, smem_bytes, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

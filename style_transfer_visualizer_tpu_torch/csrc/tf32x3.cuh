@@ -1,7 +1,7 @@
 // Shared building blocks of the port's tensor-core kernels (conv3x3.cu,
-// gram.cu) for Hopper (sm_90a), in their two tensor-core modes: 3xTF32
-// and TF32. (The IEEE fp32 mode runs on the CUDA cores:
-// conv3x3_ieee.cu, and gram.cu's gram_ieee_kernel.)
+// conv3x3_tf32.cu, gram.cu) for Hopper (sm_90a), in their two
+// tensor-core modes: 3xTF32 and TF32. (The IEEE fp32 mode runs on the
+// CUDA cores: conv3x3_ieee.cu, and gram.cu's gram_ieee_kernel.)
 //
 // 3xTF32: an fp32 operand a is split into a_hi = tf32(a) and
 // a_lo = tf32(a - a_hi), both rounded to nearest with ties away (as
@@ -14,9 +14,11 @@
 // 11 bits of each operand, the `default` precision tier.
 //
 // Here: the split, the mbarrier and TMA wrappers, the wgmma wrappers
-// (m64nNk8, A from registers, B K-major in shared memory with the
-// 128-byte swizzle) and the host's tensor-map set-up. wgmma takes tf32
-// operands K-major only: the transpose bits exist for 16-bit types.
+// (m64nNk8, A from registers or from shared memory, B K-major in shared
+// memory with the 128-byte swizzle) and the host's tensor-map set-up.
+// wgmma takes tf32 operands K-major only: the transpose bits exist for
+// 16-bit types. A tf32 operand in shared memory is read as its top 19
+// bits (truncated), so a kernel rounds it there first.
 #pragma once
 
 #include <cuda.h>
@@ -165,8 +167,13 @@ __device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map,
 // ---- wgmma
 // Descriptor of a K-major operand tile in shared memory: rows of 128
 // bytes (32 tf32 along K), 128-byte swizzle, 8-row groups 1024 bytes
-// apart, tile base 1024-byte aligned. The k8 slice kk of the 32 starts
-// 32*kk bytes further: add 2*kk to the descriptor.
+// apart. The k8 slice kk of the 32 starts 32*kk bytes further: add 2*kk
+// to the descriptor. The swizzle is a function of the address (chunk
+// bits 4-6 XOR row bits 7-9, as TMA writes it), so a tile may start at
+// any 128-byte row of a 1024-byte-aligned buffer, as the conv's taps
+// do; the matrix-base-offset field stays 0 (a phase there is applied on
+// top of the address's and reads the wrong chunks: measured on the
+// H100).
 __device__ __forceinline__ uint64_t desc_k_major(const void* tile) {
   uint64_t d = (smem_u32(tile) & 0x3FFFF) >> 4;
   d |= uint64_t{1} << 16;           // leading offset (unused when swizzled)
@@ -187,12 +194,29 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
 
+// Wait until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
 // Keep the compiler from moving accumulator reads or writes across
 // the asynchronous wgmma.
 template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Keep a K step's A fragments (4 k8 slices) in their registers until
+// the wait that retires the wgmma group reading them: the compiler takes
+// the asynchronous read as done when the instruction issues.
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[kk][e])::"memory");
+  }
 }
 
 // D(64 x N, fp32) += A(64 x 8, tf32, registers) * B(N x 8, tf32,
@@ -291,6 +315,91 @@ __device__ __forceinline__ void mma(float (&d)[N / 2], const uint32_t (&a)[4],
   }
 }
 
+// D(64 x N, fp32) += A(64 x 8, tf32) * B(N x 8, tf32), both K-major
+// in shared memory (descriptors); D's fragment as in mma_n8.
+__device__ __forceinline__ void mma_ss_n8(float (&d)[4], uint64_t desc_a,
+                                          uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t desc_a,
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                       uint64_t desc_b, int scale_d) {
+  if constexpr (N == 8) {
+    mma_ss_n8(d, desc_a, desc_b, scale_d);
+  } else if constexpr (N == 64) {
+    mma_ss_n64(d, desc_a, desc_b, scale_d);
+  } else {
+    static_assert(N == 128, "wgmma widths built: 8, 64, 128");
+    mma_ss_n128(d, desc_a, desc_b, scale_d);
+  }
+}
+
 // One 3xTF32 k8 step: D += a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, small
 // terms first; `fresh` starts D at the first product instead.
 template <int N>
@@ -302,32 +411,6 @@ __device__ __forceinline__ void mma3(float (&d)[N / 2],
   mma<N>(d, a_lo, b_hi, fresh ? 0 : 1);
   mma<N>(d, a_hi, b_lo, 1);
   mma<N>(d, a_hi, b_hi, 1);
-}
-
-// One k8 step in the kernel's mode: 3xTF32 (X3) or, in the TF32 mode,
-// the one product tf32(a)*tf32(b), where a_lo and b_lo are not read.
-template <int N, bool X3>
-__device__ __forceinline__ void mma_mode(float (&d)[N / 2],
-                                         const uint32_t (&a_hi)[4],
-                                         const uint32_t (&a_lo)[4],
-                                         uint64_t b_hi, uint64_t b_lo,
-                                         bool fresh) {
-  if constexpr (X3) {
-    mma3<N>(d, a_hi, a_lo, b_hi, b_lo, fresh);
-  } else {
-    mma<N>(d, a_hi, b_hi, fresh ? 0 : 1);
-  }
-}
-
-// An fp32 operand for the mode: split into hi and lo (X3), or only
-// rounded to tf32 (lo is left unset and unread).
-template <bool X3>
-__device__ __forceinline__ void operand(float a, uint32_t& hi, uint32_t& lo) {
-  if constexpr (X3) {
-    split(a, hi, lo);
-  } else {
-    hi = to_tf32(a);
-  }
 }
 
 // The tensor cores' fp32 sum does not round to nearest: each product

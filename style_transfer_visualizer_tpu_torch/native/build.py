@@ -29,7 +29,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build" / "kernels"
-SOURCES = ("conv3x3", "conv3x3_ieee", "gram")
+SOURCES = ("conv3x3", "conv3x3_ieee", "conv3x3_tf32", "gram")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -6,9 +6,11 @@ kernel ``conv3x3_bias_relu`` and its ``precision`` argument) and
 ``bwd_precision``). On a CUDA tensor the conv runs a hand-written
 kernel in the mode of its precision level (``ops/precision.py``):
 
-- ``tf32x3`` and ``tf32``: ``csrc/conv3x3.cu`` on the tensor cores,
-  which reads the stencil packed K-major and split into tf32 hi and lo
-  halves (``models/vgg19.pack_stencil``; ``tf32`` reads hi only);
+- ``tf32x3``: ``csrc/conv3x3.cu`` on the tensor cores, which reads the
+  stencil packed K-major and split into tf32 hi and lo halves
+  (``models/vgg19.pack_stencil``);
+- ``tf32``: ``csrc/conv3x3_tf32.cu`` on the tensor cores, one product a
+  K step, which reads the packed hi half only;
 - ``ieee``: ``csrc/conv3x3_ieee.cu``, IEEE fp32 on the CUDA cores,
   which reads the unsplit ``(9, C_in, C_out)`` stencil ``w9``.
 
@@ -18,10 +20,10 @@ mode or to the plain version. On a CPU tensor the conv runs the plain
 version, ``F.conv2d`` on the NCHW permute, in fp32 at every mode (the
 tier does not change the CPU path). Any other device raises. Each mode
 also has a plain version of its own rounding (:func:`conv3x3_plain`),
-which the card's checks hold the kernel against. The tensor-core
-kernel's launch plan (tile shape, stages, shared memory, persistent
-grid) is :func:`conv_plan`, the IEEE kernel's :func:`ieee_plan`, here
-in Python where the CPU tests reach them.
+which the card's checks hold the kernel against. Each kernel's launch
+plan (tile shape, stages, shared memory, grid) is here in Python, where
+the CPU tests reach it: the 3xTF32 kernel's :func:`conv_plan`, the TF32
+kernel's :func:`tf32_plan`, the IEEE kernel's :func:`ieee_plan`.
 
 The backbone is frozen, so the gradient is for the image only: the
 backward runs the same conv on ``g`` with the flipped stencil, no bias,
@@ -47,7 +49,8 @@ from style_transfer_visualizer_tpu_torch.ops.tf32 import (
 )
 
 #: Launches of the conv kernels made by :func:`conv3x3_kernel`, per
-#: mode (``launches["ieee"]`` counts ``csrc/conv3x3_ieee.cu``).
+#: mode (``launches["ieee"]`` counts ``csrc/conv3x3_ieee.cu``,
+#: ``launches["tf32"]`` ``csrc/conv3x3_tf32.cu``).
 launches = build.ModeCounters("conv3x3", MODES)
 
 #: Depth of one K step of the kernel (one 128-byte TMA row of float32);
@@ -70,7 +73,8 @@ Stencil = tuple[torch.Tensor, ...]
 class ConvPlan:
     """How ``csrc/conv3x3.cu`` covers one conv: tiles, rings, grid.
 
-    An output tile is ``rows x cols`` (= 128) pixels of one image by
+    The 3xTF32 kernel's plan. An output tile is ``rows x cols`` (=
+    128) pixels of one image by
     ``bn`` output channels; there are ``tiles`` of them. A comes in
     ``slabs`` slabs of 32 input channels per tile, each serving ``taps``
     K steps: with ``halo`` (``C_in % 32 == 0``) a slab is the halo'd
@@ -88,7 +92,6 @@ class ConvPlan:
     blocks (one per SM at most) walk the ``tiles * splits`` work items.
     """
 
-    mode: Mode
     bn: int
     rows: int
     cols: int
@@ -114,19 +117,15 @@ def _align(nbytes: int) -> int:
 @functools.cache
 def conv_plan(
     n: int, h: int, w: int, c_in: int, c_out: int, masked: bool,
-    n_sm: int, mode: Mode = "tf32x3",
+    n_sm: int,
 ) -> ConvPlan:
-    """The tensor-core kernel's launch plan for an ``(n, h, w, c_in)``
-    input in ``mode`` (``tf32x3``, or ``tf32``, whose B slots hold the
-    hi box only)."""
-    if mode not in ("tf32x3", "tf32"):
-        msg = f"conv_plan: {mode!r} is not a tensor-core mode"
-        raise ValueError(msg)
-    bn = 8 if c_out <= 8 else 64 if c_out <= 64 else 128
+    """The 3xTF32 kernel's launch plan for an ``(n, h, w, c_in)``
+    input (B slots hold the hi box and the lo box)."""
+    bn = 8 if c_out <= 8 else 64 if c_out <= 64 else 128  # noqa: PLR2004
     k_pad = -(-9 * c_in // K_STEP) * K_STEP
     halo = c_in % K_STEP == 0
     mask_slab = masked and halo
-    b_slot = (2 if mode == "tf32x3" else 1) * bn * K_STEP * 4
+    b_slot = 2 * bn * K_STEP * 4
     row_bytes = K_STEP * 4
     # The widest tile whose two A slots leave room for 3 B slots.
     cols = min(_BM, max(8, 1 << (w - 1).bit_length()))
@@ -149,7 +148,7 @@ def conv_plan(
     split_slabs = -(-slabs // splits)
     splits = -(-slabs // split_slabs)
     return ConvPlan(
-        mode=mode, bn=bn, rows=rows, cols=cols, k_pad=k_pad, halo=halo,
+        bn=bn, rows=rows, cols=cols, k_pad=k_pad, halo=halo,
         mask_slab=mask_slab, slabs=slabs, taps=taps, a_stages=_A_STAGES,
         b_stages=b_stages, a_slot_bytes=a_slot, tiles=tiles, splits=splits,
         split_slabs=split_slabs, blocks=min(tiles * splits, n_sm),
@@ -158,6 +157,145 @@ def conv_plan(
             _ALIGN + _A_STAGES * a_slot + b_stages * b_slot
             + 16 * (_A_STAGES + b_stages) + 16
         ),
+    )
+
+
+#: The TF32 kernel's most B stages, and its A stages with a halo'd slab
+#: (one loading while the other serves its nine taps) and with a
+#: gathered one (gathers are slow to land, so more run ahead).
+TF32_MAX_B_STAGES = 6
+TF32_HALO_A_STAGES = 2
+TF32_GATHER_A_STAGES = 4
+#: Threads of the TF32 kernel's producer warpgroup that prepare A.
+TF32_PREPARERS = 96
+_BAR = 8            # bytes of an mbarrier
+
+
+@dataclass(frozen=True)
+class Tf32Plan:
+    """How ``csrc/conv3x3_tf32.cu`` covers one conv.
+
+    An output tile is ``rows x cols`` (= ``bm`` = 128 * ``wm``) pixels
+    of one image by ``bn`` output channels; each of the two consumer
+    warpgroups owns ``wm`` 64-pixel sub-tiles; there are ``tiles``
+    tiles. A comes in ``slabs`` slabs of 32 input channels per tile,
+    each serving ``taps`` K steps of 32: with ``halo`` (``C_in % 32 ==
+    0``) a slab is the halo'd ``(rows + 2) x (cols + 2)`` tile by TMA
+    (``slab_rows`` pixel rows, pitch ``cols + 2``), used by all nine
+    taps, with the mask's same box in one buffer beside the ring when
+    ``mask_slab``; without, the producer's preparers gather one K step's
+    ``bm x 32`` slab, ``taps = 1``. Either way the slab is rounded to
+    tf32 and masked once. ``ss``: every tap reads A through descriptors
+    at its row offset (each sub-tile one run of slab rows: ``cols ==
+    64``, or a gathered slab); else A is read into registers (``wm =
+    1``). ``a_stages`` slots of ``a_slot_bytes`` hold the slabs,
+    ``b_stages`` slots one 32 x ``bn`` B box each. K is split per image
+    ``splits`` ways (``split_slabs`` slabs each) when one image's tiles
+    cannot fill the SMs; the last block of a tile sums the partials in
+    split order, so a batch gets each image's output alone, bit for
+    bit. ``blocks`` persistent blocks (one per SM at most) walk the
+    ``tiles * splits`` work items.
+    """
+
+    bn: int
+    wm: int
+    ss: bool
+    rows: int
+    cols: int
+    k_pad: int
+    halo: bool
+    mask_slab: bool
+    slabs: int
+    taps: int
+    slab_rows: int
+    a_stages: int
+    b_stages: int
+    a_slot_bytes: int
+    tiles: int
+    splits: int
+    split_slabs: int
+    blocks: int
+    smem_bytes: int
+
+    @property
+    def bm(self) -> int:
+        """Output pixels of a tile."""
+        return 128 * self.wm
+
+    @property
+    def pitch(self) -> int:
+        """Slab rows between two pixel rows of a halo'd slab."""
+        return self.cols + 2
+
+
+def _splits(per_image: int, k_steps: int, n_sm: int) -> int:
+    """Ways to split K: enough work items to fill ``n_sm`` SMs, each of
+    at least ``_MIN_SPLIT_STEPS`` K steps."""
+    return max(1, min(n_sm // per_image, k_steps // _MIN_SPLIT_STEPS))
+
+
+@functools.cache
+def tf32_plan(
+    n: int, h: int, w: int, c_in: int, c_out: int, masked: bool,
+    n_sm: int, wm: int | None = None,
+) -> Tf32Plan:
+    """The TF32 kernel's launch plan for an ``(n, h, w, c_in)`` input and
+    ``c_out`` outputs. Tiles are 64 pixels wide (narrower images: the
+    image's power of two). ``wm`` (sub-tiles a warpgroup) is 2, a
+    256-pixel tile whose B boxes serve twice the pixels, wherever A is
+    read through descriptors, unless 128-pixel tiles fill the card
+    without the split over K that 256-pixel ones need; it may be forced.
+    The tile depends on the image and the channels only, and the split
+    not on ``n``."""
+    bn = 8 if c_out <= 8 else 64 if c_out <= 64 else 128  # noqa: PLR2004
+    k_pad = -(-9 * c_in // K_STEP) * K_STEP
+    halo = c_in % K_STEP == 0
+    cols = min(64, max(8, 1 << (w - 1).bit_length()))
+    ss = not halo or cols == 64  # noqa: PLR2004
+    slabs = c_in // K_STEP if halo else k_pad // K_STEP
+    taps = 9 if halo else 1
+
+    def per_image(m: int) -> int:
+        return -(-h // (_BM * m // cols)) * -(-w // cols) * -(-c_out // bn)
+
+    if wm is None:
+        k_steps = slabs * taps
+        wm = 2 if ss else 1
+        if ss and _splits(per_image(1), k_steps, n_sm) == 1 < _splits(
+            per_image(2), k_steps, n_sm,
+        ):
+            wm = 1
+    if wm not in (1, 2) or (not ss and wm != 1):
+        msg = f"tf32_plan: no kernel for wm={wm} with ss={ss}"
+        raise ValueError(msg)
+    rows = _BM * wm // cols
+    slab_rows = (rows + 2) * (cols + 2) if halo else _BM * wm
+    a_slot = _align(slab_rows * K_STEP * 4)
+    mask_slab = masked and halo
+    a_stages = TF32_HALO_A_STAGES if halo else TF32_GATHER_A_STAGES
+    b_slot = bn * K_STEP * 4
+    fixed = (
+        _ALIGN + (a_stages + mask_slab) * a_slot
+        + _BAR * (3 * a_stages + 2) + 16
+    )
+    b_stages = min(
+        TF32_MAX_B_STAGES, (SMEM_LIMIT - fixed) // (b_slot + 2 * _BAR),
+    )
+    if b_stages < 3:  # noqa: PLR2004
+        msg = f"tf32_plan: a {rows}x{cols} slab leaves no B ring"
+        raise ValueError(msg)
+    splits = _splits(per_image(wm), slabs * taps, n_sm)
+    split_slabs = -(-slabs // splits)
+    splits = -(-slabs // split_slabs)
+    tiles = n * per_image(wm)
+    return Tf32Plan(
+        bn=bn, wm=wm, ss=ss, rows=rows, cols=cols, k_pad=k_pad, halo=halo,
+        mask_slab=mask_slab, slabs=slabs, taps=taps, slab_rows=slab_rows,
+        a_stages=a_stages, b_stages=b_stages, a_slot_bytes=a_slot,
+        tiles=tiles, splits=splits, split_slabs=split_slabs,
+        blocks=min(tiles * splits, n_sm),
+        # Slots, the mask buffer, the barriers and the split-K ticket.
+        smem_bytes=fixed + b_stages * (b_slot + 2 * _BAR),
     )
 
 
@@ -326,7 +464,18 @@ def _entry():
     fn = build.load("conv3x3").conv3x3_forward
     fn.argtypes = [
         *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 20, *[ctypes.c_void_p] * 3,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _tf32_entry():
+    fn = build.load("conv3x3_tf32").conv3x3_tf32_forward
+    fn.argtypes = [
+        *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 22, *[ctypes.c_void_p] * 3,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -411,13 +560,14 @@ def conv3x3_kernel(
     _check_inputs(x, wk, b, mask, mode)
     if mode == "ieee":
         return _launch_ieee(x, wk[0], b, apply_relu, mask)
+    if mode == "tf32":
+        return _launch_tf32(x, wk[0], b, apply_relu, mask)
     n, h, w, c_in = x.shape
-    hi = wk[0]
-    lo = wk[1] if mode == "tf32x3" else hi
+    hi, lo = wk[:2]
     c_out, k_pad = hi.shape
     plan = conv_plan(
         n, h, w, c_in, c_out, mask is not None,
-        build.sm_count(x.device.index), mode,
+        build.sm_count(x.device.index),
     )
     out = torch.empty((n, h, w, c_out), device=x.device, dtype=x.dtype)
     ws = counters = None
@@ -434,11 +584,41 @@ def conv3x3_kernel(
         plan.taps, plan.a_stages, plan.b_stages, plan.a_slot_bytes,
         plan.splits, plan.split_slabs, plan.blocks, plan.smem_bytes,
         _ptr(ws), _ptr(counters), launches[mode].slot(x.device).data_ptr(),
-        int(mode == "tf32x3"), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(status, "conv3x3")
     launches[mode].count += 1
+    return out
+
+
+def _launch_tf32(x, hi, b, apply_relu, mask) -> torch.Tensor:
+    """One launch of ``csrc/conv3x3_tf32.cu`` on its :func:`tf32_plan`
+    (inputs checked)."""
+    n, h, w, c_in = x.shape
+    c_out, k_pad = hi.shape
+    plan = tf32_plan(
+        n, h, w, c_in, c_out, mask is not None,
+        build.sm_count(x.device.index),
+    )
+    out = torch.empty((n, h, w, c_out), device=x.device, dtype=x.dtype)
+    ws = counters = None
+    if plan.splits > 1:
+        ws = torch.empty(
+            plan.tiles * plan.splits * plan.bm * plan.bn, device=x.device,
+            dtype=x.dtype,
+        )
+        counters = build.arrival_counters(x.device, plan.tiles)
+    status = _tf32_entry()(
+        x.data_ptr(), _ptr(mask), hi.data_ptr(), _ptr(b), out.data_ptr(),
+        n, h, w, c_in, c_out, k_pad, int(apply_relu), plan.bn, plan.wm,
+        int(plan.ss), plan.rows, plan.cols, int(plan.halo), plan.slabs,
+        plan.taps, plan.a_stages, plan.b_stages, plan.a_slot_bytes,
+        plan.splits, plan.split_slabs, plan.blocks, plan.smem_bytes,
+        _ptr(ws), _ptr(counters), launches["tf32"].slot(x.device).data_ptr(),
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(status, "conv3x3_tf32")
+    launches["tf32"].count += 1
     return out
 
 

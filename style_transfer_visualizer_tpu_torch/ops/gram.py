@@ -12,7 +12,9 @@ each image clamped and divided by H*W*C.
 On a CUDA tensor the raw Grams and G come from the hand-written kernel
 ``csrc/gram.cu``, one launch per call whatever the batch, in the mode
 of the Gram's precision level (``ops/precision.py``): ``tf32x3`` or
-``tf32`` on the tensor cores, ``ieee`` (IEEE fp32) on the CUDA cores.
+``tf32`` on the tensor cores (``tf32`` its own kernel, with its
+products kept in flight and slabs of 64 rows), ``ieee`` (IEEE fp32) on
+the CUDA cores.
 It launches that mode's kernel or raises. On a CPU tensor they come
 from the plain version, ``F.T @ F`` per image, in fp32 at every mode.
 Any other device raises. Each mode also has a plain version of its own
@@ -60,14 +62,17 @@ launches = build.ModeCounters("gram", MODES)
 #: The C entry point's number of each mode.
 _MODE_CODES = {"ieee": 0, "tf32x3": 1, "tf32": 2}
 
-# Tile edge and pixel rows per ring slot of the kernel.
+# Tile edge, and pixel rows per ring slot of the kernel by mode (the
+# TF32 kernel's slabs are 64 rows: two K steps a barrier round).
 _TILE = 64
 _ROWS = 32
+SLAB_ROWS = {"ieee": _ROWS, "tf32x3": _ROWS, "tf32": 64}
 # Blocks per SM the kernel's shared memory and registers allow.
 _BLOCKS_PER_SM = 2
-_STAGES = 4
-_SLOT_BYTES = 2 * _ROWS * _TILE * 4   # the F_i and F_j slabs
-_BT_BYTES = _TILE * _ROWS * 4          # one transposed B tile (hi or lo)
+# Ring slots by mode: the 3xTF32 kernel's 4 of 32 rows, the TF32
+# kernel's 2 of 64 (beside its two transposed tiles), or 4 of F_i alone
+# where every pair is diagonal (C <= 64).
+_STAGES = {"ieee": 4, "tf32x3": 4, "tf32": 2}
 _ALIGN = 1024
 # The grid's third dimension, one image per index.
 _MAX_BATCH = 65535
@@ -147,30 +152,36 @@ def _entry():
     return fn
 
 
-def split_rows(p: int, c: int, n_sm: int) -> tuple[int, int]:
+def split_rows(
+    p: int, c: int, n_sm: int, slab: int = _ROWS,
+) -> tuple[int, int]:
     """``(splits, rows_per_split)`` of the kernel's split over P.
 
     Enough splits to give every SM its blocks, each a whole number of
-    32-row slots; the splits cover all ``p`` rows. Each split has one
-    block per tile pair on or above the diagonal.
+    ``slab``-row slots; the splits cover all ``p`` rows. Each split has
+    one block per tile pair on or above the diagonal.
     """
     side = math.ceil(c / _TILE)
     pairs = side * (side + 1) // 2
-    groups = max(1, math.ceil(p / _ROWS))
+    groups = max(1, math.ceil(p / slab))
     cap = max(1, (_BLOCKS_PER_SM * n_sm) // pairs)
     splits = max(1, min(groups, cap))
-    rows = math.ceil(groups / splits) * _ROWS
+    rows = math.ceil(groups / splits) * slab
     return math.ceil(p / rows) if p else 1, rows
 
 
 def _smem_bytes(mode: Mode) -> int:
-    """Dynamic shared memory of ``mode``'s kernel: the ring's slots,
-    the transposed B tiles (hi and lo in ``tf32x3``, hi in ``tf32``) and
-    the mbarriers; 0 for ``ieee``, whose shared memory is static."""
+    """Dynamic shared memory of ``mode``'s kernel: the ring's slots (F_i
+    and F_j slabs), the transposed B tiles (hi and lo of one slab in
+    ``tf32x3``; two slabs' tiles, double-buffered, in ``tf32``) and the
+    mbarriers; 0 for ``ieee``, whose shared memory is static."""
     if mode == "ieee":
         return 0
-    b_tiles = 2 if mode == "tf32x3" else 1
-    return _ALIGN + _STAGES * _SLOT_BYTES + b_tiles * _BT_BYTES + 16 * _STAGES
+    rows, stages = SLAB_ROWS[mode], _STAGES[mode]
+    slot = 2 * rows * _TILE * 4
+    # The TF32 kernel's barriers are sized for its 4 diagonal-only slots.
+    bars = 16 * (2 * stages if mode == "tf32" else stages)
+    return _ALIGN + stages * slot + 2 * _TILE * rows * 4 + bars
 
 
 @functools.cache
@@ -183,18 +194,20 @@ def gram_plan(p: int, c: int, n_sm: int, mode: Mode = "tf32x3") -> GramPlan:
     images is planned image by image, as if each were alone: an image's
     sums run in the same order whatever the batch, so its raw Gram is
     the single launch's, bit for bit. Every mode shares the grid and the
-    split; only the shared memory differs.
+    split's rule; a split's rows are a whole number of the mode's slabs
+    (``SLAB_ROWS``), and the ring and the shared memory are the mode's.
     """
     if mode not in MODES:
         msg = f"gram: unknown mode {mode!r}"
         raise ValueError(msg)
     side = math.ceil(c / _TILE)
-    splits, rows = split_rows(p, c, n_sm)
+    splits, rows = split_rows(p, c, n_sm, SLAB_ROWS[mode])
     group = math.isqrt(splits - 1) + 1
+    stages = _STAGES[mode] * (2 if mode == "tf32" and side == 1 else 1)
     return GramPlan(
         pairs=side * (side + 1) // 2, splits=splits, rows=rows,
-        group=group, groups=math.ceil(splits / group), stages=_STAGES,
-        smem_bytes=_smem_bytes(mode),
+        group=group, groups=math.ceil(splits / group),
+        stages=stages, smem_bytes=_smem_bytes(mode),
     )
 
 

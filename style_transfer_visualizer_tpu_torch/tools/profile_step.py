@@ -61,8 +61,8 @@ from style_transfer_visualizer_tpu_torch.parallel.multistyle import (
 
 # Device kernels of csrc/ (every mode), listed by name whatever their rank.
 _PORT_KERNELS = (
-    "conv3x3_tc_kernel", "conv3x3_ieee_kernel", "gram_tc_kernel",
-    "gram_ieee_kernel",
+    "conv3x3_tc_kernel", "conv3x3_tf32_kernel", "conv3x3_ieee_kernel",
+    "gram_tc_kernel", "gram_tf32_kernel", "gram_ieee_kernel",
 )
 
 

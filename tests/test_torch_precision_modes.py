@@ -194,31 +194,47 @@ def test_batched_plain_gram_is_per_image(gram_case) -> None:
     (45, 512, 512),
 ])
 def test_conv_plan_by_mode(h, c_in, c_out) -> None:
-    x3 = conv3x3.conv_plan(1, h, h, c_in, c_out, True, 132, "tf32x3")
-    one = conv3x3.conv_plan(1, h, h, c_in, c_out, True, 132, "tf32")
-    assert (x3.mode, one.mode) == ("tf32x3", "tf32")
-    assert x3 == conv3x3.conv_plan(1, h, h, c_in, c_out, True, 132)
-    # Half the B slot: room for a tile at least as wide, three or more
-    # B stages, within the block's shared memory.
-    assert one.cols >= x3.cols
-    assert one.b_stages >= 3  # noqa: PLR2004
-    assert one.smem_bytes <= conv3x3.SMEM_LIMIT
+    # 3xTF32 plans csrc/conv3x3.cu (B slots hold the hi and lo boxes),
+    # TF32 its own kernel, csrc/conv3x3_tf32.cu (one hi box a B slot,
+    # three barrier arrays for A, 256-pixel tiles where A is read
+    # through descriptors).
+    x3 = conv3x3.conv_plan(1, h, h, c_in, c_out, True, 132)
+    one = conv3x3.tf32_plan(1, h, h, c_in, c_out, True, 132)
+    assert (one.bn, one.k_pad, one.halo) == (x3.bn, x3.k_pad, x3.halo)
+    assert one.rows * one.cols == 128 * one.wm
+    assert x3.b_stages >= 3 and one.b_stages >= 3  # noqa: PT018, PLR2004
+    assert max(x3.smem_bytes, one.smem_bytes) <= conv3x3.SMEM_LIMIT
     b_slot = one.bn * conv3x3.K_STEP * 4
-    assert one.smem_bytes == (
-        1024 + one.a_stages * one.a_slot_bytes + one.b_stages * b_slot
-        + 16 * (one.a_stages + one.b_stages) + 16
+    assert x3.smem_bytes == (
+        1024 + x3.a_stages * x3.a_slot_bytes + x3.b_stages * 2 * b_slot
+        + 16 * (x3.a_stages + x3.b_stages) + 16
     )
-    with pytest.raises(ValueError, match="not a tensor-core mode"):
-        conv3x3.conv_plan(1, h, h, c_in, c_out, True, 132, "ieee")
+    assert one.smem_bytes == (
+        1024 + (one.a_stages + one.mask_slab) * one.a_slot_bytes
+        + one.b_stages * b_slot + 8 * (3 * one.a_stages + 2 * one.b_stages)
+        + 16 + 16
+    )
+    with pytest.raises(ValueError, match="no kernel"):
+        conv3x3.tf32_plan(1, h, h, c_in, c_out, True, 132, 3)
 
 
 def test_gram_plan_by_mode() -> None:
     plans = {m: gram.gram_plan(262144, 64, 132, m) for m in pp.MODES}
     assert plans["tf32x3"] == gram.gram_plan(262144, 64, 132)
     assert plans["ieee"].smem_bytes == 0
-    assert plans["tf32"].smem_bytes == plans["tf32x3"].smem_bytes - 8192
-    split = {(p.splits, p.rows, p.group) for p in plans.values()}
+    # TF32: two slots of 64-row F_i and F_j slabs, two transposed
+    # tiles of a slab each, the mbarriers.
+    # (C = 64: every pair diagonal, twice the slots of F_i alone.)
+    assert plans["tf32"].smem_bytes == (
+        1024 + 4 * (64 * 64 * 4) + 2 * (64 * 64 * 4) + 16 * 4
+    )
+    assert (plans["tf32"].stages, plans["tf32"].rows % 64) == (4, 0)
+    assert gram.gram_plan(262144, 128, 132, "tf32").stages == 2  # noqa: PLR2004
+    split = {(p.splits, p.rows, p.group) for m, p in plans.items()
+             if m != "tf32"}
     assert len(split) == 1
+    for p in plans.values():
+        assert p.splits * p.rows >= 262144 > (p.splits - 1) * p.rows
     with pytest.raises(ValueError, match="unknown mode"):
         gram.gram_plan(64, 64, 132, "bf16")
 
@@ -239,7 +255,7 @@ def test_mode_counters() -> None:
 
 
 def test_csrc_builds_every_mode_source() -> None:
-    assert build.SOURCES == ("conv3x3", "conv3x3_ieee", "gram")
+    assert build.SOURCES == ("conv3x3", "conv3x3_ieee", "conv3x3_tf32", "gram")
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file()
 
