@@ -5,6 +5,7 @@
     python3 chip_smoke.py --modes
     python3 chip_smoke.py --tf32-shapes
     python3 chip_smoke.py --tf32-tiles
+    python3 chip_smoke.py --ieee-gram-shapes
 
 The third form builds the kernels and runs only the kernel-mode check
 (phase 4b below) and what ``mixed`` moves to IEEE fp32 (the end of
@@ -13,7 +14,11 @@ phase 5b). The fourth builds and prints only the TF32 kernels' line per
 public calls, so that an older tree's kernels can be timed by the same
 lines. The fifth times the TF32 conv's two tile candidates, 128- and
 256-pixel tiles, at every 512x512 shape read through descriptors. The
-second form runs two graphed A/Bs alone, rounds interleaved, and
+sixth builds and prints only the IEEE Gram's line per 512x512 tap,
+alone and at S = 4 in one launch (kernel ms against ``torch.mm`` /
+``torch.bmm`` fp32 and the fp32 bound), with the wrappers' public
+calls alone, so that an older tree's kernel is timed by the same
+lines. The second form runs two graphed A/Bs alone, rounds interleaved, and
 checks nothing else: ``steps_per_dispatch`` 1 against 0 (one dispatch
 of 25) on the 512x512 main path through the runner and on the S = 4
 batch with a CSV row a step; and the regional phase's run with a CSV
@@ -31,7 +36,9 @@ exits non-zero:
    toolkit has it (none in ``conv3x3_ieee``, on the CUDA cores: no
    ``HGMMA`` or ``HMMA`` there, and no spills in its ptxas report); the
    TF32 kernels (``conv3x3_tf32``, ``gram``'s ``gram_tf32_kernel``)
-   with ``HGMMA``, their registers, and no spills;
+   with ``HGMMA``, their registers, and no spills; ``gram``'s IEEE
+   kernel (``gram_ieee_kernel``) with its registers, no spills, and no
+   ``HGMMA`` or ``HMMA`` in its own SASS;
 3. conv check: the conv kernel against its plain PyTorch version at
    every conv shape of the 512x512 main path, of the objective phase's
    1024x1024 steps and of the batch phase's 512x512 steps at N = 4
@@ -67,7 +74,9 @@ exits non-zero:
    and cuDNN; then the TF32 conv's and the five TF32 Grams' line per
    512x512 shape (forward, and the input gradient as the main path runs
    it), kernel ms against the TF32 bound and cuDNN / ``torch.mm`` with
-   TF32 on, from graphs of 5 calls replayed twice;
+   TF32 on, and the five IEEE Grams' line per tap, alone and at S = 4,
+   against the fp32 bound and ``torch.mm`` / ``torch.bmm`` fp32, from
+   graphs of 5 calls replayed twice;
 5. main path: ``run_style_transfer`` at 512x512 on full-width VGG19
    (seeded weights, shipped defaults) for 20 L-BFGS steps through the
    port's runner (no progress bar), with the launch counts set to 0
@@ -534,6 +543,48 @@ def _check_ieee_build(kernel: build.BuiltKernel, sass: str | None) -> None:
     ]
     if not spills or any(spills):
         msg = f"conv3x3_ieee: spills in the ptxas report: {spills}"
+        raise AssertionError(msg)
+
+
+def _sass_functions(sass: str) -> dict[str, str]:
+    """Each function's SASS in ``cuobjdump -sass`` output, by name."""
+    parts = re.split(r"Function : (\S+)", sass)
+    return dict(zip(parts[1::2], parts[2::2], strict=True))
+
+
+def _check_ieee_gram_build(kernel: build.BuiltKernel, sass: str | None):
+    """``gram``'s IEEE kernel (``gram_ieee_kernel``) stays on the CUDA
+    cores (no ``HGMMA`` or ``HMMA`` in its SASS) and spills nothing;
+    prints its registers."""
+    funcs = {
+        name: v for name, v in _ptxas_functions(kernel.ptxas_log).items()
+        if "gram_ieee_kernel" in name
+    }
+    if not funcs:
+        msg = "gram: no IEEE kernel in the ptxas report"
+        raise AssertionError(msg)
+    for name, v in sorted(funcs.items()):
+        print(
+            f"  gram IEEE {name}: {v['registers']} registers, "
+            f"{v['spill']} bytes spilled",
+        )
+    spilled = [name for name, v in funcs.items() if v["spill"]]
+    if spilled:
+        msg = f"gram: the IEEE kernel spills: {spilled}"
+        raise AssertionError(msg)
+    if sass is None:
+        return
+    ieee = {
+        name: text for name, text in _sass_functions(sass).items()
+        if "gram_ieee_kernel" in name
+    }
+    if len(ieee) != len(funcs):
+        msg = f"gram: IEEE kernel in the SASS: {sorted(ieee)}"
+        raise AssertionError(msg)
+    mma = [name for name, text in ieee.items() if re.search(r"\bH(G)?MMA",
+                                                           text)]
+    if mma:
+        msg = f"gram: tensor-core instructions in the IEEE kernel: {mma}"
         raise AssertionError(msg)
 
 
@@ -3829,7 +3880,8 @@ def _by_key(recs: dict, name: str, mode: str) -> dict[str, Record]:
 def _check_modes(recs: dict) -> None:
     """Both kernels' new modes at every driven shape, with one line per
     kernel, mode and shape set; then the TF32 kernels' line per 512x512
-    shape (:func:`_tf32_shape_lines`)."""
+    shape (:func:`_tf32_shape_lines`) and the IEEE Gram's per 512x512
+    tap (:func:`_ieee_gram_shape_lines`)."""
     conv_recs = {m: _by_key(recs, "conv3x3", m) for m in NEW_MODES}
     gram_recs = {m: _by_key(recs, "gram", m) for m in NEW_MODES}
     for name, check, sets, by_mode in (
@@ -3848,7 +3900,7 @@ def _check_modes(recs: dict) -> None:
                     f"library {e.entry['library_ms']:.4f} bound "
                     f"{e.bound_s * 1e3:.4f}",
                 )
-    for line in _tf32_shape_lines():
+    for line in _tf32_shape_lines() + _ieee_gram_shape_lines():
         print(line)
 
 
@@ -3992,6 +4044,63 @@ def _tf32_tile_lines() -> list[str]:
         f"{totals['plan']:.4f} ms",
     )
     return lines
+
+
+def _ieee_gram_shape_lines() -> list[str]:
+    """One line per 512x512 Gram tap of the IEEE Gram, alone and at S =
+    4 in one launch: kernel ms against ``torch.mm`` / ``torch.bmm`` in
+    fp32 and the bound (the symmetric product's operations at the fp32
+    rate, or the bytes), each from a graph of 5 calls replayed twice;
+    then the sums over the five taps. Uses only the wrappers' public
+    calls, so the same lines can be taken on an older tree
+    (``--ieee-gram-shapes``)."""
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    lines = []
+    totals = {1: [0.0, 0.0, 0.0], BATCH_STYLES: [0.0, 0.0, 0.0]}
+    for p, c in GRAM_SHAPES:
+        for s in (1, BATCH_STYLES):
+            f = torch.randn((s, p, c), generator=gen, device="cuda")
+            norm = float(p * c)
+            if s == 1:
+                kern = partial(gram.gram_kernel, f[0], CLAMP, norm, "ieee")
+                lib = partial(torch.mm, f[0].T, f[0])
+                lib_name = "torch_mm_ms"
+            else:
+                kern = partial(gram.gram_kernel_batched, f, CLAMP, norm,
+                               "ieee")
+                lib = partial(torch.bmm, f.mT, f)
+                lib_name = "torch_bmm_ms"
+            k_ms, lib_ms = _time_ms(kern), _time_ms(lib)
+            bound = _bound_ms(
+                float(s * p * c * (c + 1)), 4.0 * s * (p * c + 2 * c * c),
+                FP32_FLOPS,
+            )
+            for i, v in enumerate((k_ms, lib_ms, bound)):
+                totals[s][i] += v
+            lines.append(
+                f"ieee shape gram S={s} ({p},{c}): kernel_ms {k_ms:.4f} "
+                f"{lib_name} {lib_ms:.4f} bound_ms {bound:.4f} "
+                f"({k_ms / bound:.2f}x bound, {k_ms / lib_ms:.2f}x library)",
+            )
+            del f
+    for s, (k_ms, lib_ms, bound) in totals.items():
+        lines.append(
+            f"ieee shape gram S={s} five {SIZE} taps: kernel_ms {k_ms:.4f} "
+            f"library_ms {lib_ms:.4f} bound_ms {bound:.4f} "
+            f"({k_ms / bound:.2f}x bound, {k_ms / lib_ms:.2f}x library)",
+        )
+    return lines
+
+
+def _ieee_gram_shapes_only(card: str) -> int:
+    """``--ieee-gram-shapes``: build, then :func:`_ieee_gram_shape_lines`
+    alone (a measurement, no check)."""
+    print(f"card: {card}")
+    build.build_all()
+    for line in _ieee_gram_shape_lines():
+        print(line)
+    print(f"card: {card}")
+    return 0
 
 
 def _tf32_shapes_only(card: str) -> int:
@@ -4245,9 +4354,10 @@ def _mode_entries(recs: dict) -> list[dict]:
 def _build_phase() -> None:
     """Build every kernel (one nvcc each, in parallel) and print, per
     library, its ``HGMMA`` count and ptxas's registers and spills; the
-    tensor-core libraries must hold ``wgmma``, the IEEE conv none, and
-    neither the IEEE conv nor the TF32 kernels spill
-    (:func:`_check_ieee_build`, :func:`_check_tf32_build`)."""
+    tensor-core libraries must hold ``wgmma``, the IEEE conv and the
+    IEEE Gram kernel none (nor ``HMMA``), and neither the IEEE kernels
+    nor the TF32 kernels spill (:func:`_check_ieee_build`,
+    :func:`_check_ieee_gram_build`, :func:`_check_tf32_build`)."""
     t0 = time.perf_counter()
     built = build.build_all()
     print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
@@ -4264,6 +4374,8 @@ def _build_phase() -> None:
             raise AssertionError(msg)
         if kernel.name in ("conv3x3_tf32", "gram"):
             _check_tf32_build(kernel, hgmma)
+        if kernel.name == "gram":
+            _check_ieee_gram_build(kernel, sass)
         for line in kernel.ptxas_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {kernel.name}: {line.strip()}")
@@ -4304,6 +4416,8 @@ def main(argv: list[str] | None = None) -> int:
         return _tf32_shapes_only(card)
     if args == ["--tf32-tiles"]:
         return _tf32_tiles_only(card)
+    if args == ["--ieee-gram-shapes"]:
+        return _ieee_gram_shapes_only(card)
     print(f"card: {card}")
     start = time.perf_counter()
     seconds: dict[str, float] = {}

@@ -3,8 +3,9 @@
 // all S images, in one of three modes (the precision tiers of
 // ops/precision.py): on Hopper's tensor cores in 3xTF32 (see tf32x3.cuh;
 // gram_tc_kernel) or in TF32 (gram_tf32_kernel), or in IEEE fp32 on the
-// CUDA cores (gram_ieee_kernel). All three share the grid, the split
-// over P and the fixed-order sum of the partial tiles described below.
+// CUDA cores (gram_ieee_kernel). All three share the kind of grid, the
+// split over P and the fixed-order sum of the partial tiles described
+// below; the IEEE kernel has its own block and plan.
 //
 // Replaces the Pallas TPU kernel `_gram_accumulate_kernel` (with its
 // driver `_raw_gram`) of style_transfer_visualizer_tpu/ops/pallas_gram.py.
@@ -40,10 +41,9 @@
 //     in shared memory, rows and mirror rows on consecutive addresses
 //     (the mirror's element-by-element stores lie a row apart, about
 //     10 µs a launch);
-//   - in the IEEE mode a 128-thread block stages 32-row slabs of F_i and
-//     F_j in shared memory (two buffers, the next slab's loads in flight
-//     in registers during this one's products) and each thread keeps 4
-//     x 8 of the 64 x 64 tile in registers, one fp32 FMA per product;
+//   - the IEEE mode (see gram_ieee_kernel) lands slabs through a
+//     cp.async ring, keeps an 8 x 8 register tile a thread and issues
+//     no product below a diagonal pair's diagonal;
 //   - each block writes its partial tile to the workspace (per image
 //     and pair); the sum of the partials is taken in two levels, each
 //     in fixed order, so
@@ -62,7 +62,8 @@
 // Bound on the H100 SXM: the symmetric product needs P*C*(C+1) flops
 // against 4*P*C bytes read: bound by bytes at C <= 128 and by the
 // 3xTF32 rate (495/3 TFLOP/s) at C >= 256 (TF32: by bytes up to C = 512
-// at 495 TFLOP/s; IEEE: by the 67 TFLOP/s of fp32 FMA from C = 64).
+// at 495 TFLOP/s; IEEE: by bytes at C = 64, by the 67 TFLOP/s of fp32
+// FMA from C = 128).
 #define TF32X3_HOST
 #include "tf32x3.cuh"
 
@@ -91,23 +92,33 @@ struct GramArgs {
 };
 
 constexpr int kTileFloats = kT * kT;
-constexpr int kVecs = kTileFloats / 4 / kConsumers;  // float4s per thread
+
+// The partial-tile sums below serve a 64 x 64 tile summed by kN
+// threads: the tensor-core kernels' 128 consumers (the default), the
+// IEEE kernel's 256 threads.
+template <int kN>
+constexpr int kVecsOf = kTileFloats / 4 / kN;
 
 // Sum `count` tiles at `src` (kTileFloats apart) in index order; thread
-// t holds float4s t, t + 128, ... of the tile.
+// t holds float4s t, t + kN, ... of the tile.
+template <int kN = kConsumers>
 __device__ __forceinline__ void sum_tiles(const float* src, int count,
-                                          float4 (&sum)[kVecs]) {
+                                          float4 (&sum)[kVecsOf<kN>]) {
+  constexpr int kV = kVecsOf<kN>;
+  // Loads of 16 float4s a thread in flight: four tiles' at 4 float4s a
+  // tile (the IEEE kernel's), two at 8 (the tensor-core kernels').
+  constexpr int kUnroll = kV <= 4 ? 4 : 2;
   const int tid = threadIdx.x;
 #pragma unroll
-  for (int v = 0; v < kVecs; ++v) sum[v] = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 2
+  for (int v = 0; v < kV; ++v) sum[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll kUnroll
   for (int t = 0; t < count; ++t) {
     const float4* tile =
         reinterpret_cast<const float4*>(src + static_cast<long long>(t) *
                                                   kTileFloats);
 #pragma unroll
-    for (int v = 0; v < kVecs; ++v) {
-      const float4 x = __ldcg(tile + tid + v * kConsumers);
+    for (int v = 0; v < kV; ++v) {
+      const float4 x = __ldcg(tile + tid + v * kN);
       sum[v].x += x.x;
       sum[v].y += x.y;
       sum[v].z += x.z;
@@ -132,15 +143,16 @@ __device__ __forceinline__ bool last_to_arrive(int* counter, int expected,
   return true;
 }
 
-// The TF32 kernel's ticket: the CTA's partial-tile writes come before
-// thread 0's release-acquire add through the barrier (the release is
-// cumulative), and the other blocks' writes before this CTA's reads
-// through the acquire and the barrier after it; no fence of every
-// thread.
+// The TF32 and IEEE kernels' ticket among kN threads: the CTA's
+// partial-tile writes come before thread 0's release-acquire add
+// through the barrier (the release is cumulative), and the other
+// blocks' writes before this CTA's reads through the acquire and the
+// barrier after it; no fence of every thread.
+template <int kN = kConsumers>
 __device__ __forceinline__ bool last_to_arrive_acq_rel(int* counter,
                                                        int expected,
                                                        int* flag) {
-  named_sync(1, kConsumers);
+  named_sync(1, kN);
   if (threadIdx.x == 0) {
     int old;
     asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
@@ -150,7 +162,7 @@ __device__ __forceinline__ bool last_to_arrive_acq_rel(int* counter,
     *flag = old == expected - 1;
     if (*flag) *counter = 0;
   }
-  named_sync(1, kConsumers);
+  named_sync(1, kN);
   return *flag;
 }
 
@@ -190,13 +202,16 @@ __device__ __forceinline__ float* partial_tile(const GramArgs& args) {
                     blockIdx.y) * kTileFloats;
 }
 
-// After the block's 128 consumer threads wrote its partial tile: the
-// two-level fixed-order sum, and the last block of the pair writes raw
-// and G (both triangles). With `stage` (shared memory for a 64 x 65
-// tile; the TF32 kernel's), the tickets are release-acquire adds and
-// the last block writes through the staged tile, row by row
-// (write_pair_staged), instead of element by element: kStaged.
-template <bool kStaged = false>
+// After the block's kN threads (the 128 consumers of a tensor-core
+// kernel, the IEEE kernel's 256) wrote its partial tile: the two-level
+// fixed-order sum, and the last block of the pair writes raw and G
+// (both triangles). With `stage` (shared memory for a 64 x 65 tile;
+// the TF32 and IEEE kernels'), the tickets are
+// release-acquire adds and the last block writes through the staged
+// tile, row by row (write_pair_staged), instead of element by element:
+// kStaged. With kOneLevel (the IEEE kernel's), a plan of one group
+// (`groups` 1) ends after the first level: its sum is the pair's.
+template <bool kStaged = false, int kN = kConsumers, bool kOneLevel = false>
 __device__ void sum_partials(const GramArgs& args, const Pair& pr,
                              int* flag, float* stage = nullptr);
 
@@ -543,99 +558,375 @@ gram_tf32_kernel(const __grid_constant__ CUtensorMap map_f,
   sum_partials<true>(args, pr, &flag, reinterpret_cast<float*>(smem));
 }
 
-// The IEEE fp32 mode on the CUDA cores: the same grid, split and sum as
-// gram_tc_kernel, 128 threads a block, each thread 4 rows x 8 columns
-// (columns 4t..4t+3 and 32+4t..32+4t+3, so a warp's B reads are
-// conflict-free) of the 64 x 64 tile, one fp32 FMA per product in
-// pixel order.
-constexpr int kIeeeRows = 32;  // pixel rows per slab
+// The IEEE fp32 mode on the CUDA cores: one fp32 FMA per product, no
+// tensor-core instruction. Bound by the fp32 rate from C = 128 (by bytes
+// at C = 64): the design keeps the FMA pipes fed and issues no product
+// that the result does not use. A block of 256 threads (eight warps; at
+// most 128 registers a thread, so two blocks and 16 warps an SM) takes a
+// 64 x 64 tile pair, planned per shape by ops/gram.py (gram_plan, mode
+// "ieee"):
+//   - slabs of kIeeeSlab pixel rows of F_i and F_j (F_i alone on a
+//     diagonal pair, where it serves as both operands) land in a ring
+//     of `stages` slots by 16-byte cp.async copies, zero past the
+//     split's last row and past C; each k-group copies and reads only
+//     its own rows of a slab, so it waits at a barrier of its own
+//     threads once a slab, the copies of slab s + stages - 1 issued
+//     before slab s's products;
+//   - thread (r, c) of a k-group keeps an 8 x 8 register tile, four 4 x
+//     4 blocks: rows 4r .. 4r + 3 or 32 + 4r .. by columns 4c .. or 32 +
+//     4c .., so a quarter warp's loads read one float4 of A (a
+//     broadcast) and 8 neighbouring float4 of B; 4 float4 loads from
+//     shared memory serve 64 FMAs. The 256 threads are four k-groups of
+//     64, each on a quarter of every slab's rows, their register tiles
+//     summed through shared memory in k-group order;
+//   - a diagonal pair issues no product below the diagonal, and every
+//     thread the same number: its block of the upper-right quadrant, and
+//     one block of a diagonal quadrant, (r, c) of the upper-left where r
+//     <= c, else (7 - r, 7 - c) of the lower-right, which lies above
+//     the diagonal; the lower-right's 8 diagonal blocks, which no thread
+//     took, are shared out, 2 elements a thread. Raw's lower triangle
+//     is written from the upper, so it stays bit-symmetric;
+//   - each output's sum runs over the split's rows in pixel order (its
+//     k-group's rows, then the k-groups in order), the same in every
+//     image, so a batch gives each image's Gram alone, bit for bit;
+//   - the partial tile goes out through shared memory in coalesced
+//     rows; the two-level sum's tickets are release-acquire adds, and
+//     the last block writes raw and G through a staged tile
+//     (write_pair_staged), as in the TF32 kernel; a plan of one group
+//     (few splits) ends after the first level, one ticket and no group
+//     tile on the way to the result.
+constexpr int kIeeeThreads = 256;
+// The most dynamic shared memory an IEEE plan asks for: two blocks an
+// SM, 1 KB reserved for each.
+constexpr int kIeeeSmemMax = 112 * 1024;
 
-__global__ void __launch_bounds__(kConsumers)
+constexpr int kIeeeSlab = 64;  // pixel rows a slab
+
+// Threads a k-group (8 a side), k-groups a block and a k-group's rows
+// of a slab.
+constexpr int kIeeeSide = kT / 8;
+constexpr int kIeeeLanes = kIeeeSide * kIeeeSide;
+constexpr int kIeeeGroups = kIeeeThreads / kIeeeLanes;
+constexpr int kIeeeRows = kIeeeSlab / kIeeeGroups;
+
+// The plan's layout: a slot's floats (F_i's slab, and F_j's unless every
+// pair is diagonal) and the dynamic shared memory it needs (the ring;
+// the k-groups' register tiles; the staged final tile).
+__host__ __device__ constexpr int ieee_slot_floats(int tiles) {
+  return (tiles == 1 ? 1 : 2) * kIeeeSlab * kT;
+}
+
+__host__ __device__ constexpr int ieee_smem_bytes(int tiles, int stages) {
+  const int ring = stages * ieee_slot_floats(tiles) * 4;
+  const int groups = kIeeeGroups * kTileFloats * 4;
+  const int staged = kT * (kT + 1) * 4;
+  const int most = ring > groups ? ring : groups;
+  return most > staged ? most : staged;
+}
+
+// cp.async of 16 bytes; `ok` false zero-fills the destination.
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// This thread's copies of the slab `stages - 1` groups back have landed.
+__device__ __forceinline__ void wait_slab(int stages) {
+  if (stages == 2) {
+    cp_wait<0>();
+  } else if (stages == 3) {
+    cp_wait<1>();
+  } else {
+    cp_wait<2>();
+  }
+}
+
+// Issue k-group kg's copies of rows p0 .. p0 + kIeeeSlab of image `img`
+// into `slot`: its rows kg * kIeeeRows .. of F_i's slab [row][64]
+// (channels i0 ..), then, off the diagonal, of F_j's; copy e (lane lt
+// + kIeeeLanes * u) is row e / 16 of them, float4 e % 16, so
+// neighbouring threads copy neighbouring 16 bytes.
+__device__ __forceinline__ void ieee_load(const GramArgs& args,
+                                          const Pair& pr, const float* img,
+                                          int kg, int lt, long long p0,
+                                          float* slot) {
+  constexpr int kRowVecs = kT / 4;
+  constexpr int kPer = kIeeeRows * kRowVecs / kIeeeLanes;
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int e = lt + u * kIeeeLanes;
+    const int row = kg * kIeeeRows + e / kRowVecs;
+    const int col = 4 * (e % kRowVecs);
+    const long long pix = p0 + row;
+    const bool in_rows = pix < pr.p_end;
+    const int ci = pr.i0 + col;
+    const bool ok_i = in_rows && ci < args.c;
+    cp16(slot + row * kT + col, img + (ok_i ? pix * args.c + ci : 0),
+         ok_i);
+    if (!pr.diag) {
+      const int cj = pr.j0 + col;
+      const bool ok_j = in_rows && cj < args.c;
+      cp16(slot + (kIeeeSlab + row) * kT + col,
+           img + (ok_j ? pix * args.c + cj : 0), ok_j);
+    }
+  }
+}
+
+__device__ __forceinline__ void fma1(float& acc, float a, float b) {
+  acc = fmaf(a, b, acc);
+}
+
+// acc[i][j] += a[i] * b[j]: one 4 x 4 block of the thread's tile.
+__device__ __forceinline__ void fma_block(float (&acc)[4][4], const float4& a,
+                                          const float4& b) {
+  const float av[4] = {a.x, a.y, a.z, a.w};
+  const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) fma1(acc[i][j], av[i], bv[j]);
+  }
+}
+
+// A thread's place in the tile: A and B offsets of its blocks within a
+// slab row. Off the diagonal, blocks x = 2 * (row half) + (column half)
+// at rows half * 32 + 4r, columns half * 32 + 4c. On it, the
+// upper-right block (a_off[0], b_off[1]), the diagonal quadrant's block
+// (a_off[1], b_off[0]) and the shared-out element(s) of the lower-right
+// quadrant's diagonal blocks (row x_row, columns x_col ..).
+struct IeeePlace {
+  int a_off[2], b_off[2];
+  int x_row, x_col;
+};
+
+// Diagonal elements of the lower-right quadrant a thread.
+constexpr int kIeeeExtra = 16 / kIeeeSide;
+constexpr int kIeeeHalf = kT / 2;
+
+__device__ __forceinline__ IeeePlace ieee_place(int lt, int r, int c,
+                                                bool diag) {
+  constexpr int kN = kIeeeSide;
+  constexpr int kHalf = kIeeeHalf;
+  constexpr int kExtra = kIeeeExtra;
+  IeeePlace pl;
+  pl.a_off[0] = 4 * r;
+  pl.b_off[1] = kHalf + 4 * c;
+  if (!diag) {
+    pl.a_off[1] = kHalf + 4 * r;
+    pl.b_off[0] = 4 * c;
+  } else if (r <= c) {
+    pl.a_off[1] = 4 * r;
+    pl.b_off[0] = 4 * c;
+  } else {
+    pl.a_off[1] = kHalf + 4 * (kN - 1 - r);
+    pl.b_off[0] = kHalf + 4 * (kN - 1 - c);
+  }
+  const int m = lt / kN;                 // the lower-right's block m
+  const int e = (lt % kN) * kExtra;      // its elements e .. e + kExtra
+  pl.x_row = kHalf + 4 * m + e / 4;
+  pl.x_col = kHalf + 4 * m + e % 4;
+  return pl;
+}
+
+// One slab's products for this thread's k-group rows. Off the diagonal
+// the four blocks acc[x]; on it acc[1] (upper right), acc[0] (the
+// diagonal quadrant's block) and acc[2][0][0 .. kIeeeExtra) (the shared-out
+// diagonal elements).
+template <bool kDiag>
+__device__ __forceinline__ void ieee_products(const float* as,
+                                              const float* bs,
+                                              const IeeePlace& pl,
+                                              float (&acc)[4][4][4]) {
+#pragma unroll 2
+  for (int k = 0; k < kIeeeRows; ++k) {
+    const float* ar = as + k * kT;
+    const float* br = bs + k * kT;
+    const float4 a0 = *reinterpret_cast<const float4*>(ar + pl.a_off[0]);
+    const float4 a1 = *reinterpret_cast<const float4*>(ar + pl.a_off[1]);
+    const float4 b0 = *reinterpret_cast<const float4*>(br + pl.b_off[0]);
+    const float4 b1 = *reinterpret_cast<const float4*>(br + pl.b_off[1]);
+    fma_block(acc[1], a0, b1);
+    if (kDiag) {
+      fma_block(acc[0], a1, b0);
+      const float xa = ar[pl.x_row];
+#pragma unroll
+      for (int e = 0; e < kIeeeExtra; ++e) {
+        fma1(acc[2][0][e], xa, br[pl.x_col + e]);
+      }
+    } else {
+      fma_block(acc[0], a0, b0);
+      fma_block(acc[2], a1, b0);
+      fma_block(acc[3], a1, b1);
+    }
+  }
+}
+
+// Store this thread's blocks into its k-group's staged tile (row-major
+// 64 x 64): off the diagonal its four blocks; on it the upper-right
+// block, the diagonal quadrant's block, zeros for the blocks below the
+// diagonal it stands for (the other diagonal quadrant's mirror, the
+// lower-left), and its shared-out diagonal elements, so that every
+// element of the tile is written once.
+__device__ __forceinline__ void ieee_stage(float* tile, int r, int c,
+                                           bool diag, const IeeePlace& pl,
+                                           const float (&acc)[4][4][4]) {
+  constexpr int kN = kIeeeSide;
+  constexpr int kHalf = kIeeeHalf;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto put = [&](int row0, int col0, const float (*blk)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      *reinterpret_cast<float4*>(tile + (row0 + i) * kT + col0) =
+          blk == nullptr ? zero
+                         : make_float4(blk[i][0], blk[i][1], blk[i][2],
+                                       blk[i][3]);
+    }
+  };
+  if (!diag) {
+    put(4 * r, 4 * c, acc[0]);
+    put(4 * r, kHalf + 4 * c, acc[1]);
+    put(kHalf + 4 * r, 4 * c, acc[2]);
+    put(kHalf + 4 * r, kHalf + 4 * c, acc[3]);
+    return;
+  }
+  put(4 * r, kHalf + 4 * c, acc[1]);
+  put(kHalf + 4 * r, 4 * c, nullptr);
+  put(pl.a_off[1], pl.b_off[0], acc[0]);
+  if (r < c) {
+    put(kHalf + 4 * (kN - 1 - r), kHalf + 4 * (kN - 1 - c), nullptr);
+  } else if (r > c) {
+    put(4 * r, 4 * c, nullptr);
+  }
+#pragma unroll
+  for (int e = 0; e < kIeeeExtra; ++e) {
+    tile[pl.x_row * kT + pl.x_col + e] = acc[2][0][e];
+  }
+}
+
+__global__ void __launch_bounds__(kIeeeThreads, 2)
 gram_ieee_kernel(const float* __restrict__ f, const GramArgs args) {
-  __shared__ __align__(16) float a_s[2][kIeeeRows][kT];
-  __shared__ __align__(16) float b_s[2][kIeeeRows][kT];
+  constexpr int kSlab = kIeeeSlab;
+  constexpr int kGroups = kIeeeGroups;
+  constexpr int kSide = kIeeeSide;  // threads a side of a k-group
+  static_assert(kGroups <= 4, "named barriers 2 .. 5, one a k-group");
+  extern __shared__ __align__(16) float smem[];
   __shared__ int flag;
   count_launch(args.launches);
   const Pair pr = pair_of_block(args);
   const int tid = threadIdx.x;
-  const float* img =
-      f + static_cast<long long>(pr.image) * args.p * args.c;
-  // Load role: rows lr + 8u (u = 0..3), channels lc..lc+3 of both tiles.
-  const int lr = tid >> 4;
-  const int lc = (tid & 15) * 4;
-  // Compute role.
-  const int ti = (tid >> 3) * 4;
-  const int tj = (tid & 7) * 4;
+  const float* img = f + static_cast<long long>(pr.image) * args.p * args.c;
+  // Thread map: k-group kg; within it warp w is lanes 4 rows x 8
+  // columns of the k-group's kSide x kSide threads.
+  const int kg = tid / kIeeeLanes;
+  const int lt = tid % kIeeeLanes;
+  const int w = lt >> 5;
+  const int q = lt & 31;
+  const int r = 4 * (w / (kSide / 8)) + (q >> 3);
+  const int c = 8 * (w % (kSide / 8)) + (q & 7);
+  const IeeePlace pl = ieee_place(lt, r, c, pr.diag);
+  const int stages = args.stages;
+  const int slot_floats = ieee_slot_floats(args.tiles);
   const int steps =
-      static_cast<int>((pr.p_end - pr.p_begin + kIeeeRows - 1) / kIeeeRows);
-  float4 ra[4];
-  float4 rb[4];
-  auto load = [&](int s) {
-    const long long p0 = pr.p_begin + static_cast<long long>(s) * kIeeeRows;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const long long r = p0 + lr + 8 * u;
-      const bool row = r < pr.p_end;
-      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      ra[u] = row && pr.i0 + lc < args.c
-                  ? *reinterpret_cast<const float4*>(img + r * args.c +
-                                                     pr.i0 + lc)
-                  : zero;
-      rb[u] = row && pr.j0 + lc < args.c
-                  ? *reinterpret_cast<const float4*>(img + r * args.c +
-                                                     pr.j0 + lc)
-                  : zero;
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      *reinterpret_cast<float4*>(&a_s[buf][lr + 8 * u][lc]) = ra[u];
-      *reinterpret_cast<float4*>(&b_s[buf][lr + 8 * u][lc]) = rb[u];
-    }
-  };
-  float acc[4][8];
+      static_cast<int>((pr.p_end - pr.p_begin + kSlab - 1) / kSlab);
+  float acc[4][4][4];
 #pragma unroll
   for (int x = 0; x < 4; ++x) {
 #pragma unroll
-    for (int y = 0; y < 8; ++y) acc[x][y] = 0.f;
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[x][i][j] = 0.f;
+    }
   }
-  if (steps > 0) {
-    load(0);
-    store(0);
+  for (int s = 0; s < stages - 1; ++s) {
+    if (s < steps) {
+      ieee_load(args, pr, img, kg, lt, pr.p_begin + s * kSlab,
+                       smem + s * slot_floats);
+    }
+    cp_commit();
   }
-  __syncthreads();
+  const int row0 = kg * kIeeeRows;
   for (int s = 0; s < steps; ++s) {
-    const int cur = s & 1;
-    const bool more = s + 1 < steps;
-    if (more) load(s + 1);
-#pragma unroll 8
-    for (int k = 0; k < kIeeeRows; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(&a_s[cur][k][ti]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&b_s[cur][k][tj]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&b_s[cur][k][32 + tj]);
-      const float a[4] = {av.x, av.y, av.z, av.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-#pragma unroll
-        for (int y = 0; y < 8; ++y) acc[x][y] = fmaf(a[x], b[y], acc[x][y]);
-      }
+    wait_slab(stages);
+    // The k-group's copies of slab s have landed, and its threads are
+    // done with slab s - 1, whose rows of the slot refill.
+    named_sync(2 + kg, kIeeeLanes);
+    const int next = s + stages - 1;
+    if (next < steps) {
+      ieee_load(args, pr, img, kg, lt,
+                       pr.p_begin + static_cast<long long>(next) * kSlab,
+                       smem + (next % stages) * slot_floats);
     }
-    if (more) store(cur ^ 1);
-    __syncthreads();
+    cp_commit();
+    const float* as = smem + (s % stages) * slot_floats + row0 * kT;
+    if (pr.diag) {
+      ieee_products<true>(as, as, pl, acc);
+    } else {
+      ieee_products<false>(as, as + kSlab * kT, pl, acc);
+    }
   }
-  float* mine = partial_tile(args);
+  cp_wait<0>();
+  __syncthreads();
+
+  // ---- partial tile: the k-groups' register tiles staged in shared
+  // memory, summed in k-group order, written in coalesced float4s
+  ieee_stage(smem + kg * kTileFloats, r, c, pr.diag, pl, acc);
+  __syncthreads();
+  {
+    constexpr int kV = kVecsOf<kIeeeThreads>;
+    const float4* staged = reinterpret_cast<const float4*>(smem);
+    float4* mine = reinterpret_cast<float4*>(partial_tile(args));
 #pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    float* row = mine + (ti + x) * kT;
-    *reinterpret_cast<float4*>(row + tj) =
-        make_float4(acc[x][0], acc[x][1], acc[x][2], acc[x][3]);
-    *reinterpret_cast<float4*>(row + 32 + tj) =
-        make_float4(acc[x][4], acc[x][5], acc[x][6], acc[x][7]);
+    for (int v = 0; v < kV; ++v) {
+      const int e = tid + v * kIeeeThreads;
+      float4 sum = staged[e];
+#pragma unroll
+      for (int g = 1; g < kGroups; ++g) {
+        const float4 x = staged[g * kTileFloats / 4 + e];
+        sum.x += x.x;
+        sum.y += x.y;
+        sum.z += x.z;
+        sum.w += x.w;
+      }
+      mine[e] = sum;
+    }
   }
-  sum_partials(args, pr, &flag);
+  // The staged tiles are read before the first ticket's barrier; then
+  // the same shared memory stages the final tile.
+  sum_partials<true, kIeeeThreads, true>(args, pr, &flag, smem);
+}
+
+int launch_ieee(const float* f, const GramArgs& args, const dim3& grid,
+                int smem_bytes, cudaStream_t stream) {
+  const bool bad = args.rows_per_split % kIeeeSlab != 0 ||
+                   args.stages < 2 || args.stages > 4 ||
+                   smem_bytes < ieee_smem_bytes(args.tiles, args.stages) ||
+                   smem_bytes > kIeeeSmemMax;
+  if (bad) return static_cast<int>(cudaErrorInvalidValue);
+  // The opt-in to the most dynamic shared memory, and to a carveout of
+  // all shared memory (two blocks an SM), once.
+  static const cudaError_t opt_in = [] {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        gram_ieee_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kIeeeSmemMax);
+    if (rc != cudaSuccess) return rc;
+    return cudaFuncSetAttribute(
+        gram_ieee_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+  }();
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  gram_ieee_kernel<<<grid, kIeeeThreads, smem_bytes, stream>>>(f, args);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The last block's write of a pair through shared memory: the summed
@@ -644,56 +935,60 @@ gram_ieee_kernel(const float* __restrict__ f, const GramArgs args) {
 // consecutive addresses: rows i0 + r (for a diagonal pair the lower
 // triangle taken from the upper, so raw stays bit-symmetric), then, off
 // the diagonal, the mirror rows j0 + c.
-constexpr int kStagePitch = kT + 1;
-
+template <int kN = kConsumers>
 __device__ void write_pair_staged(const GramArgs& args, const Pair& pr,
-                                  const float4 (&sum)[kVecs], float* stage) {
+                                  const float4 (&sum)[kVecsOf<kN>],
+                                  float* stage) {
+  constexpr int kV = kVecsOf<kN>;
+  constexpr int kPitch = kT + 1;
   const int tid = threadIdx.x;
 #pragma unroll
-  for (int v = 0; v < kVecs; ++v) {
-    const int idx = 4 * (tid + v * kConsumers);
-    float* row = stage + (idx / kT) * kStagePitch + idx % kT;
+  for (int v = 0; v < kV; ++v) {
+    const int idx = 4 * (tid + v * kN);
+    float* row = stage + (idx / kT) * kPitch + idx % kT;
     row[0] = sum[v].x;
     row[1] = sum[v].y;
     row[2] = sum[v].z;
     row[3] = sum[v].w;
   }
-  named_sync(1, kConsumers);
+  named_sync(1, kN);
   const long long base = static_cast<long long>(pr.image) * args.c * args.c;
-  for (int e = tid; e < kTileFloats; e += kConsumers) {
+  for (int e = tid; e < kTileFloats; e += kN) {
     const int r = e / kT;
     const int cc = e % kT;
     const int i = pr.i0 + r;
     const int j = pr.j0 + cc;
     if (i >= args.c || j >= args.c) continue;
-    const float v = pr.diag && r > cc ? stage[cc * kStagePitch + r]
-                                      : stage[r * kStagePitch + cc];
+    const float v = pr.diag && r > cc ? stage[cc * kPitch + r]
+                                      : stage[r * kPitch + cc];
     args.raw[base + static_cast<long long>(i) * args.c + j] = v;
     args.g[base + static_cast<long long>(i) * args.c + j] =
         fminf(v, args.clamp) / args.norm;
   }
   if (pr.diag) return;
-  for (int e = tid; e < kTileFloats; e += kConsumers) {
+  for (int e = tid; e < kTileFloats; e += kN) {
     const int cc = e / kT;
     const int r = e % kT;
     const int i = pr.i0 + r;
     const int j = pr.j0 + cc;
     if (i >= args.c || j >= args.c) continue;
-    const float v = stage[r * kStagePitch + cc];
+    const float v = stage[r * kPitch + cc];
     args.raw[base + static_cast<long long>(j) * args.c + i] = v;
     args.g[base + static_cast<long long>(j) * args.c + i] =
         fminf(v, args.clamp) / args.norm;
   }
 }
 
-template <bool kStaged>
+template <bool kStaged, int kN, bool kOneLevel>
 __device__ void sum_partials(const GramArgs& args, const Pair& pr,
                              int* flag, float* stage) {
+  constexpr int kV = kVecsOf<kN>;
+  constexpr int kFloats = kTileFloats;
   const int tid = threadIdx.x;
   const int pair = static_cast<int>(blockIdx.z * gridDim.x + blockIdx.x);
   const int split = static_cast<int>(blockIdx.y);
   float* tiles = args.ws + static_cast<long long>(pair) *
-                               (args.splits + args.groups) * kTileFloats;
+                               (args.splits + args.groups) * kFloats;
   const int image = pr.image;
   const bool diag = pr.diag;
   const int i0 = pr.i0;
@@ -704,32 +999,38 @@ __device__ void sum_partials(const GramArgs& args, const Pair& pr,
   const int in_group = min(args.group, args.splits - first);
   auto ticket = [&](int* counter, int expected) {
     if constexpr (kStaged) {
-      return last_to_arrive_acq_rel(counter, expected, flag);
+      return last_to_arrive_acq_rel<kN>(counter, expected, flag);
     } else {
       return last_to_arrive(counter, expected, flag);
     }
   };
   if (!ticket(&counters[grp], in_group)) return;
-  float4 sum[kVecs];
-  sum_tiles(tiles + static_cast<long long>(first) * kTileFloats, in_group,
-            sum);
+  float4 sum[kV];
+  sum_tiles<kN>(tiles + static_cast<long long>(first) * kFloats, in_group,
+                sum);
+  if constexpr (kOneLevel) {
+    if (args.groups == 1) {
+      write_pair_staged<kN>(args, pr, sum, stage);
+      return;
+    }
+  }
   float4* gtile = reinterpret_cast<float4*>(
-      tiles + static_cast<long long>(args.splits + grp) * kTileFloats);
+      tiles + static_cast<long long>(args.splits + grp) * kFloats);
 #pragma unroll
-  for (int v = 0; v < kVecs; ++v) gtile[tid + v * kConsumers] = sum[v];
+  for (int v = 0; v < kV; ++v) gtile[tid + v * kN] = sum[v];
   if (!ticket(&counters[args.groups], args.groups)) return;
-  sum_tiles(tiles + static_cast<long long>(args.splits) * kTileFloats,
-            args.groups, sum);
+  sum_tiles<kN>(tiles + static_cast<long long>(args.splits) * kFloats,
+                args.groups, sum);
   if constexpr (kStaged) {
-    write_pair_staged(args, pr, sum, stage);
+    write_pair_staged<kN>(args, pr, sum, stage);
     return;
   }
 #pragma unroll
-  for (int v = 0; v < kVecs; ++v) {
+  for (int v = 0; v < kV; ++v) {
     const float vals[4] = {sum[v].x, sum[v].y, sum[v].z, sum[v].w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int idx = 4 * (tid + v * kConsumers) + e;
+      const int idx = 4 * (tid + v * kN) + e;
       const int r = idx / kT;
       const int cc = idx % kT;
       const int i = i0 + r;
@@ -779,14 +1080,15 @@ int launch_tc(const float* f, const GramArgs& args, int batch,
 // contiguous (batch, p, c) block `f`) in `mode` 0 (IEEE fp32), 1
 // (3xTF32) or 2 (TF32); returns 0, a cudaError_t, or
 // tf32x3::kTensorMapError + a driver code. `raw` and `g` are (batch, c,
-// c); `ws` holds batch * pairs * (splits + groups) * 64 * 64 floats;
-// `counters` holds batch * pairs * (groups + 1) zeroed ints and is left
-// zeroed; each run adds one to `*launches`. The split ranges are
-// `rows_per_split` rows long (a multiple of the mode's slab: 32 rows, 64
-// in TF32) and cover all p rows of
-// an image; groups = ceil(splits / group); c % 4 == 0 (TMA row stride).
-// The plan comes from ops/gram.py's gram_plan (smem_bytes is 0 for the
-// IEEE mode, whose shared memory is static).
+// c); pairs are 64 x 64; `ws` holds batch * pairs * (splits + groups)
+// * 64 * 64 floats; `counters` holds batch * pairs * (groups + 1)
+// zeroed ints and is left zeroed; each run adds one to `*launches`. The
+// split ranges are `rows_per_split` rows long (a multiple of the mode's
+// slab: 32 rows, 64 in TF32 and IEEE) and cover all p rows
+// of an image; groups = ceil(splits / group); c % 4 == 0 (TMA row
+// stride, the IEEE mode's 16-byte copies). The plan comes from
+// ops/gram.py's gram_plan; a plan this file has no kernel for, or whose
+// shared memory does not hold its parts, is refused.
 extern "C" int gram_forward(const float* f, float* ws, int* counters,
                             float* raw, float* g, int batch, long long p,
                             int c, int splits, long long rows_per_split,
@@ -809,8 +1111,7 @@ extern "C" int gram_forward(const float* f, float* ws, int* counters,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case 0:
-      gram_ieee_kernel<<<grid, kConsumers, 0, s>>>(f, args);
-      return static_cast<int>(cudaGetLastError());
+      return launch_ieee(f, args, grid, smem_bytes, s);
     case 1:
       return launch_tc<1>(f, args, batch, grid, smem_bytes, s);
     case 2:

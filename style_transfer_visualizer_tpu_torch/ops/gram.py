@@ -14,7 +14,8 @@ On a CUDA tensor the raw Grams and G come from the hand-written kernel
 of the Gram's precision level (``ops/precision.py``): ``tf32x3`` or
 ``tf32`` on the tensor cores (``tf32`` its own kernel, with its
 products kept in flight and slabs of 64 rows), ``ieee`` (IEEE fp32) on
-the CUDA cores.
+the CUDA cores (its own kernel and plan: a ``cp.async`` ring, 8 x 8
+register tiles, no products below a diagonal pair's diagonal).
 It launches that mode's kernel or raises. On a CPU tensor they come
 from the plain version, ``F.T @ F`` per image, in fp32 at every mode.
 Any other device raises. Each mode also has a plain version of its own
@@ -62,25 +63,57 @@ launches = build.ModeCounters("gram", MODES)
 #: The C entry point's number of each mode.
 _MODE_CODES = {"ieee": 0, "tf32x3": 1, "tf32": 2}
 
-# Tile edge, and pixel rows per ring slot of the kernel by mode (the
-# TF32 kernel's slabs are 64 rows: two K steps a barrier round).
+# Tile edge, and pixel rows per ring slot of the tensor-core kernels by
+# mode (the TF32 kernel's slabs are 64 rows: two K steps a barrier
+# round).
 _TILE = 64
 _ROWS = 32
-SLAB_ROWS = {"ieee": _ROWS, "tf32x3": _ROWS, "tf32": 64}
-# Blocks per SM the kernel's shared memory and registers allow.
+SLAB_ROWS = {"tf32x3": _ROWS, "tf32": 64}
+# Blocks per SM the tensor-core kernels' shared memory and registers
+# allow.
 _BLOCKS_PER_SM = 2
 # Ring slots by mode: the 3xTF32 kernel's 4 of 32 rows, the TF32
 # kernel's 2 of 64 (beside its two transposed tiles), or 4 of F_i alone
 # where every pair is diagonal (C <= 64).
-_STAGES = {"ieee": 4, "tf32x3": 4, "tf32": 2}
+_STAGES = {"tf32x3": 4, "tf32": 2}
 _ALIGN = 1024
+# The IEEE kernel (gram_ieee_kernel): 256 threads a block, at most 128
+# registers a thread (its launch bounds ask for two blocks an SM), an
+# 8 x 8 register tile a thread; 64 x 64 tile pairs, the threads in four
+# k-groups of 64 on slabs of 64 rows; a ring of up to 4 slots; the most
+# dynamic shared memory a plan may ask for (csrc/gram.cu's
+# kIeeeSmemMax).
+IEEE_THREADS = 256
+IEEE_REGISTERS = 128
+IEEE_SLAB = 64
+IEEE_KGROUPS = IEEE_THREADS // (_TILE // 8) ** 2
+IEEE_MAX_STAGES = 4
+IEEE_SMEM_MAX = 112 * 1024
+# Up to this many splits form one group, summed in one level; above
+# it, two levels of about sqrt(splits) tiles each take less time.
+IEEE_ONE_LEVEL = 8
+#: An H100's registers and shared memory per SM (1 KB of it reserved
+#: for each block).
+REGISTERS_PER_SM = 65536
+SMEM_PER_SM = 228 * 1024
+SMEM_PER_BLOCK_RESERVED = 1024
+_STATIC_SMEM = 16  # the kernel's `flag`
 # The grid's third dimension, one image per index.
 _MAX_BATCH = 65535
 
 
 @dataclass(frozen=True)
 class GramPlan:
-    """How ``csrc/gram.cu`` covers one ``(P, C)`` block."""
+    """How ``csrc/gram.cu`` covers one ``(P, C)`` block.
+
+    ``pairs`` 64 x 64 tile pairs on or above the diagonal, ``splits``
+    ranges of ``rows`` pixel rows each (a whole
+    number of ``slab``-row ring slots), summed in ``groups`` groups of
+    ``group``; a ring of ``stages`` slots; ``smem_bytes`` of dynamic
+    shared memory; ``kgroups`` groups of threads splitting each slab's
+    rows (the IEEE kernel's); ``blocks_per_sm`` blocks an SM
+    (the unit the split fills the card in).
+    """
 
     pairs: int
     splits: int
@@ -89,6 +122,9 @@ class GramPlan:
     groups: int
     stages: int
     smem_bytes: int
+    slab: int = _ROWS
+    kgroups: int = 1
+    blocks_per_sm: int = _BLOCKS_PER_SM
 
 
 def _raw_plain(flat: torch.Tensor, mode: Mode) -> torch.Tensor:
@@ -153,35 +189,83 @@ def _entry():
 
 
 def split_rows(
-    p: int, c: int, n_sm: int, slab: int = _ROWS,
+    p: int, c: int, n_sm: int, slab: int = _ROWS, *,
+    blocks_per_sm: int = _BLOCKS_PER_SM,
 ) -> tuple[int, int]:
     """``(splits, rows_per_split)`` of the kernel's split over P.
 
-    Enough splits to give every SM its blocks, each a whole number of
-    ``slab``-row slots; the splits cover all ``p`` rows. Each split has
-    one block per tile pair on or above the diagonal.
+    Enough splits to give every SM its ``blocks_per_sm`` blocks, each a
+    whole number of ``slab``-row slots; the splits cover all ``p``
+    rows. Each split has one block per tile pair on or above the
+    diagonal.
     """
     side = math.ceil(c / _TILE)
     pairs = side * (side + 1) // 2
     groups = max(1, math.ceil(p / slab))
-    cap = max(1, (_BLOCKS_PER_SM * n_sm) // pairs)
+    cap = max(1, (blocks_per_sm * n_sm) // pairs)
     splits = max(1, min(groups, cap))
     rows = math.ceil(groups / splits) * slab
     return math.ceil(p / rows) if p else 1, rows
 
 
 def _smem_bytes(mode: Mode) -> int:
-    """Dynamic shared memory of ``mode``'s kernel: the ring's slots (F_i
-    and F_j slabs), the transposed B tiles (hi and lo of one slab in
-    ``tf32x3``; two slabs' tiles, double-buffered, in ``tf32``) and the
-    mbarriers; 0 for ``ieee``, whose shared memory is static."""
-    if mode == "ieee":
-        return 0
+    """Dynamic shared memory of a tensor-core mode's kernel: the ring's
+    slots (F_i and F_j slabs), the transposed B tiles (hi and lo of one
+    slab in ``tf32x3``; two slabs' tiles, double-buffered, in ``tf32``)
+    and the mbarriers."""
     rows, stages = SLAB_ROWS[mode], _STAGES[mode]
     slot = 2 * rows * _TILE * 4
     # The TF32 kernel's barriers are sized for its 4 diagonal-only slots.
     bars = 16 * (2 * stages if mode == "tf32" else stages)
     return _ALIGN + stages * slot + 2 * _TILE * rows * 4 + bars
+
+
+def ieee_smem_bytes(side: int, stages: int) -> int:
+    """The IEEE kernel's dynamic shared memory: the most of the ring
+    (``stages`` slots of F_i's slab, and F_j's unless ``side`` is 1),
+    the k-groups' register tiles and the staged final tile (65 floats a
+    row)."""
+    slot = (1 if side == 1 else 2) * IEEE_SLAB * _TILE * 4
+    return max(
+        stages * slot, IEEE_KGROUPS * _TILE * _TILE * 4,
+        _TILE * (_TILE + 1) * 4,
+    )
+
+
+def _ieee_plan(p: int, c: int, n_sm: int) -> GramPlan:
+    """The IEEE kernel's plan (see :func:`gram_plan`).
+
+    Blocks an SM come from the kernel's own registers
+    (``IEEE_REGISTERS`` a thread) and shared memory: the ring takes as
+    many slots, up to ``IEEE_MAX_STAGES``, as leave the registers' count
+    of blocks room on an SM, and the split over P fills the card in that
+    unit. Up to ``IEEE_ONE_LEVEL`` splits form one group, whose sum the
+    kernel writes out at once.
+    """
+    side = math.ceil(c / _TILE)
+    by_regs = REGISTERS_PER_SM // (IEEE_REGISTERS * IEEE_THREADS)
+    room = (
+        SMEM_PER_SM // by_regs - SMEM_PER_BLOCK_RESERVED - _STATIC_SMEM
+    )
+    slot = (1 if side == 1 else 2) * IEEE_SLAB * _TILE * 4
+    stages = min(IEEE_MAX_STAGES, room // slot)
+    smem = ieee_smem_bytes(side, stages)
+    blocks_per_sm = min(
+        by_regs,
+        SMEM_PER_SM // (smem + _STATIC_SMEM + SMEM_PER_BLOCK_RESERVED),
+    )
+    splits, rows = split_rows(
+        p, c, n_sm, IEEE_SLAB, blocks_per_sm=blocks_per_sm,
+    )
+    group = (
+        splits if splits <= IEEE_ONE_LEVEL else math.isqrt(splits - 1) + 1
+    )
+    return GramPlan(
+        pairs=side * (side + 1) // 2, splits=splits, rows=rows,
+        group=group, groups=math.ceil(splits / group), stages=stages,
+        smem_bytes=smem, slab=IEEE_SLAB, kgroups=IEEE_KGROUPS,
+        blocks_per_sm=blocks_per_sm,
+    )
 
 
 @functools.cache
@@ -193,13 +277,17 @@ def gram_plan(p: int, c: int, n_sm: int, mode: Mode = "tf32x3") -> GramPlan:
     block reads more than about ``2 * sqrt(splits)`` tiles. A batch of
     images is planned image by image, as if each were alone: an image's
     sums run in the same order whatever the batch, so its raw Gram is
-    the single launch's, bit for bit. Every mode shares the grid and the
-    split's rule; a split's rows are a whole number of the mode's slabs
-    (``SLAB_ROWS``), and the ring and the shared memory are the mode's.
+    the single launch's, bit for bit. The tensor-core modes share the
+    grid and the split's rule; a split's rows are a whole number of the
+    mode's slabs (``SLAB_ROWS``), and the ring and the shared memory
+    are the mode's. The IEEE mode plans its own slab, ring and blocks
+    an SM.
     """
     if mode not in MODES:
         msg = f"gram: unknown mode {mode!r}"
         raise ValueError(msg)
+    if mode == "ieee":
+        return _ieee_plan(p, c, n_sm)
     side = math.ceil(c / _TILE)
     splits, rows = split_rows(p, c, n_sm, SLAB_ROWS[mode])
     group = math.isqrt(splits - 1) + 1
@@ -207,7 +295,7 @@ def gram_plan(p: int, c: int, n_sm: int, mode: Mode = "tf32x3") -> GramPlan:
     return GramPlan(
         pairs=side * (side + 1) // 2, splits=splits, rows=rows,
         group=group, groups=math.ceil(splits / group),
-        stages=stages, smem_bytes=_smem_bytes(mode),
+        stages=stages, smem_bytes=_smem_bytes(mode), slab=SLAB_ROWS[mode],
     )
 
 
@@ -221,7 +309,7 @@ def _launch(
     P, C)`` batch.
 
     A ``C`` that is not a multiple of 4 (TMA's 16-byte row stride, the
-    IEEE kernel's float4 loads) is padded with zero channels, which add
+    IEEE kernel's 16-byte copies) is padded with zero channels, which add
     nothing, and cut off again.
     """
     s, p, c = flat.shape

@@ -1,20 +1,26 @@
-"""Where a launch of the TF32 Gram kernel spends its time, on the card.
+"""Where a launch of a Gram kernel spends its time, on the card.
 
     python -m style_transfer_visualizer_tpu_torch.tools.gram_parts
+    python -m style_transfer_visualizer_tpu_torch.tools.gram_parts --mode ieee
 
-Builds copies of ``csrc/gram.cu`` whose ``gram_tf32_kernel`` leaves out,
-cumulatively, the two-level sum of the partial tiles, the products and
-the transpose of each slab (what is left streams the slabs through the
-TMA ring), each into the package's build directory beside the real
-library; then times each copy at the five Gram shapes of the 512x512
-main path, alone and at S = 4, beside ``torch.mm`` / ``torch.bmm``
-with TF32 on. The copies compute wrong Grams on purpose; nothing but
-this tool loads them. Device ms per call from CUDA graphs of 5 calls
+Builds copies of ``csrc/gram.cu`` whose kernel of the chosen mode
+leaves out, cumulatively, parts of its work, each into the package's
+build directory beside the real library; then times each copy at the
+five Gram shapes of the 512x512 main path, alone and at S = 4, beside
+``torch.mm`` / ``torch.bmm`` (with TF32 on for ``tf32``, in fp32 for
+``ieee``). ``tf32`` (``gram_tf32_kernel``): the two-level sum of the
+partial tiles, the products, the transpose of each slab (what is left
+streams the slabs through the TMA ring). ``ieee``
+(``gram_ieee_kernel``): the two-level sum, then the products (what is
+left streams the slabs into shared memory and writes the partial
+tile). The copies compute wrong Grams on purpose; nothing but this
+tool loads them. Device ms per call from CUDA graphs of 5 calls
 replayed twice, the least of two rounds. Needs a CUDA device and
 ``nvcc``.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -29,8 +35,9 @@ from style_transfer_visualizer_tpu_torch.native import build
 from style_transfer_visualizer_tpu_torch.ops import gram
 
 SHAPES = [
-    (1, 262144, 64), (1, 65536, 128), (1, 16384, 256), (1, 4096, 512),
-    (1, 1024, 512), (4, 262144, 64), (4, 65536, 128),
+    (s, p, c) for s in (1, 4)
+    for p, c in ((262144, 64), (65536, 128), (16384, 256), (4096, 512),
+                 (1024, 512))
 ]
 _NO_SUM = [(
     "  sum_partials<true>(args, pr, &flag, reinterpret_cast<float*>(smem));",
@@ -53,28 +60,52 @@ VARIANTS = {
     "no sum, no products": _NO_SUM + _NO_MMA,
     "streaming only": _NO_SUM + _NO_MMA + _NO_PREP,
 }
+_IEEE_NO_SUM = [(
+    "  sum_partials<true, kIeeeThreads, true>(args, pr, &flag, smem);",
+    "  (void)flag;",
+)]
+_IEEE_NO_FMA = [("  acc = fmaf(a, b, acc);", "  (void)a;\n  (void)b;")]
+#: Each variant's edits of the IEEE kernel's text, cumulative.
+IEEE_VARIANTS = {
+    "whole": [],
+    "no sum": _IEEE_NO_SUM,
+    "streaming only": _IEEE_NO_SUM + _IEEE_NO_FMA,
+}
+#: The text each mode's edits apply to: from its kernel to the next part.
+_SPANS = {
+    "tf32": ("gram_tf32_kernel(const __grid_constant__",
+             "// The IEEE fp32 mode on the CUDA cores"),
+    "ieee": ("// The IEEE fp32 mode on the CUDA cores",
+             "// The last block's write of a pair through shared memory"),
+}
 
 
-def _variant_source(edits: list[tuple[str, str]]) -> str:
+def _variant_source(edits: list[tuple[str, str]], mode: str = "tf32") -> str:
     src = (build.CSRC / "gram.cu").read_text()
-    start = src.index("gram_tf32_kernel(const __grid_constant__")
-    end = src.index("// The IEEE fp32 mode on the CUDA cores")
+    first, last = _SPANS[mode]
+    start = src.index(first)
+    end = src.index(last, start)
     body = src[start:end]
     for old, new in edits:
         if old not in body:
-            msg = f"gram_parts: {old!r} is no longer in gram_tf32_kernel"
+            msg = f"gram_parts: {old!r} is no longer in the {mode} kernel"
             raise RuntimeError(msg)
         body = body.replace(old, new)
     return src[:start] + body + src[end:]
 
 
-def _build_variants() -> dict[str, ctypes.CDLL]:
+def variants(mode: str) -> dict[str, list[tuple[str, str]]]:
+    """``mode``'s variants: its name to its edits."""
+    return VARIANTS if mode == "tf32" else IEEE_VARIANTS
+
+
+def _build_variants(mode: str) -> dict[str, ctypes.CDLL]:
     """One library per variant, built in parallel."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, edits) in enumerate(VARIANTS.items()):
-        cu = build.BUILD_DIR / f"gram_parts_{i}.cu"
-        cu.write_text(_variant_source(edits))
+    for i, (name, edits) in enumerate(variants(mode).items()):
+        cu = build.BUILD_DIR / f"gram_parts_{mode}_{i}.cu"
+        cu.write_text(_variant_source(edits, mode))
         lib = cu.with_suffix(".so")
         cmd = [build._nvcc(), *build.NVCC_FLAGS,  # noqa: SLF001
                "-I", str(build.CSRC), "-o", str(lib), str(cu)]
@@ -127,17 +158,20 @@ def _graph_ms(fn, reps: int = 5, replays: int = 2) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
-def _library_ms(f: torch.Tensor) -> float:
+def _library_ms(f: torch.Tensor, mode: str) -> float:
     prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = mode == "tf32"
     try:
         return _graph_ms(partial(torch.bmm, f.mT, f))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
     """Print the card, then one line per shape: ms per variant."""
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--mode", choices=("tf32", "ieee"), default="tf32")
+    mode = parser.parse_args(argv).mode
     if not torch.cuda.is_available():
         msg = "gram_parts needs a CUDA device"
         raise SystemExit(msg)
@@ -147,7 +181,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     sys.stdout.write(f"card: {card}\n")
-    libs = _build_variants()
+    libs = _build_variants(mode)
     gen = torch.Generator(device="cuda").manual_seed(0)
     feats = {s: torch.randn(s, generator=gen, device="cuda") for s in SHAPES}
     times: dict[tuple[str, tuple], float] = {}
@@ -160,7 +194,7 @@ def main() -> int:
                 for shape, f in feats.items():
                     ms = _graph_ms(partial(
                         gram.gram_kernel_batched, f, GRAM_MATRIX_CLAMP_MAX,
-                        float(shape[1] * shape[2]), "tf32",
+                        float(shape[1] * shape[2]), mode,
                     ))
                     key = (name, shape)
                     times[key] = min(times.get(key, ms), ms)
@@ -172,8 +206,9 @@ def main() -> int:
             f"{name} {times[(name, shape)]:.4f}" for name in libs
         )
         sys.stdout.write(
-            f"gram tf32 S={shape[0]} ({shape[1]},{shape[2]}) ms: {parts}; "
-            f"torch.bmm TF32 {_library_ms(f):.4f}\n",
+            f"gram {mode} S={shape[0]} ({shape[1]},{shape[2]}) ms: {parts}; "
+            f"torch.bmm {'TF32' if mode == 'tf32' else 'fp32'} "
+            f"{_library_ms(f, mode):.4f}\n",
         )
     return 0
 

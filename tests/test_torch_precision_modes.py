@@ -29,6 +29,8 @@ on a card, without the JAX test environment:
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -221,7 +223,11 @@ def test_conv_plan_by_mode(h, c_in, c_out) -> None:
 def test_gram_plan_by_mode() -> None:
     plans = {m: gram.gram_plan(262144, 64, 132, m) for m in pp.MODES}
     assert plans["tf32x3"] == gram.gram_plan(262144, 64, 132)
-    assert plans["ieee"].smem_bytes == 0
+    # IEEE: its own kernel's shared memory (the ring of F_i slabs, the
+    # four k-groups' register tiles) and blocks an SM.
+    ieee = plans["ieee"]
+    assert ieee.smem_bytes == gram.ieee_smem_bytes(1, ieee.stages)
+    assert (ieee.slab, ieee.kgroups, ieee.blocks_per_sm) == (64, 4, 2)
     # TF32: two slots of 64-row F_i and F_j slabs, two transposed
     # tiles of a slab each, the mbarriers.
     # (C = 64: every pair diagonal, twice the slots of F_i alone.)
@@ -230,9 +236,13 @@ def test_gram_plan_by_mode() -> None:
     )
     assert (plans["tf32"].stages, plans["tf32"].rows % 64) == (4, 0)
     assert gram.gram_plan(262144, 128, 132, "tf32").stages == 2  # noqa: PLR2004
-    split = {(p.splits, p.rows, p.group) for m, p in plans.items()
-             if m != "tf32"}
-    assert len(split) == 1
+    # Each mode splits P by the one rule in its own slabs and blocks an
+    # SM.
+    for p in plans.values():
+        assert (p.splits, p.rows) == gram.split_rows(
+            262144, 64, 132, p.slab, blocks_per_sm=p.blocks_per_sm,
+        )
+        assert p.group == math.isqrt(p.splits - 1) + 1
     for p in plans.values():
         assert p.splits * p.rows >= 262144 > (p.splits - 1) * p.rows
     with pytest.raises(ValueError, match="unknown mode"):
