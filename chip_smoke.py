@@ -151,6 +151,31 @@ exits non-zero:
    and ms per coarse step; then both kernels at the level's first two
    conv shapes and at the first tap's Gram (P = 4,194,304, C = 64)
    against their plain versions, timed (``level_2048_first``);
+12b. band kernels (before the main path, beside the other kernel
+   checks): both kernels at the 4K band's first window (880x3840: the
+   convs 3 -> 64 and 64 -> 64; the raw Gram of the first tap's 720 band
+   rows, P = 2,764,800, C = 64, clamp ``inf`` and norm 1 as
+   ``ops.gram.gram_raw`` launches it, G bit-equal to raw, its gradient
+   through ``gram_raw``) in all three modes against their plain
+   versions within 1e-4, timed (``band_4k_first``);
+12c. banded 4K: 3840x2160 content, a 512x512 style, shipped defaults,
+   no warm start, ``tile_rows=720`` (3 bands) against the whole-image
+   run: step 0's loss (1e-5) and gradient (1e-4 of its largest
+   magnitude), the 3-step L-BFGS curve within ``max(control, 1e-3)``
+   (the control: the whole run against itself from content perturbed
+   by 1e-7), a 5-step Adam curve (lr 0.05) within 1e-3 a step, the
+   banded run graphed bit-equal to eager with its own peak within 10%
+   of eager's, launches worked out (per band and step: every conv's
+   forward, the checkpoint's recompute and its input gradient; two
+   Grams a style tap), each run's own peak and ms/step;
+12d. banded 8K: 7680x4320 content through ``run_style_transfer`` at
+   the shipped defaults (``tile_rows`` auto, the auto warm start):
+   the log line of the band height the H100 thresholds give, 3 L-BFGS
+   steps with finite, decreasing losses, the peak, ms/step and bands;
+12e. remat: a 2048x2048 graphed L-BFGS run and the S = 4 batch at
+   512x512 with ``remat=True`` bit-equal to ``remat=False`` in image
+   and losses (one more forward of every conv a step), own peaks and
+   ms/step;
 13. sweep: ``blend_sweep.stylize_blend_sweep`` at 512x512 on
    full-width VGG19, 3 styles, 5 frames, the shipped L-BFGS with 20
    steps for frame 0 and 10 for each later frame (60 steps): launches
@@ -222,8 +247,9 @@ kernel's launches in each driven path, and its times summed over a
 step at 512x512, under ``at_1024`` at 1024x1024, and for the batch
 phase's step at S = 4 under ``n4_512`` (conv) and ``batched_s4_512``
 (Gram), for the 2048x2048 level's first shapes under
-``level_2048_first``, and for a 1280x720 frame's step under
-``at_720p``). The conv and Gram entries are their 3xTF32 kernels;
+``level_2048_first``, for a 1280x720 frame's step under
+``at_720p``, and for a 4K band's first window under
+``band_4k_first``). The conv and Gram entries are their 3xTF32 kernels;
 ``conv3x3_ieee``, ``conv3x3_tf32``, ``gram_ieee`` and ``gram_tf32``
 the other modes, with the same keys; each entry's ``launches`` is its
 mode's count on the main path at ``mixed`` or, where ``mixed`` runs
@@ -247,6 +273,7 @@ import gc
 import importlib.util
 import json
 import logging
+import math
 import re
 import shutil
 import statistics
@@ -276,6 +303,10 @@ from style_transfer_visualizer_tpu_torch.config import (
     VideoConfig,
 )
 from style_transfer_visualizer_tpu_torch.constants import (
+    AUTO_TILE_PIXEL_THRESHOLD,
+    MAX_BAND_PIXELS,
+)
+from style_transfer_visualizer_tpu_torch.constants import (
     GRAM_MATRIX_CLAMP_MAX as CLAMP,
 )
 from style_transfer_visualizer_tpu_torch.engine.coarse import (
@@ -291,8 +322,10 @@ from style_transfer_visualizer_tpu_torch.engine.runner import (
     SilentProgress,
 )
 from style_transfer_visualizer_tpu_torch.main import (
+    _auto_remat_batched,
     prepare_model_and_input,
     prepare_multi_style,
+    resolve_single_remat,
     run_multi_style_loop,
     run_style_transfer,
     style_transfer,
@@ -310,7 +343,7 @@ from style_transfer_visualizer_tpu_torch.models.vgg19 import (
 )
 from style_transfer_visualizer_tpu_torch.native import build
 from style_transfer_visualizer_tpu_torch.ops.color import RGB_TO_YIQ
-from style_transfer_visualizer_tpu_torch.ops import conv3x3, gram
+from style_transfer_visualizer_tpu_torch.ops import conv3x3, gram, tiled
 from style_transfer_visualizer_tpu_torch.ops.precision import (
     MODES,
     PRECISION_NAMES,
@@ -320,6 +353,7 @@ from style_transfer_visualizer_tpu_torch.ops.precision import (
     kernel_mode,
     resolve_precision,
 )
+from style_transfer_visualizer_tpu_torch.ops.tf32 import round_tf32
 from style_transfer_visualizer_tpu_torch.runtime.checkpoint import (
     load_checkpoint,
     save_checkpoint,
@@ -2209,6 +2243,423 @@ def _check_level_kernels(conv_rec, conv_level, gram_rec, gram_level):
     )
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---- banded evaluation and remat
+
+# The 4K band: 3840x2160 content in 3 bands of 720 rows, each window
+# 720 + 2 x 80 rows (VGG19's margin to layer 28); 8K UHD through the
+# entry point at the H100 thresholds; remat at 2048x2048 and S = 4.
+BAND_HW = (2160, 3840)
+BAND_ROWS = 720
+BAND_STEPS = 3
+BAND_ADAM_STEPS = 5
+BAND_8K_HW = (4320, 7680)
+REMAT_SIDE = 2048
+# Step 0, whole against banded (each from its own targets): the loss
+# and the gradient's largest difference over its largest magnitude, as
+# the CPU tests hold the banded loss against the JAX package's.
+BAND_LOSS_TOL = 1e-5
+BAND_GRAD_TOL = 1e-4
+# A graphed run's own peak against the eager run's (PERF.md section 2).
+PEAK_RATIO = 1.10
+# The shipped taps (VGG19 style 0, 5, 10, 19, 28; content 21).
+SHIPPED_TAPS = (0, 5, 10, 19, 21, 28)
+
+
+def _band_window() -> int:
+    """Rows of the 4K band's window: 720 + 2 x the shipped margin."""
+    return BAND_ROWS + 2 * tiled.receptive_margin(SHIPPED_TAPS)[0]
+
+
+def _check_band_kernels(recs: dict[str, tuple[Record, Record]]) -> None:
+    """Both kernels at the 4K band's first window, in every mode.
+
+    The convs 3 -> 64 and 64 -> 64 at 880x3840 (forward with and without
+    its ReLU, the masked input gradient) and the raw Gram of the first
+    tap's band rows (P = 720 x 3840 = 2,764,800, C = 64) launched as
+    ``ops.gram.gram_raw`` launches it (clamp ``inf``, norm 1: G bit-equal
+    to raw), and its gradient through ``gram_raw`` against the plain
+    ``F (dG + dG^T)``: each within 1e-4 of the mode's plain version.
+    Timed as a band's step runs them: 2 forwards (the forward and the
+    checkpoint's recompute) and 1 input gradient a conv, 2 Grams.
+    ``recs[mode]`` is the mode's (conv, Gram) record of the shape set
+    ``band_4k_first``.
+    """
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows, width = _band_window(), BAND_HW[1]
+    for mode in MODES:
+        conv_rec, gram_rec = recs[mode]
+        kern = partial(conv3x3.conv3x3_kernel, mode=mode)
+        plain = partial(conv3x3.conv3x3_plain, mode=mode)
+        for ci, co, fused in ((3, 64, False), (64, 64, True)):
+            x = torch.randn((1, rows, width, ci), generator=gen,
+                            device="cuda")
+            w9 = torch.randn((9, ci, co), generator=gen, device="cuda") * (
+                (2.0 / (9 * ci)) ** 0.5
+            )
+            b = 0.1 * torch.randn((co,), generator=gen, device="cuda")
+            g = torch.randn((1, rows, width, co), generator=gen,
+                            device="cuda")
+            w9f = flip_stencil(w9)
+            st = conv3x3.mode_stencil(mode, w9, pack_stencil(w9))
+            stf = conv3x3.mode_stencil(mode, w9f, pack_stencil(w9f))
+            label = f"band 1x{rows}x{width} {ci}->{co} {mode}"
+            for relu in (True, False):
+                conv_rec.err(kern(x, st, b, relu), plain(x, w9, b, relu),
+                             f"{label} forward relu={relu}")
+            out = kern(x, st, b, True)
+            mask = out if fused else None
+            conv_rec.err(kern(g, stf, None, False, mask),
+                         plain(g, w9f, None, False, mask),
+                         f"{label} input gradient mask={fused}")
+            w_oihw, wf_oihw = (
+                s.reshape(3, 3, *s.shape[1:]).permute(3, 2, 0, 1)
+                .contiguous() for s in (w9, w9f)
+            )
+            g_lib = g if mask is None else torch.where(mask > 0, g, 0.0)
+            fwd = tuple(map(_few_ms, (
+                partial(kern, x, st, b, True),
+                partial(plain, x, w9, b, True),
+                _library(mode, partial(
+                    F.conv2d, x.permute(0, 3, 1, 2), w_oihw, b, padding=1,
+                )),
+            )))
+            bwd = tuple(map(_few_ms, (
+                partial(kern, g, stf, None, False, mask),
+                partial(plain, g, w9f, None, False, mask),
+                _library(mode, partial(
+                    F.conv2d, g_lib.permute(0, 3, 1, 2), wf_oihw, None,
+                    padding=1,
+                )),
+            )))
+            pix = rows * width
+            flops = 2.0 * 9 * pix * ci * co
+            nbytes = 4.0 * (pix * (ci + co) + 9 * ci * co)
+            conv_rec.add(2, *fwd, flops, nbytes + 4.0 * co)
+            conv_rec.add(1, *bwd, flops,
+                         nbytes + (4.0 * pix * co if fused else 0.0))
+            print(
+                f"conv {label}: fwd kernel_ms {fwd[0]:.4f} plain_ms "
+                f"{fwd[1]:.4f} library_ms {fwd[2]:.4f} | bwd kernel_ms "
+                f"{bwd[0]:.4f} plain_ms {bwd[1]:.4f} library_ms "
+                f"{bwd[2]:.4f}",
+            )
+            del x, g, out, mask, g_lib
+        p, c = BAND_ROWS * width, 64
+        f = torch.randn((1, BAND_ROWS, width, c), generator=gen,
+                        device="cuda")
+        flat = f.view(p, c)
+        raw_k, g_k = gram.gram_kernel(flat, math.inf, 1.0, mode)
+        raw_p, _ = gram.gram_plain(flat, math.inf, 1.0, mode)
+        gram_rec.err(raw_k, raw_p, f"band raw gram ({p},{c}) {mode}")
+        if not (torch.equal(g_k, raw_k) and torch.equal(raw_k, raw_k.T)):
+            msg = f"band raw gram {mode}: G is not raw, or not symmetric"
+            raise AssertionError(msg)
+        dg = torch.randn((c, c), generator=gen, device="cuda")
+        fk = f.clone().requires_grad_(True)
+        level = {"ieee": "highest", "tf32x3": "high", "tf32": "default"}
+        gram.gram_raw(fk, resolve_precision(level[mode])).backward(dg)
+        ref = flat @ (dg + dg.T) if mode != "tf32" else (
+            round_tf32(flat) @ round_tf32(dg + dg.T)
+        )
+        gram_rec.err(fk.grad.view(p, c), ref,
+                     f"band raw gram ({p},{c}) {mode} backward")
+        times = tuple(map(_few_ms, (
+            partial(gram.gram_kernel, flat, math.inf, 1.0, mode),
+            partial(gram.gram_plain, flat, math.inf, 1.0, mode),
+            _library(mode, partial(torch.mm, flat.T, flat)),
+        )))
+        gram_rec.add(2, *times, float(p * c * (c + 1)),
+                     4.0 * (p * c + 2 * c * c))
+        print(
+            f"gram band raw ({p},{c}) {mode}: kernel_ms {times[0]:.4f} "
+            f"plain_ms {times[1]:.4f} library_ms {times[2]:.4f}; G "
+            f"bit-equal to raw",
+        )
+        del f, flat, fk, raw_k, raw_p, g_k
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _band_config(steps: int, tile_rows: int, **opt):
+    """Shipped defaults, no warm start, a CSV row (and so a dispatch)
+    every step, ``tile_rows`` forced."""
+    config = _config(steps, "cuda", coarse_steps=0, tile_rows=tile_rows,
+                     **opt)
+    config.output.log_every = 1
+    return config
+
+
+def _curve_err(a, b) -> float:
+    """Largest relative difference of curve ``a`` from curve ``b``."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def _banded_step0(params, content, style) -> str:
+    """Step 0's loss and gradient, whole against banded, each from its
+    own targets (the banded run bands the content targets too)."""
+    precision = resolve_precision("mixed")
+    opt = _config(1, "cuda").optimization
+    sl, cl = tuple(opt.style_layers), tuple(opt.content_layers)
+    content_img = image_io.host_array_to_device(content, "cuda",
+                                                normalize=True)
+    style_img = image_io.host_array_to_device(style, "cuda", normalize=True)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    start = content_img + 0.1 * torch.randn(
+        content_img.shape, generator=gen, device="cuda",
+    )
+    evals = {}
+    for rows in (0, BAND_ROWS):
+        targets = tiled.compute_tiled_targets(
+            params, style_img, content_img, sl, cl,
+            tile_rows_content=rows or None, precision=precision,
+        )
+        loss_fn = step.make_objective(
+            style_w=opt.style_w, content_w=opt.content_w, style_layers=sl,
+            content_layers=cl, precision=precision, tile_rows=rows,
+        )
+        x = start.clone().requires_grad_(True)
+        total, _ = loss_fn(params, x, targets)
+        (grad,) = torch.autograd.grad(total, x)
+        evals[rows] = (float(total), grad)
+        del targets, x, total
+    (loss_w, grad_w), (loss_b, grad_b) = evals[0], evals[BAND_ROWS]
+    loss_err = abs(loss_b - loss_w) / abs(loss_w)
+    grad_err = float((grad_b - grad_w).abs().max() / grad_w.abs().max())
+    if not (loss_err <= BAND_LOSS_TOL and grad_err <= BAND_GRAD_TOL):
+        msg = (
+            f"banded 4K step 0: loss rel err {loss_err:.3g} (bound "
+            f"{BAND_LOSS_TOL}), gradient {grad_err:.3g} (bound "
+            f"{BAND_GRAD_TOL})"
+        )
+        raise AssertionError(msg)
+    return (
+        f"step 0 loss whole {loss_w:.8g} banded {loss_b:.8g} rel err "
+        f"{loss_err:.3g} (bound {BAND_LOSS_TOL}), gradient max err over "
+        f"max {grad_err:.3g} (bound {BAND_GRAD_TOL})"
+    )
+
+
+def _band_run(content, style, config):
+    """``run_style_transfer`` with its dispatches logged and its own
+    peak: ``(image, losses, ms/step, own peak bytes)``."""
+    with _dispatch_log() as log:
+        (image, history), peak = _own_peak(
+            lambda: run_style_transfer(content, style, config),
+        )
+    losses = history["total_loss"]
+    return image, losses, log.ms_per_step(), peak
+
+
+def _banded_4k() -> tuple[int, int]:
+    """3840x2160 in 3 bands of 720 against the whole-image run.
+
+    Shipped defaults, a 512x512 style, no warm start. Step 0's loss and
+    gradient; the 3-step L-BFGS curve within ``max(control, 1e-3)``,
+    the control the whole run against itself from content perturbed by
+    1e-7 relative (``_nudged_control``'s); a 5-step Adam curve (lr 0.05)
+    within 1e-3 a step; the banded run graphed bit-equal to the banded
+    run eager, its own peak within 10% of eager's; launches on the
+    device equal to those worked out (targets: the style's sweep and the
+    content's, band by band; a step: per band the forward, the
+    checkpoint's recompute and the input gradient of every conv, and
+    two Grams a style tap); each run's own peak and ms/step.
+    """
+    h, w = BAND_HW
+    rng = np.random.default_rng(13)
+    content = rng.uniform(size=(1, h, w, 3)).astype(np.float32)
+    style = _images(SIZE, 14)[0]
+    params = load_pretrained_params(
+        torch.device("cuda"), allow_random=True, seed=0,
+    )
+    step0 = _banded_step0(params, content, style)
+    del params
+    runs = {}
+    for name, rows, image in (
+        ("whole", 0, content),
+        ("banded", BAND_ROWS, content),
+        ("nudged", 0, (content * (1 + 1e-7 * np.random.default_rng(9)
+                                  .standard_normal(content.shape)))
+         .astype(np.float32)),
+    ):
+        runs[name] = _band_run(image, style, _band_config(BAND_STEPS, rows))
+    control = _curve_err(runs["nudged"][1], runs["whole"][1])
+    err = _curve_err(runs["banded"][1], runs["whole"][1])
+    bound = max(control, GATE_TOL)
+    if not err <= bound:
+        msg = (
+            f"banded 4K L-BFGS curve: rel err {err:.3g} > max(control "
+            f"{control:.3g}, {GATE_TOL})"
+        )
+        raise AssertionError(msg)
+    adam = {
+        rows: _band_run(content, style, _band_config(
+            BAND_ADAM_STEPS, rows, optimizer="adam", lr=GATE_LR,
+        ))[1]
+        for rows in (0, BAND_ROWS)
+    }
+    adam_err = _curve_err(adam[BAND_ROWS], adam[0])
+    if not adam_err <= GATE_TOL:
+        msg = f"banded 4K Adam curve: rel err {adam_err:.3g} > {GATE_TOL}"
+        raise AssertionError(msg)
+    with _eager_dispatch():
+        eager = _band_run(content, style, _band_config(BAND_STEPS, BAND_ROWS))
+    _same_tensor("banded 4K", runs["banded"][0], eager[0])
+    if runs["banded"][1] != eager[1]:
+        msg = f"banded 4K: losses graphed {runs['banded'][1]} eager {eager[1]}"
+        raise AssertionError(msg)
+    if not runs["banded"][3] <= PEAK_RATIO * eager[3]:
+        msg = (
+            f"banded 4K: graphed own peak {runs['banded'][3]} over "
+            f"{PEAK_RATIO} x eager's {eager[3]}"
+        )
+        raise AssertionError(msg)
+    _fresh_peak()
+    _, _, launches = _counted_run(lambda: run_style_transfer(
+        content, style, _band_config(BAND_STEPS, BAND_ROWS),
+    ))
+    bands = h // BAND_ROWS
+    n_style = len(SHIPPED_TAPS) - 1
+    convs = _convs_through(VGG19, max(SHIPPED_TAPS))
+    want = (
+        convs + bands * _convs_through(VGG19, 21)
+        + BAND_STEPS * bands * 3 * convs,
+        n_style + BAND_STEPS * bands * 2 * n_style,
+    )
+    if launches != want:
+        msg = f"banded 4K: launches {launches}, expected {want}"
+        raise AssertionError(msg)
+    print(
+        f"banded 4K {w}x{h}, {bands} bands of {BAND_ROWS} rows (windows "
+        f"{_band_window()}): {step0}; L-BFGS {BAND_STEPS} steps whole "
+        f"{runs['whole'][1]} banded {runs['banded'][1]}: rel err "
+        f"{err:.3g} (control {control:.3g}, bound {bound:.3g}); Adam "
+        f"lr {GATE_LR} {BAND_ADAM_STEPS} steps rel err {adam_err:.3g} "
+        f"(bound {GATE_TOL}); graphed bit-equal to eager, own peak "
+        f"graphed {runs['banded'][3]} eager {eager[3]}; ms/step whole "
+        f"{runs['whole'][2]:.3f} banded {runs['banded'][2]:.3f} "
+        f"(x{runs['banded'][2] / runs['whole'][2]:.3f}); own peak whole "
+        f"{runs['whole'][3]} banded {runs['banded'][3]}; launches conv "
+        f"{launches[0]} gram {launches[1]} (expected {want})",
+    )
+    return launches
+
+
+def _banded_8k() -> tuple[int, int]:
+    """7680x4320 content through ``run_style_transfer`` at the shipped
+    defaults (``tile_rows`` auto, the auto warm start): it resolves to
+    bands at the H100 thresholds (the log line and its band height),
+    and 3 L-BFGS steps give finite, decreasing losses. The run's peak,
+    ms/step and band count."""
+    h, w = BAND_8K_HW
+    rng = np.random.default_rng(15)
+    content = rng.uniform(size=(1, h, w, 3)).astype(np.float32)
+    style = _images(SIZE, 16)[0]
+    config = _config(BAND_STEPS, "cuda")
+    config.output.log_every = 1
+    rows = tiled.auto_tile_rows(
+        h, w, SHIPPED_TAPS, max_band_pixels=MAX_BAND_PIXELS,
+    )
+    if h * w < AUTO_TILE_PIXEL_THRESHOLD or not rows:
+        msg = f"banded 8K: {w}x{h} does not resolve to bands ({rows})"
+        raise AssertionError(msg)
+    want_line = (
+        f"Auto-enabling banded loss evaluation (tile_rows={rows}) for "
+        f"{w}x{h} input."
+    )
+    logs = _LogLines()
+    logger.addHandler(logs)
+    before = _fresh_peak()
+    try:
+        with _dispatch_log() as log:
+            (image, history), run_s, launches = _counted_run(
+                lambda: run_style_transfer(content, style, config),
+            )
+    finally:
+        logger.removeHandler(logs)
+    peak = torch.cuda.max_memory_allocated()
+    losses = history["total_loss"]
+    if want_line not in logs.lines:
+        msg = f"banded 8K: no {want_line!r} in {logs.lines}"
+        raise AssertionError(msg)
+    if len(losses) != BAND_STEPS or not all(map(_finite, losses)) or not (
+        losses[-1] < losses[0]
+    ):
+        msg = f"banded 8K: losses {losses}"
+        raise AssertionError(msg)
+    if tuple(image.shape) != (1, h, w, 3) or not bool(
+        torch.isfinite(image).all(),
+    ):
+        msg = f"banded 8K: bad image {tuple(image.shape)}"
+        raise AssertionError(msg)
+    warm = [line for line in logs.lines if line.startswith(("Coarse", "Auto"))]
+    print(
+        f"banded 8K {w}x{h} ({h * w} px) through run_style_transfer: "
+        f"{h // rows} bands of {rows} rows (windows "
+        f"{rows + 2 * tiled.receptive_margin(SHIPPED_TAPS)[0]} rows); "
+        f"losses {losses}; ms/step {log.ms_per_step():.3f}; "
+        f"max_memory_allocated {peak} (the run's own {peak - before}); "
+        f"run s {run_s:.3f}; launches conv {launches[0]} gram "
+        f"{launches[1]}; log {warm}",
+    )
+    return launches
+
+
+def _remat() -> tuple[int, int]:
+    """Remat against none: a 2048x2048 graphed L-BFGS run and the S = 4
+    batch at 512x512, each bit-equal in image and losses (the same
+    kernels recompute the same values); own peaks and ms/step."""
+    if resolve_single_remat(REMAT_SIDE, REMAT_SIDE, 0, False) or (
+        _auto_remat_batched(SIZE * SIZE, BATCH_STYLES)
+    ):
+        msg = "remat: the sizes compared turn remat on by themselves"
+        raise AssertionError(msg)
+    content, _ = _images(REMAT_SIDE, 17)
+    style = _images(SIZE, 18)[0]
+    single = {}
+    for remat in (False, True):
+        config = _band_config(BAND_STEPS, 0, remat=remat)
+        _fresh_peak()
+        single[remat] = _counted_run(
+            lambda config=config: _band_run(content, style, config),
+        )
+    (img0, loss0, ms0, peak0), _, launches = single[False]
+    (img1, loss1, ms1, peak1), _, launches1 = single[True]
+    _same_tensor("remat 2048", img0, img1)
+    if loss0 != loss1:
+        msg = f"remat 2048: losses {loss0} vs {loss1}"
+        raise AssertionError(msg)
+    convs = _convs_through(VGG19, max(SHIPPED_TAPS))
+    if (launches1[0] - launches[0], launches1[1] - launches[1]) != (
+        BAND_STEPS * convs, 0,
+    ):
+        msg = f"remat 2048: launches {launches1} against {launches}"
+        raise AssertionError(msg)
+    b_content, _ = _images(SIZE, 19)
+    styles = _style_arrays(BATCH_STYLES)
+    batch = {}
+    for remat in (False, True):
+        config = _batch_config(BAND_STEPS, media=False, remat=remat)
+        config.output.log_every = 1
+        with _dispatch_log() as log:
+            out, peak = _own_peak(
+                lambda config=config: _batch_run(b_content, styles, config),
+            )
+        batch[remat] = (out[0], out[3], log.ms_per_step(), peak)
+    _same_tensor("remat batch", batch[False][0], batch[True][0])
+    _same_tensor("remat batch losses", batch[False][1], batch[True][1])
+    print(
+        f"remat: {REMAT_SIDE}x{REMAT_SIDE} L-BFGS {BAND_STEPS} steps "
+        f"bit-equal with and without (launches conv {launches[0]} -> "
+        f"{launches1[0]}, gram {launches[1]} -> {launches1[1]}); own peak "
+        f"{peak0} -> {peak1}, ms/step {ms0:.3f} -> {ms1:.3f}; S = "
+        f"{BATCH_STYLES} at {SIZE}x{SIZE} bit-equal, own peak "
+        f"{batch[False][3]} -> {batch[True][3]}, ms/step "
+        f"{batch[False][2]:.3f} -> {batch[True][2]:.3f}",
+    )
+    return launches1
 
 
 # ---- the targets-as-argument pipelines: sweep, regional, sequence
@@ -4440,10 +4891,11 @@ def main(argv: list[str] | None = None) -> int:
                 name, f"{PACKAGE}/{source}",
                 f"style_transfer_visualizer_tpu/{replaces}",
             )
-            for _ in range(5)
+            for _ in range(6)
         )
         records[name] = (main_rec, dict(zip(
-            ("at_1024", batch_key, "level_2048_first", "at_720p"), extra,
+            ("at_1024", batch_key, "level_2048_first", "at_720p",
+             "band_4k_first"), extra,
             strict=True,
         )))
     conv_rec, conv_extra = records["conv3x3"]
@@ -4458,6 +4910,18 @@ def main(argv: list[str] | None = None) -> int:
     )
     mode_recs = _mode_records()
     timed("mode checks", _check_modes, mode_recs)
+    band_recs = {"tf32x3": (
+        conv_extra["band_4k_first"], gram_extra["band_4k_first"],
+    )}
+    for mode in NEW_MODES:
+        band_recs[mode] = tuple(
+            mode_recs[name][mode][1].setdefault("band_4k_first", Record(
+                f"{name}_{mode}", mode_recs[name][mode][0].entry["source"],
+                mode_recs[name][mode][0].entry["replaces"], mode,
+            ))
+            for name in ("conv3x3", "gram")
+        )
+    timed("band kernels", _check_band_kernels, band_recs)
     phases = {}
     for name, phase, *args in (
         ("main path", _main_path),
@@ -4469,6 +4933,9 @@ def main(argv: list[str] | None = None) -> int:
         ("resume", _resume_single),
         ("resume batch", _resume_batch),
         ("warm start 4 MP", _warm_start_4mp),
+        ("banded 4K", _banded_4k),
+        ("banded 8K", _banded_8k),
+        ("remat", _remat),
         ("sweep", _sweep),
         ("regional", _regional, gram_rec),
         ("sequence", _sequence),

@@ -96,6 +96,16 @@ class OptimizationConfig:
     # that many steps split over ``pyramid_levels - 1`` coarse levels.
     coarse_steps: int = d.DEFAULT_COARSE_STEPS
     pyramid_levels: int = d.DEFAULT_PYRAMID_LEVELS
+    # Rematerialize the feature sweep's segments in the backward
+    # (models/features.py): about one more forward for less memory.
+    # Forced by True; False leaves it to the size (main.py's
+    # resolve_single_remat and _auto_remat_batched).
+    remat: bool = False
+    # Evaluate the loss band by band over rows of this height
+    # (ops/tiled.py; exact): -1 auto (bands from
+    # constants.AUTO_TILE_PIXEL_THRESHOLD), 0 always whole-image, > 0
+    # that band height.
+    tile_rows: int = -1
     # Permit seeded-random VGG weights when no converted weights
     # archive is found; stylization quality will be poor.
     allow_random_weights: bool = False
@@ -118,6 +128,7 @@ class OptimizationConfig:
         _check(self.lap_pool >= 1, "lap_pool must be >= 1")
         _check(self.lr > 0, "lr must be > 0")
         _check(self.coarse_steps >= -1, "coarse_steps must be >= -1")
+        _check(self.tile_rows >= -1, "tile_rows must be >= -1")
         _check(
             PYRAMID_LEVELS_MIN <= self.pyramid_levels <= PYRAMID_LEVELS_MAX,
             f"pyramid_levels must be in [{PYRAMID_LEVELS_MIN}, "
@@ -338,12 +349,6 @@ _SECTIONS = {
 #: the JAX default and then ignored; any other value raises
 #: ``NotImplementedError`` naming what it waits for.
 _UNPORTED: dict[tuple[str, str], tuple[object, str]] = {
-    ("optimization", "remat"): (
-        False, "ROADMAP.md queue item 'Memory: banded evaluation and remat'",
-    ),
-    ("optimization", "tile_rows"): (
-        -1, "ROADMAP.md queue item 'Memory: banded evaluation and remat'",
-    ),
     ("hardware", "spatial_shards"): (
         1, "ROADMAP.md queue item 'Spatial and dp×sp'",
     ),

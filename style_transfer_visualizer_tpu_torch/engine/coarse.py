@@ -9,33 +9,51 @@ coarsest level starts from ``init_method``. With ``coarse_steps=-1``
 1 MP, with a budget of ``steps // 5`` (:func:`resolve_coarse_steps`).
 
 Every level runs the same kernels as the full-size run, at its own
-shape, and runs whole at any size, as the port's full-size run does:
-the JAX package bands and rematerializes its largest levels (from 4.2
-MP and 2048x2048 px), which changes its memory but not its values. A
-level the card cannot hold raises ``torch.cuda.OutOfMemoryError``.
-:func:`multi_coarse_init` is the same schedule for the
+shape, and follows the full-size run's memory policy at that shape
+(:func:`level_memory_policy`): banded evaluation from
+``AUTO_TILE_PIXEL_THRESHOLD`` px (unless ``tile_rows`` is 0), with a
+band height derived for the level (an explicit ``tile_rows`` was
+checked against the full-size height), otherwise remat when asked for
+or from ``AUTO_REMAT_PIXEL_THRESHOLD`` px; the thresholds are the
+H100's (``constants.py``). Bands and remat change a level's memory, not
+its values. :func:`multi_coarse_init` is the same schedule for the
 multi-style batch: every level optimizes all S styles in one stacked
-step, each against its own style resized to the level.
+step, each against its own style resized to the level, with remat from
+``BATCH_AUTO_REMAT_PIXEL_THRESHOLD`` pixels x styles (the batch has no
+bands, as in the JAX package).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F  # noqa: N812
 
+from style_transfer_visualizer_tpu_torch.constants import (
+    AUTO_REMAT_PIXEL_THRESHOLD,
+    AUTO_TILE_PIXEL_THRESHOLD,
+    BATCH_AUTO_REMAT_PIXEL_THRESHOLD,
+    MAX_BAND_PIXELS,
+)
 from style_transfer_visualizer_tpu_torch.engine.runner import DEFAULT_CHUNK
 from style_transfer_visualizer_tpu_torch.engine.step import (
     build_update_step,
     drive_chunked,
+)
+from style_transfer_visualizer_tpu_torch.models.arch import (
+    layer_table_from_params,
 )
 from style_transfer_visualizer_tpu_torch.models.features import (
     compute_targets,
     initialize_input,
     targets_maybe_blended,
 )
+from style_transfer_visualizer_tpu_torch.ops.lap import lap_response
 from style_transfer_visualizer_tpu_torch.ops.precision import (
     resolve_precision,
 )
-from style_transfer_visualizer_tpu_torch.ops.lap import lap_response
+from style_transfer_visualizer_tpu_torch.ops.tiled import (
+    auto_tile_rows,
+    compute_tiled_targets,
+)
 from style_transfer_visualizer_tpu_torch.parallel.multistyle import (
     build_multi_style_update,
     initialize_multi_inputs,
@@ -196,6 +214,45 @@ def _level_lap(
     return lap_w, lap_target
 
 
+def level_memory_policy(
+    opt_cfg, params, ch: int, cw: int,
+) -> tuple[int, bool]:
+    """A single run's level's ``(tile_rows, remat)`` at (ch, cw).
+
+    The full-size run's rule at the level's own shape (the JAX
+    package's ``engine/coarse.py``): bands from
+    ``AUTO_TILE_PIXEL_THRESHOLD`` px unless ``tile_rows`` is 0, at the
+    height :func:`ops.tiled.auto_tile_rows` picks for the level (an
+    explicit full-size ``tile_rows`` does not fit a level); a level
+    with no exact tiling is attempted whole, with a warning. Remat when
+    whole, asked for or from ``AUTO_REMAT_PIXEL_THRESHOLD`` px.
+    """
+    tile_rows = 0
+    if opt_cfg.tile_rows != 0 and ch * cw >= AUTO_TILE_PIXEL_THRESHOLD:
+        taps = tuple(set(opt_cfg.style_layers) | set(opt_cfg.content_layers))
+        tile_rows = auto_tile_rows(
+            ch, cw, taps, max_band_pixels=MAX_BAND_PIXELS,
+            table=layer_table_from_params(params),
+        ) or 0
+        if tile_rows:
+            logger.info(
+                "Coarse phase uses banded evaluation (tile_rows=%d) "
+                "at %dx%d.",
+                tile_rows, cw, ch,
+            )
+        else:
+            logger.warning(
+                "Coarse problem is %dx%d (>= %d px) but its height "
+                "admits no exact band tiling; attempting whole-image "
+                "evaluation.",
+                cw, ch, AUTO_TILE_PIXEL_THRESHOLD,
+            )
+    remat = not tile_rows and (
+        opt_cfg.remat or ch * cw >= AUTO_REMAT_PIXEL_THRESHOLD
+    )
+    return tile_rows, remat
+
+
 def coarse_init(
     params,
     content_img: torch.Tensor,
@@ -259,8 +316,17 @@ def _optimize_level(
     coarse_style = resize_image(style_img, ch, cw)
     style_layers = tuple(opt_cfg.style_layers)
     content_layers = tuple(opt_cfg.content_layers)
+    tile_rows, remat = level_memory_policy(opt_cfg, params, ch, cw)
 
     def one_targets(s_img, content_layers_):
+        if tile_rows:
+            # Content and style were both resized to (ch, cw): one band
+            # height serves both.
+            return compute_tiled_targets(
+                params, s_img, coarse_content, style_layers,
+                content_layers_, tile_rows_style=tile_rows,
+                tile_rows_content=tile_rows, precision=prec,
+            )
         return compute_targets(
             params, s_img, coarse_content, style_layers, content_layers_,
             prec,
@@ -294,6 +360,8 @@ def _optimize_level(
         lbfgs_history_dtype=opt_cfg.lbfgs_history_dtype,
         lbfgs_direction=opt_cfg.lbfgs_direction,
         precision=prec,
+        remat=remat,
+        tile_rows=tile_rows,
     )
     x = (
         initialize_input(coarse_content, opt_cfg.init_method, generator)
@@ -347,6 +415,10 @@ def multi_coarse_init(
             tuple(opt_cfg.style_layers), tuple(opt_cfg.content_layers), prec,
         )
         lap_w, lap_target = _level_lap(opt_cfg, coarse_content, ch, cw)
+        # The batch's rule (main._auto_remat_batched) at the level.
+        remat = opt_cfg.remat or (
+            ch * cw * n_styles >= BATCH_AUTO_REMAT_PIXEL_THRESHOLD
+        )
         bundle = build_multi_style_update(
             params, targets, tuple(coarse_content.shape), n_styles,
             optimizer=opt_cfg.optimizer,
@@ -366,6 +438,7 @@ def multi_coarse_init(
             lbfgs_history_dtype=opt_cfg.lbfgs_history_dtype,
             lbfgs_direction=opt_cfg.lbfgs_direction,
             precision=prec,
+            remat=remat,
         )
         if x is None:
             x = initialize_multi_inputs(

@@ -163,6 +163,16 @@ def _two_loop(grad: torch.Tensor, state: LbfgsState) -> torch.Tensor:
     return r
 
 
+#: Ring columns upcast to fp32 at a time by :func:`_compact_direction`:
+#: 2 x m x 4,194,304 floats (3.4 GB at m = 100), whatever the image.
+UPCAST_COLUMNS = 1 << 22
+
+
+def _column_blocks(n: int) -> list[slice]:
+    return [slice(lo, min(lo + UPCAST_COLUMNS, n))
+            for lo in range(0, n, UPCAST_COLUMNS)]
+
+
 def _compact_direction(
     grad: torch.Tensor,
     state: LbfgsState,
@@ -174,19 +184,31 @@ def _compact_direction(
     (possibly bf16) ring with f32 accumulation; here the ring is
     upcast to f32 before each product, and ``g`` and the combination
     coefficients are rounded to the ring's type first, as there.
+
+    The upcast goes ``UPCAST_COLUMNS`` columns of the ring at a time,
+    the m-by-m and m-vector products summed over the blocks in order:
+    a whole fp32 copy of the ring (2 x m x n floats, twice the bf16
+    ring itself) would set the run's peak memory. Up to
+    ``UPCAST_COLUMNS`` pixels x channels it is one block, the products
+    of the whole ring.
     """
     m = state.rho.shape[0]
     num = state.hist_len
     ring_dtype = state.s_hist.dtype
-    s32 = state.s_hist.float()
-    y32 = state.y_hist.float()
     g32 = grad.to(ring_dtype).float()
+    blocks = _column_blocks(grad.shape[0])
 
     # sy[a, b] = s_a . y_b, in slot order.
-    sy = s32 @ y32.T
-    yy = y32 @ y32.T
-    p = s32 @ g32
-    q = y32 @ g32
+    sums = None
+    for cols in blocks:
+        s32 = state.s_hist[:, cols].float()
+        y32 = state.y_hist[:, cols].float()
+        part = (s32 @ y32.T, y32 @ y32.T, s32 @ g32[cols], y32 @ g32[cols])
+        sums = part if sums is None else tuple(
+            a + b for a, b in zip(sums, part, strict=True)
+        )
+        del s32, y32
+    sy, yy, p, q = sums
 
     # Time order (oldest pair first); slots past hist_len are masked.
     ar = torch.arange(m, device=grad.device)
@@ -213,11 +235,14 @@ def _compact_direction(
     )[:, 0]
 
     # Back to slot order for the final ring combination.
-    coeff_s = torch.zeros_like(w).index_copy(0, idx, w)
-    coeff_y = torch.zeros_like(u).index_copy(0, idx, u)
-    s_part = coeff_s.to(ring_dtype).float() @ s32
-    y_part = coeff_y.to(ring_dtype).float() @ y32
-    return -(gamma * grad + s_part - gamma * y_part)
+    coeff_s = torch.zeros_like(w).index_copy(0, idx, w).to(ring_dtype).float()
+    coeff_y = torch.zeros_like(u).index_copy(0, idx, u).to(ring_dtype).float()
+    parts = []
+    for cols in blocks:
+        s_part = coeff_s @ state.s_hist[:, cols].float()
+        y_part = coeff_y @ state.y_hist[:, cols].float()
+        parts.append(-(gamma * grad[cols] + s_part - gamma * y_part))
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 _DIRECTION_METHODS = {

@@ -49,6 +49,7 @@ from style_transfer_visualizer_tpu_torch.ops.precision import (
     MIXED,
     PrecisionLike,
 )
+from style_transfer_visualizer_tpu_torch.ops.tiled import tiled_total_loss
 from style_transfer_visualizer_tpu_torch.ops.tv import tv_loss
 
 HISTORY_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -114,6 +115,8 @@ def make_objective(
     content_layers: tuple[int, ...],
     style_weights: tuple[float, ...] | None = None,
     precision: PrecisionLike = MIXED,
+    remat: bool = False,
+    tile_rows: int = 0,
 ) -> LossFn:
     """The style + content objective, plus the optional TV and Laplacian
     terms, as ``loss_fn(params, image, targets)``.
@@ -123,7 +126,11 @@ def make_objective(
     (``ops.lap.lap_response``) the image is held to. ``precision`` is
     the resolved tier (``ops.precision.resolve_precision``): a run's
     tier is fixed, so a captured step (:class:`GraphedChunk`) holds its
-    kernels' modes.
+    kernels' modes. ``tile_rows > 0`` evaluates the style and content
+    terms band by band (``ops.tiled.tiled_total_loss``); the TV and
+    Laplacian terms touch only the image and stay whole-image terms
+    outside the bands. Otherwise ``remat`` rematerializes the feature
+    sweep (``models.features.extract_features``).
     """
     style_layers = tuple(style_layers)
     content_layers = tuple(content_layers)
@@ -132,10 +139,18 @@ def make_objective(
         lap_target = None
         if lap_w:
             targets, lap_target = targets
-        total, aux = total_loss(
-            params, img, targets, style_w, content_w,
-            style_layers, content_layers, style_weights, precision,
-        )
+        if tile_rows > 0:
+            total, aux = tiled_total_loss(
+                params, img, targets, style_w, content_w,
+                style_layers, content_layers, tile_rows, precision,
+                style_weights,
+            )
+        else:
+            total, aux = total_loss(
+                params, img, targets, style_w, content_w,
+                style_layers, content_layers, style_weights, precision,
+                remat=remat,
+            )
         if tv_w:
             total = total + tv_w * tv_loss(img)
         if lap_w:
@@ -259,6 +274,8 @@ def build_update_step(
     lbfgs_history_dtype: str = "float32",
     lbfgs_direction: str = "two-loop",
     precision: PrecisionLike = MIXED,
+    remat: bool = False,
+    tile_rows: int = 0,
 ) -> StepBundle:
     """Build ``update(image, state) -> (image, state, StepAux)``.
 
@@ -268,9 +285,10 @@ def build_update_step(
     (``ops/tv.py``), ``lap_w`` the Laplacian term (``ops/lap.py``)
     against ``lap_target``, ``lap_response(content, lap_pool)``;
     ``style_weights`` weighs each style layer (``models/features.py``);
-    ``precision`` is the resolved tier. The update is
-    :func:`targets_update`'s over :func:`make_objective`, with the
-    weights and ``targets`` bound.
+    ``precision`` is the resolved tier; ``remat`` and ``tile_rows``
+    (``> 0``: banded evaluation) as in :func:`make_objective`. The
+    update is :func:`targets_update`'s over :func:`make_objective`,
+    with the weights and ``targets`` bound.
     """
     if lap_w and lap_target is None:
         msg = "lap_w > 0 requires a precomputed lap_target response"
@@ -280,7 +298,7 @@ def build_update_step(
         style_w=style_w, content_w=content_w, tv_w=tv_w, lap_w=lap_w,
         lap_pool=lap_pool, style_layers=style_layers,
         content_layers=content_layers, style_weights=style_weights,
-        precision=precision,
+        precision=precision, remat=remat, tile_rows=tile_rows,
     )
     update, init_state = targets_update(
         loss_fn, image_shape, device,
@@ -624,6 +642,11 @@ class GraphedChunk:
         current.wait_stream(stream)
         for t in (img, first, *(getattr(st, f) for f in _state_fields(st))):
             t.record_stream(current)
+        # The capture allocates from the graph pool only, and while it
+        # captures the allocator cannot hand back the default pool's
+        # cached blocks: the warm-up's freed temporaries go back to the
+        # card first, so a step that fits once fits its capture too.
+        torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:

@@ -27,6 +27,14 @@ Every one of them takes ``config.output``'s checkpoints
 start is then skipped: the checkpoint's image replaces any start) and
 traces its step loop with ``torch.profiler`` into ``profile_dir``.
 
+The single run's memory policy is the JAX package's, at the H100's
+thresholds (``constants.py``): ``tile_rows`` (:func:`_resolve_tile_rows`)
+evaluates the loss band by band (``ops/tiled.py``), by itself from
+``AUTO_TILE_PIXEL_THRESHOLD`` px; otherwise ``remat``
+(:func:`resolve_single_remat`) rematerializes the feature sweep. The
+batch rematerializes by pixels x styles (:func:`_auto_remat_batched`);
+it has no bands, as in the JAX package.
+
 All run on ``config.hardware.device``, CUDA unless the caller asks for
 the CPU.
 """
@@ -41,6 +49,12 @@ import numpy as np
 import torch
 
 from style_transfer_visualizer_tpu_torch import image_io
+from style_transfer_visualizer_tpu_torch.constants import (
+    AUTO_REMAT_PIXEL_THRESHOLD,
+    AUTO_TILE_PIXEL_THRESHOLD,
+    BATCH_AUTO_REMAT_PIXEL_THRESHOLD,
+    MAX_BAND_PIXELS,
+)
 from style_transfer_visualizer_tpu_torch.engine.coarse import (
     coarse_init,
     multi_coarse_init,
@@ -59,7 +73,10 @@ from style_transfer_visualizer_tpu_torch.engine.step import build_update_step
 from style_transfer_visualizer_tpu_torch.media import encode, segments
 from style_transfer_visualizer_tpu_torch.media.stream import AsyncFrameStream
 from style_transfer_visualizer_tpu_torch.media.modes import select_video_mode
-from style_transfer_visualizer_tpu_torch.models.arch import get_architecture
+from style_transfer_visualizer_tpu_torch.models.arch import (
+    get_architecture,
+    layer_table_from_params,
+)
 from style_transfer_visualizer_tpu_torch.models.features import (
     compute_targets,
     initialize_input,
@@ -72,6 +89,11 @@ from style_transfer_visualizer_tpu_torch.ops.color import maybe_restore_color
 from style_transfer_visualizer_tpu_torch.ops.lap import lap_response
 from style_transfer_visualizer_tpu_torch.ops.precision import (
     resolve_precision,
+)
+from style_transfer_visualizer_tpu_torch.ops.tiled import (
+    auto_tile_rows,
+    compute_tiled_targets,
+    validate_tiling,
 )
 from style_transfer_visualizer_tpu_torch.parallel.multistyle import (
     build_multi_style_update,
@@ -175,10 +197,28 @@ def prepare_model_and_input(
     style_layers = tuple(opt.style_layers)
     content_layers = tuple(opt.content_layers)
     precision = resolve_precision(config.hardware.precision)
+    _, height, width, _ = content_img.shape
+    tile_rows = _resolve_tile_rows(config, int(height), int(width))
 
     def one_targets(s_img: torch.Tensor, layers: tuple[int, ...]):
-        return compute_targets(
+        if not tile_rows:
+            return compute_targets(
+                params, s_img, content_img, style_layers, layers,
+                precision=precision,
+            )
+        # The style image is banded on its own size, and only past the
+        # threshold; the content at the run's band height.
+        style_h, style_w = int(s_img.shape[1]), int(s_img.shape[2])
+        tile_rows_style = None
+        if style_h * style_w >= AUTO_TILE_PIXEL_THRESHOLD:
+            tile_rows_style = auto_tile_rows(
+                style_h, style_w, style_layers,
+                max_band_pixels=MAX_BAND_PIXELS,
+                table=layer_table_from_params(params),
+            )
+        return compute_tiled_targets(
             params, s_img, content_img, style_layers, layers,
+            tile_rows_style=tile_rows_style, tile_rows_content=tile_rows,
             precision=precision,
         )
 
@@ -188,6 +228,18 @@ def prepare_model_and_input(
     lap_target = (
         lap_response(content_img, opt.lap_pool) if opt.lap_w else None
     )
+    # The warm start runs before the full-size step exists, so its
+    # levels never share the card with the full-size optimizer state.
+    input_img = _initial_image(
+        params, content_img, style_img, config, generator,
+        blend_imgs=blend_imgs,
+    )
+    remat = resolve_single_remat(height, width, tile_rows, opt.remat)
+    if remat and not opt.remat:
+        logger.info(
+            "Auto-enabling feature rematerialization for %dx%d input.",
+            width, height,
+        )
     bundle = build_update_step(
         params,
         targets,
@@ -209,12 +261,78 @@ def prepare_model_and_input(
         lbfgs_history_dtype=opt.lbfgs_history_dtype,
         lbfgs_direction=opt.lbfgs_direction,
         precision=precision,
-    )
-    input_img = _initial_image(
-        params, content_img, style_img, config, generator,
-        blend_imgs=blend_imgs,
+        remat=remat,
+        tile_rows=tile_rows,
     )
     return bundle, input_img
+
+
+def _resolve_tile_rows(
+    config: StyleTransferConfig,
+    height: int,
+    width: int,
+) -> int:
+    """Explicit ``tile_rows`` wins; otherwise bands past the threshold.
+
+    ``tile_rows > 0`` is validated against the content's height and
+    used; 0 is whole-image at any size; -1 (auto) bands content of at
+    least ``AUTO_TILE_PIXEL_THRESHOLD`` px, the largest whole-image
+    run the H100 holds with headroom (``constants.py``), at the
+    largest band height whose window fits ``MAX_BAND_PIXELS``. A height
+    that admits no exact band tiling is attempted whole, with a
+    warning.
+    """
+    opt = config.optimization
+    taps = tuple(set(opt.style_layers) | set(opt.content_layers))
+    table = get_architecture(opt.model).layer_table
+    if opt.tile_rows > 0:
+        validate_tiling(height, opt.tile_rows, taps, table)
+        return opt.tile_rows
+    if opt.tile_rows == 0:
+        # Explicit off-switch: whole-image evaluation regardless of size.
+        return 0
+    if height * width < AUTO_TILE_PIXEL_THRESHOLD:
+        return 0
+    rows = auto_tile_rows(
+        height, width, taps, max_band_pixels=MAX_BAND_PIXELS, table=table,
+    )
+    if rows is None:
+        logger.warning(
+            "Input is %dx%d (>= %d px) but its height admits no exact "
+            "band tiling; attempting whole-image evaluation.",
+            width, height, AUTO_TILE_PIXEL_THRESHOLD,
+        )
+        return 0
+    logger.info(
+        "Auto-enabling banded loss evaluation (tile_rows=%d) for "
+        "%dx%d input.",
+        rows, width, height,
+    )
+    return rows
+
+
+def resolve_single_remat(
+    height: int,
+    width: int,
+    tile_rows: int,
+    requested: bool,
+) -> bool:
+    """The remat setting of a single whole-image run.
+
+    Banded evaluation owns its memory (each band recomputes by
+    construction), so bands turn remat off; otherwise a request or
+    content of at least ``AUTO_REMAT_PIXEL_THRESHOLD`` px turns it on.
+    """
+    return not tile_rows and (
+        requested
+        or int(height) * int(width) >= AUTO_REMAT_PIXEL_THRESHOLD
+    )
+
+
+def _auto_remat_batched(pixels: int, styles_per_device: int) -> bool:
+    """Whether a batch run's activations need remat: pixels x styles
+    against ``BATCH_AUTO_REMAT_PIXEL_THRESHOLD``."""
+    return pixels * styles_per_device >= BATCH_AUTO_REMAT_PIXEL_THRESHOLD
 
 
 def _resolve_auto_coarse(
@@ -714,6 +832,15 @@ def prepare_multi_style(
         tuple(opt.style_layers), tuple(opt.content_layers),
         precision=precision,
     )
+    # The warm start first, as in prepare_model_and_input.
+    images = _multi_initial_images(
+        params, content_img, style_imgs, config, generator,
+    )
+    _, height, width, _ = content_img.shape
+    # Activations grow with pixels x styles: one card holds all S.
+    remat = opt.remat or _auto_remat_batched(
+        int(height) * int(width), n_styles,
+    )
     bundle = build_multi_style_update(
         params, targets, tuple(content_img.shape), n_styles,
         optimizer=opt.optimizer,
@@ -736,9 +863,7 @@ def prepare_multi_style(
         lbfgs_history_dtype=opt.lbfgs_history_dtype,
         lbfgs_direction=opt.lbfgs_direction,
         precision=precision,
-    )
-    images = _multi_initial_images(
-        params, content_img, style_imgs, config, generator,
+        remat=remat,
     )
     return bundle, images
 

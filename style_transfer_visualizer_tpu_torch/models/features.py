@@ -12,6 +12,12 @@ problems through one sweep: the conv at N = S, one Gram launch per
 style layer for all S images (``ops.gram.gram_matrix_batched``), and
 per-style losses, ``(S,)`` each.
 
+``remat=True`` (``extract_features`` and every loss built on it)
+cuts the sweep into segments that end at each tap and each pool and
+runs each under ``torch.utils.checkpoint``, as the JAX package's
+``jax.checkpoint`` segments: the same values, bit for bit, for one
+more forward. Banded evaluation lives in ``ops/tiled.py``.
+
 Every function takes ``precision``, a level or a policy
 (``ops/precision.py``), as the JAX package's do: each conv runs its
 forward at ``conv_precision(precision, idx)`` and its backward at
@@ -24,9 +30,11 @@ from collections.abc import Callable
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from style_transfer_visualizer_tpu_torch.models.arch import (
     CONV,
+    POOL,
     RELU,
     LayerTable,
     layer_table_from_params,
@@ -130,26 +138,25 @@ def _conv(
     )
 
 
-def extract_features(
+def _sweep(
     params: Params,
     x: torch.Tensor,
-    taps: tuple[int, ...],
-    precision: PrecisionLike = MIXED,
-) -> dict[int, torch.Tensor]:
-    """Run the feature stack up to the deepest tap, recording activations.
+    layers: range,
+    tap_set: frozenset[int],
+    last: int,
+    precision: PrecisionLike,
+    table: LayerTable,
+) -> tuple[torch.Tensor, dict[int, torch.Tensor]]:
+    """Run ``layers`` of the stack on ``x``; the output and its taps.
 
-    Layers beyond the last tap never run; each conv runs at its level
-    of ``precision``.
+    A conv fuses with its ReLU when the conv is not a tap and the ReLU
+    runs (``idx + 1 <= last``). A remat segment ends at a tap or a
+    pool, so a fused pair never straddles two segments: a segmented
+    sweep launches the same kernels as a whole one.
     """
-    if not taps:
-        return {}
-    table = layer_table_from_params(params)
-    _validate_layers(taps, table)
-    tap_set = frozenset(taps)
-    last = max(taps)
     acts: dict[int, torch.Tensor] = {}
-    idx = 0
-    while idx <= last:
+    idx = layers.start
+    while idx < layers.stop:
         kind = table[idx][0]
         if kind == CONV:
             fuse = (
@@ -167,6 +174,54 @@ def extract_features(
         if idx in tap_set:
             acts[idx] = x
         idx += 1
+    return x, acts
+
+
+def extract_features(
+    params: Params,
+    x: torch.Tensor,
+    taps: tuple[int, ...],
+    precision: PrecisionLike = MIXED,
+    *,
+    remat: bool = False,
+) -> dict[int, torch.Tensor]:
+    """Run the feature stack up to the deepest tap, recording activations.
+
+    Layers beyond the last tap never run; each conv runs at its level
+    of ``precision``.
+
+    With ``remat=True`` (and autograd recording) the stack is cut into
+    segments that end at every tap and every pool, as the JAX package
+    cuts it, and each segment runs under ``torch.utils.checkpoint``:
+    the backward recomputes a segment's inner activations instead of
+    keeping them, about one more forward for the memory. The same
+    deterministic kernels recompute the same values, so the losses and
+    the gradient are those of ``remat=False`` bit for bit.
+    """
+    if not taps:
+        return {}
+    table = layer_table_from_params(params)
+    _validate_layers(taps, table)
+    tap_set = frozenset(taps)
+    last = max(taps)
+    if not (remat and torch.is_grad_enabled()):
+        _, acts = _sweep(
+            params, x, range(last + 1), tap_set, last, precision, table,
+        )
+        return acts
+    acts: dict[int, torch.Tensor] = {}
+    start = 0
+    for idx in range(last + 1):
+        if idx in tap_set or table[idx][0] == POOL:
+            # No random numbers are drawn, so no RNG state is kept
+            # (fetching it is not allowed while a CUDA graph captures).
+            x, seg_acts = checkpoint(
+                _sweep, params, x, range(start, idx + 1), tap_set, last,
+                precision, table, use_reentrant=False,
+                preserve_rng_state=False,
+            )
+            acts.update(seg_acts)
+            start = idx + 1
     return acts
 
 
@@ -246,15 +301,18 @@ def style_content_losses(
     content_layers: tuple[int, ...],
     style_weights: tuple[float, ...] | None = None,
     precision: PrecisionLike = MIXED,
+    *,
+    remat: bool = False,
 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     """Per-layer style (Gram MSE) and content (feature MSE) losses.
 
     ``style_weights`` scales each style layer's Gram MSE, one weight
     per entry of ``style_layers``; ``None`` weighs every layer 1.0.
+    ``remat`` rematerializes the feature sweep (:func:`extract_features`).
     """
     weights = _resolve_style_weights(style_weights, style_layers)
     taps = tuple(sorted(set(style_layers) | set(content_layers)))
-    acts = extract_features(params, x, taps, precision)
+    acts = extract_features(params, x, taps, precision, remat=remat)
     style_losses = [
         _weighted(
             w,
@@ -281,15 +339,17 @@ def total_loss(
     content_layers: tuple[int, ...],
     style_weights: tuple[float, ...] | None = None,
     precision: PrecisionLike = MIXED,
+    *,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Weighted total loss plus (style_score, content_score).
 
-    Empty layer lists contribute a zero scalar; ``style_weights`` as in
-    :func:`style_content_losses`.
+    Empty layer lists contribute a zero scalar; ``style_weights`` and
+    ``remat`` as in :func:`style_content_losses`.
     """
     style_losses, content_losses = style_content_losses(
         params, x, targets, style_layers, content_layers, style_weights,
-        precision,
+        precision, remat=remat,
     )
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     style_score = torch.stack(style_losses).sum() if style_losses else zero
@@ -317,6 +377,8 @@ def batched_style_content_losses(
     content_layers: tuple[int, ...],
     style_weights: tuple[float, ...] | None = None,
     precision: PrecisionLike = MIXED,
+    *,
+    remat: bool = False,
 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     """Per-layer style and content losses of S images, each ``(S,)``.
 
@@ -325,10 +387,11 @@ def batched_style_content_losses(
     (a broadcast of the one content's, see
     ``parallel.multistyle.multi_style_targets``). Image s is held to
     style s's Grams only, as under the JAX package's ``vmap``.
+    ``remat`` as in :func:`extract_features`.
     """
     weights = _resolve_style_weights(style_weights, style_layers)
     taps = tuple(sorted(set(style_layers) | set(content_layers)))
-    acts = extract_features(params, x, taps, precision)
+    acts = extract_features(params, x, taps, precision, remat=remat)
     style_losses = [
         _weighted(
             w,
@@ -356,15 +419,18 @@ def batched_total_loss(
     content_layers: tuple[int, ...],
     style_weights: tuple[float, ...] | None = None,
     precision: PrecisionLike = MIXED,
+    *,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """:func:`total_loss` of each of S images: ``(S,)`` each.
 
     The S problems are independent, so the gradient of the sum is each
-    image's gradient of its own loss.
+    image's gradient of its own loss; ``remat`` as in
+    :func:`extract_features`.
     """
     style_losses, content_losses = batched_style_content_losses(
         params, x, targets, style_layers, content_layers, style_weights,
-        precision,
+        precision, remat=remat,
     )
     zero = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
     style_score = (

@@ -4,8 +4,10 @@ The port of the JAX package's ``ops/pallas_gram.py`` (the Pallas kernel
 ``gram_matrix_pallas``) and ``ops/gram.py``. ``G[c1, c2] = sum_p F[p,
 c1] F[p, c2]`` over all batch and spatial positions, clamped per
 element at ``GRAM_MATRIX_CLAMP_MAX`` *before* dividing by B*H*W*C
-(:func:`gram_matrix`). The multi-style batch needs one Gram per image
-instead, as the JAX package's ``vmap`` of the single step gives it:
+(:func:`gram_matrix`); :func:`gram_raw` is the unclamped, undivided
+sum a band of ``ops/tiled.py`` adds up. The multi-style batch needs one
+Gram per image instead, as the JAX package's ``vmap`` of the single
+step gives it:
 :func:`gram_matrix_batched` takes ``(S, H, W, C)`` to ``(S, C, C)``,
 each image clamped and divided by H*W*C.
 
@@ -475,6 +477,31 @@ def gram_matrix(
     return _GramFn.apply(
         flat, float(clamp_max), float(b * h * w * c), *_modes(precision),
     )
+
+
+def gram_raw(
+    features: torch.Tensor,
+    precision: PrecisionLike = HIGH,
+) -> torch.Tensor:
+    """The raw (C, C) Gram sum of a (B, H, W, C) map: no clamp, no norm.
+
+    A band's Gram partial (``ops/tiled.py``): the bands' raw sums add
+    up to the image's, which is then clamped and normalized once. On
+    the card it is the kernel's own output in the mode of
+    ``gram_precision``, launched with the clamp at ``inf`` and the norm
+    at 1, so G equals raw bit for bit. Its backward runs in that same
+    mode, as the JAX package's band contraction transposes at its own
+    precision (not at ``gram_bwd_precision``). ``features`` must be
+    contiguous (a band's valid rows of a single image are): its
+    ``(P, C)`` view is free, and nothing is copied.
+    """
+    if not features.is_contiguous():
+        msg = f"gram_raw takes a contiguous feature map: {features.shape}"
+        raise ValueError(msg)
+    b, h, w, c = features.shape
+    mode = kernel_mode(gram_precision(precision))
+    flat = features.view(b * h * w, c)
+    return _GramFn.apply(flat, math.inf, 1.0, mode, mode)
 
 
 def gram_matrix_batched(

@@ -131,6 +131,7 @@ def build_multi_style_update(
     lap_target: torch.Tensor | None = None,
     style_weights: tuple[float, ...] | None = None,
     precision: PrecisionLike = MIXED,
+    remat: bool = False,
 ) -> StepBundle:
     """Build the stacked step of S independent problems.
 
@@ -141,7 +142,9 @@ def build_multi_style_update(
     gives ``(S,)`` metrics; its chunks stack them to ``(k, S)``. The loss of
     each style is the single run's (``engine/step.py``); the backward
     runs once, on their sum, and gives each image its own gradient.
-    ``precision`` is the resolved tier.
+    ``precision`` is the resolved tier; ``remat`` rematerializes the
+    feature sweep (``models.features.extract_features``), as the JAX
+    package's batch does (it has no banded batch).
     """
     if lap_w and lap_target is None:
         msg = "lap_w > 0 requires a precomputed lap_target response"
@@ -163,6 +166,7 @@ def build_multi_style_update(
             total, (style, content) = batched_total_loss(
                 params, img, targets, style_w, content_w,
                 style_layers, content_layers, style_weights, precision,
+                remat=remat,
             )
             if tv_w:
                 total = total + tv_w * tv_loss_per_image(img)

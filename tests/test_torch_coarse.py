@@ -166,12 +166,14 @@ def test_coarse_init_is_none_when_off_or_too_small() -> None:
     assert coarse.coarse_init({}, small, small, config, None) is None
 
 
-def test_a_level_past_the_band_threshold_raises(monkeypatch) -> None:
-    """A level of 4,194,304 px (2048x2048) runs whole; it used to raise.
+def test_a_2048_level_follows_the_level_policy(monkeypatch) -> None:
+    """A 2048x2048 level (4,194,304 px) gets the level's own policy.
 
-    4096x4096 content at the default two levels gets a 2048x2048 level,
-    which the JAX package bands and rematerializes (the same values)
-    and the port runs whole, single and batch. The level's targets and
+    4096x4096 content at the default two levels gets a 2048x2048 level.
+    The JAX package bands and rematerializes it at its TPU thresholds;
+    the port's level takes ``coarse.level_memory_policy`` at the H100
+    thresholds of ``constants.py``, single and batch (the batch by
+    pixels x styles), and hands it to the step. The level's targets and
     optimizer are stubbed (a step adds 1 to the image), so no 2048x2048
     VGG runs on the CPU.
     """
@@ -183,7 +185,11 @@ def test_a_level_past_the_band_threshold_raises(monkeypatch) -> None:
     def fake_multi_targets(params, content, styles, *layers):
         levels.append(tuple(content.shape))
 
+    policies = []
+
     def fake_step(params, targets, image_shape, *n_styles, **kwargs):
+        policies.append((kwargs.get("tile_rows", 0), kwargs["remat"]))
+
         def chunked_update(image, state, k):
             loss = torch.zeros((k, *n_styles))
             return image + k, state, StepAux(loss, loss, loss, loss)
@@ -211,6 +217,10 @@ def test_a_level_past_the_band_threshold_raises(monkeypatch) -> None:
     assert float(warm.min()) == float(warm.max()) == 1.0
     assert levels == [(1, 2048, 2048, 3)] * 2
     assert levels[0][1] * levels[0][2] == 4_194_304
+    single = coarse.level_memory_policy(config.optimization, {}, 2048, 2048)
+    assert single == (0, 2048 * 2048 >= coarse.AUTO_REMAT_PIXEL_THRESHOLD)
+    batch = 2048 * 2048 >= coarse.BATCH_AUTO_REMAT_PIXEL_THRESHOLD
+    assert policies == [single, (0, batch)]
 
 
 @pytest.mark.parametrize(("size", "runs"), [(1024, True), (512, False)])

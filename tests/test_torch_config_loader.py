@@ -220,8 +220,9 @@ def test_unported_keys_load_only_at_their_default(
     path = _write(tmp_path, f"[{section}]\n{key} = {value}\n")
     jax_loaded = jax_config.ConfigLoader.load(str(path))
     if (section, key) not in port_config._UNPORTED:  # noqa: SLF001
-        # Ported since (hardware.precision, the precision tiers): the
-        # value loads as the JAX loader loads it.
+        # Ported since (hardware.precision, the precision tiers;
+        # optimization.remat and tile_rows, banded evaluation and
+        # remat): the value loads as the JAX loader loads it.
         port = port_config.ConfigLoader.load(path)
         assert getattr(getattr(port, section), key) == getattr(
             getattr(jax_loaded, section), key,
@@ -398,7 +399,7 @@ def test_validate_config_only_runs_nothing(tmp_path, monkeypatch) -> None:
     with pytest.raises(SystemExit) as exc:
         cli.main(["--validate-config-only"])
     assert exc.value.code == 2
-    bad = _write(tmp_path, "[optimization]\nremat = true\n", "bad.toml")
+    bad = _write(tmp_path, "[hardware]\nspatial_shards = 2\n", "bad.toml")
     with pytest.raises(SystemExit) as exc:
         cli.main(["--config", str(bad), "--validate-config-only"])
     assert exc.value.code == 2

@@ -1,7 +1,8 @@
 """The port's single run end to end on the golden corpus, on the CPU.
 
-For the ``single``, ``coarse``, ``blend``, ``vgg16`` and
-``preserve_luminance`` modes of ``tests/goldens_lib.py``, the port's
+For the ``single``, ``coarse``, ``banded`` (``tile_rows=16``: four
+bands), ``blend``, ``vgg16`` and ``preserve_luminance`` modes of
+``tests/goldens_lib.py``, the port's
 ``main.style_transfer`` runs on ``goldens_lib.write_inputs`` with
 ``goldens_lib``'s configuration (Adam, 3 steps, taps [0, 5]/[2], content
 init, seeded weights, 64x64), and so does the JAX package's. Gates:
@@ -60,6 +61,7 @@ _BASE = {
 MODES = {
     "single": ({}, False),
     "coarse": ({"coarse_steps": 2}, False),
+    "banded": ({"tile_rows": 16}, False),
     "blend": ({}, True),
     "vgg16": (
         {"model": "vgg16", "style_layers": [0, 5, 10],
