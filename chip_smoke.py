@@ -6,6 +6,8 @@
     python3 chip_smoke.py --tf32-shapes
     python3 chip_smoke.py --tf32-tiles
     python3 chip_smoke.py --ieee-gram-shapes
+    python3 chip_smoke.py --spatial
+    python3 chip_smoke.py --spatial-cards
 
 The third form builds the kernels and runs only the kernel-mode check
 (phase 4b below) and what ``mixed`` moves to IEEE fp32 (the end of
@@ -18,11 +20,14 @@ sixth builds and prints only the IEEE Gram's line per 512x512 tap,
 alone and at S = 4 in one launch (kernel ms against ``torch.mm`` /
 ``torch.bmm`` fp32 and the fp32 bound), with the wrappers' public
 calls alone, so that an older tree's kernel is timed by the same
-lines. The second form runs two graphed A/Bs alone, rounds interleaved, and
-checks nothing else: ``steps_per_dispatch`` 1 against 0 (one dispatch
-of 25) on the 512x512 main path through the runner and on the S = 4
-batch with a CSV row a step; and the regional phase's run with a CSV
-row every step against every 20 (40 steps), with its device ms per
+lines. The seventh builds and runs only the spatial phase and its
+kernel check (12f, 12g below); the eighth only the phase, with NCCL
+ranks one card each (it needs 4 cards). The second form runs two graphed A/Bs
+alone, rounds interleaved, and checks nothing else:
+``steps_per_dispatch`` 1 against 0 (one dispatch of 25) on the
+512x512 main path through the runner and on the S = 4 batch with a
+CSV row a step; and the regional phase's run with a CSV row every
+step against every 20 (40 steps), with its device ms per
 step from ``torch.profiler`` (a 40-step run less a 20-step run).
 
 Phases, one line each, in order; any failure raises and the script
@@ -176,6 +181,23 @@ exits non-zero:
    512x512 with ``remat=True`` bit-equal to ``remat=False`` in image
    and losses (one more forward of every conv a step), own peaks and
    ms/step;
+12f. spatial: row-sharded evaluation (``parallel/spatial.py``) with
+   every rank on this one card and gloo between them
+   (``parallel.mesh.launch(share_card=True)``, the kernels built here
+   first): 2 ranks at 2048x2048, then 4 at 1024x1024 (ranks 1 and 2
+   interior), full-width VGG19 at ``mixed``. Step 0's loss and
+   gradient against the whole image's (1e-5, 1e-4 of its largest
+   magnitude); 3 L-BFGS steps of ``run_style_transfer`` on the ranks
+   against the whole run within ``max(control, 1e-3)`` (the control:
+   the whole run from content perturbed by 1e-7); each rank's launches
+   by kernel and mode, its counts set to 0 just before its run and
+   read just after, equal to the policy's count (``_policy_launches``);
+   each rank's own peak and ms/step (a correctness run, not a rate);
+12g. spatial kernels: both kernels at each rank's shapes of 12f in
+   every mode against their plain versions within 1e-4: the conv on
+   the halo'd shard (rows + 2), forward without ReLU and the input
+   gradient without mask, the raw Gram of each style tap's shard rows
+   and its gradient; timed (``spatial_2x2048``, ``spatial_4x1024``);
 13. sweep: ``blend_sweep.stylize_blend_sweep`` at 512x512 on
    full-width VGG19, 3 styles, 5 frames, the shipped L-BFGS with 20
    steps for frame 0 and 10 for each later frame (60 steps): launches
@@ -248,8 +270,10 @@ step at 512x512, under ``at_1024`` at 1024x1024, and for the batch
 phase's step at S = 4 under ``n4_512`` (conv) and ``batched_s4_512``
 (Gram), for the 2048x2048 level's first shapes under
 ``level_2048_first``, for a 1280x720 frame's step under
-``at_720p``, and for a 4K band's first window under
-``band_4k_first``). The conv and Gram entries are their 3xTF32 kernels;
+``at_720p``, for a 4K band's first window under
+``band_4k_first``, and for one rank's step of 12f under
+``spatial_2x2048`` and ``spatial_4x1024``). The conv and Gram entries
+are their 3xTF32 kernels;
 ``conv3x3_ieee``, ``conv3x3_tf32``, ``gram_ieee`` and ``gram_tf32``
 the other modes, with the same keys; each entry's ``launches`` is its
 mode's count on the main path at ``mixed`` or, where ``mixed`` runs
@@ -333,6 +357,7 @@ from style_transfer_visualizer_tpu_torch.main import (
 from style_transfer_visualizer_tpu_torch.media import encode, segments
 from style_transfer_visualizer_tpu_torch.models.arch import VGG16, VGG19
 from style_transfer_visualizer_tpu_torch.models.features import (
+    Targets,
     blend_targets,
     compute_targets,
 )
@@ -354,6 +379,8 @@ from style_transfer_visualizer_tpu_torch.ops.precision import (
     resolve_precision,
 )
 from style_transfer_visualizer_tpu_torch.ops.tf32 import round_tf32
+from style_transfer_visualizer_tpu_torch.parallel import spatial
+from style_transfer_visualizer_tpu_torch.parallel.mesh import launch
 from style_transfer_visualizer_tpu_torch.runtime.checkpoint import (
     load_checkpoint,
     save_checkpoint,
@@ -2662,6 +2689,347 @@ def _remat() -> tuple[int, int]:
     return launches1
 
 
+# ---- row-sharded evaluation: gloo ranks sharing the one card
+
+
+#: (ranks, side): 2 ranks at 2048x2048, then 4 at 1024x1024 so that
+#: ranks 1 and 2 are interior (halos on both sides).
+SPATIAL_RUNS = ((2, 2048), (4, 1024))
+SPATIAL_KEYS = tuple(f"spatial_{r}x{side}" for r, side in SPATIAL_RUNS)
+SPATIAL_STEPS = 3
+SPATIAL_TIMEOUT = 600.0
+
+
+def _spatial_inputs(side: int):
+    """Seeded ``side`` x ``side`` content, a 512x512 style and the
+    step-0 start's noise (the content plus 0.1 of it, normalized),
+    made alike in the script and in every rank."""
+    rng = np.random.default_rng(21)
+    content = rng.uniform(size=(1, side, side, 3)).astype(np.float32)
+    noise = np.random.default_rng(5).standard_normal(
+        content.shape,
+    ).astype(np.float32)
+    return content, _images(SIZE, 22)[0], noise
+
+
+def _spatial_config(shards: int):
+    """Shipped defaults (``mixed``, L-BFGS, compact direction, bf16
+    ring), no warm start, ``SPATIAL_STEPS`` steps."""
+    config = _band_config(SPATIAL_STEPS, 0)
+    config.hardware.spatial_shards = shards
+    return config
+
+
+def _spatial_step0(params, content, style, noise, mesh=None):
+    """Step 0's loss and gradient at the content plus noise: the
+    whole-image objective, or with ``mesh`` the sharded one (Grams
+    whole, content targets in rows), its gradient gathered."""
+    precision = resolve_precision("mixed")
+    opt = _spatial_config(1).optimization
+    sl, cl = tuple(opt.style_layers), tuple(opt.content_layers)
+    device = params[0]["w9"].device
+    content_img = image_io.host_array_to_device(content, device,
+                                                normalize=True)
+    style_img = image_io.host_array_to_device(style, device, normalize=True)
+    start = content_img + 0.1 * torch.from_numpy(noise).to(device)
+    if mesh is None:
+        targets = compute_targets(
+            params, style_img, content_img, sl, cl, precision,
+        )
+        loss_fn = step.make_objective(
+            style_w=opt.style_w, content_w=opt.content_w, style_layers=sl,
+            content_layers=cl, precision=precision,
+        )
+        x = start.requires_grad_(True)
+    else:
+        rows = mesh.shard(content_img)
+        targets = Targets(
+            style_grams=compute_targets(
+                params, style_img, content_img, sl, (), precision,
+            ).style_grams,
+            content_feats=spatial.compute_sharded_targets(
+                mesh, params, rows, rows, (), cl, precision=precision,
+            ).content_feats,
+        )
+        loss_fn = spatial.make_spatial_loss(
+            mesh, tuple(content_img.shape), style_w=opt.style_w,
+            content_w=opt.content_w, style_layers=sl, content_layers=cl,
+            precision=precision,
+        )
+        x = mesh.shard(start).requires_grad_(True)
+    total, _ = loss_fn(params, x, targets)
+    (grad,) = torch.autograd.grad(total, x)
+    if mesh is not None:
+        grad = mesh.gather(grad)
+    return float(total), grad
+
+
+def _spatial_rank(side: int, *, mesh) -> dict:
+    """One rank of the spatial phase (spawned by ``parallel.mesh.launch``
+    on ``cuda:0``): the sharded step 0, then ``run_style_transfer`` of
+    ``SPATIAL_STEPS`` steps with this rank's launch counts set to 0
+    just before and read just after, its dispatches logged and its own
+    peak. Rank 0 returns every rank's counts, peak and ms/step."""
+    content, style, noise = _spatial_inputs(side)
+    params = load_pretrained_params(mesh.device, allow_random=True, seed=0)
+    loss0, grad0 = _spatial_step0(params, content, style, noise, mesh)
+    grad0 = grad0.cpu()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    conv3x3.launches.reset()
+    gram.launches.reset()
+    torch.cuda.synchronize()
+    with _dispatch_log() as log:
+        image, history = run_style_transfer(
+            content, style, _spatial_config(mesh.size), mesh=mesh,
+        )
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    counts = [
+        float(v) for counter in (conv3x3.launches, gram.launches)
+        for v in counter.launched_by_mode().values()
+    ]
+    mine = torch.tensor(
+        [[*counts, float(peak), log.ms_per_step()]], dtype=torch.float64,
+        device=mesh.device,
+    )
+    return {
+        "loss0": loss0, "grad0": grad0, "curve": history["total_loss"],
+        "finite": bool(torch.isfinite(image).all()),
+        "shape": tuple(image.shape),
+        "per_rank": mesh.gather(mine, dim=0).cpu().numpy(),
+    }
+
+
+def _spatial(share_card: bool = True) -> tuple[int, int]:
+    """Row-sharded evaluation through ``parallel/spatial.py``.
+
+    For 2 ranks at 2048x2048 and 4 ranks at 1024x1024, every rank on
+    this one card with gloo between them (``launch(share_card=True)``),
+    or with ``share_card=False`` NCCL ranks, rank r on ``cuda:r``:
+    step 0's loss and gradient against the whole image's (1e-5, 1e-4 of
+    its largest magnitude); 3 L-BFGS steps through ``run_style_transfer``
+    against the whole run within ``max(control, 1e-3)``, the control
+    the whole run from content perturbed by 1e-7 relative; each rank's
+    launches by kernel and mode equal to the policy's count of a
+    single run (``_policy_launches``: the style Grams whole, the
+    content targets and every step in rows); each rank's own peak and
+    ms/step. Returns rank 0's conv and Gram launches at 2 ranks.
+    """
+    lines = []
+    launches = None
+    for ranks, side in SPATIAL_RUNS:
+        content, style, noise = _spatial_inputs(side)
+        params = load_pretrained_params(
+            torch.device("cuda"), allow_random=True, seed=0,
+        )
+        loss_w, grad_w = _spatial_step0(params, content, style, noise)
+        grad_w = grad_w.cpu()
+        del params
+        curves = {}
+        for name, image in (
+            ("whole", content),
+            ("nudged", (content * (1 + 1e-7 * np.random.default_rng(9)
+                                   .standard_normal(content.shape)))
+             .astype(np.float32)),
+        ):
+            before = _fresh_peak()
+            with _dispatch_log() as log:
+                curves[name] = run_style_transfer(
+                    image, style, _spatial_config(1),
+                )[1]["total_loss"]
+            if name == "whole":
+                whole_ms = log.ms_per_step()
+                whole_peak = torch.cuda.max_memory_allocated() - before
+        _fresh_peak()
+        out = launch(
+            _spatial_rank, (side,), ranks, "cuda", share_card=share_card,
+            timeout=SPATIAL_TIMEOUT,
+        )
+        label = f"spatial {ranks} ranks {side}x{side}"
+        loss_err = abs(out["loss0"] - loss_w) / abs(loss_w)
+        grad_err = float(
+            (out["grad0"] - grad_w).abs().max() / grad_w.abs().max(),
+        )
+        if not (loss_err <= BAND_LOSS_TOL and grad_err <= BAND_GRAD_TOL):
+            msg = (
+                f"{label} step 0: loss rel err {loss_err:.3g} (bound "
+                f"{BAND_LOSS_TOL}), gradient {grad_err:.3g} (bound "
+                f"{BAND_GRAD_TOL})"
+            )
+            raise AssertionError(msg)
+        control = _curve_err(curves["nudged"], curves["whole"])
+        err = _curve_err(out["curve"], curves["whole"])
+        bound = max(control, GATE_TOL)
+        if not (err <= bound and out["finite"]
+                and out["shape"] == (1, side, side, 3)):
+            msg = (
+                f"{label} L-BFGS: curve {out['curve']} against "
+                f"{curves['whole']}: rel err {err:.3g} > {bound:.3g}, or "
+                f"output {out['shape']} finite {out['finite']}"
+            )
+            raise AssertionError(msg)
+        want = _policy_launches(VGG19, _spatial_config(ranks).optimization,
+                                "mixed")
+        want_row = [
+            want[name][mode] for name in ("conv3x3", "gram") for mode in MODES
+        ]
+        per_rank = out["per_rank"]
+        for r, row in enumerate(per_rank):
+            if [int(v) for v in row[:6]] != want_row:
+                msg = (
+                    f"{label}: rank {r} launches by kernel and mode "
+                    f"{[int(v) for v in row[:6]]}, expected {want_row} "
+                    f"({MODES} for conv3x3, then gram)"
+                )
+                raise AssertionError(msg)
+        if launches is None:
+            row = per_rank[0]
+            launches = (int(sum(row[:3])), int(sum(row[3:6])))
+        where = (
+            "gloo through the host, every rank on this card" if share_card
+            else "NCCL, one card a rank"
+        )
+        lines.append(
+            f"{label} ({where}): "
+            f"step 0 loss whole {loss_w:.8g} sharded {out['loss0']:.8g} "
+            f"rel err {loss_err:.3g}, gradient {grad_err:.3g}; L-BFGS "
+            f"{SPATIAL_STEPS} steps whole {curves['whole']} sharded "
+            f"{out['curve']}: rel err {err:.3g} (control {control:.3g}, "
+            f"bound {bound:.3g}); per rank launches {want_row} (conv "
+            f"then gram, {MODES}) as worked out; own peak "
+            f"{[int(v) for v in per_rank[:, 6]]} (the whole run's own "
+            f"{whole_peak}); ms/step "
+            f"{[round(float(v), 3) for v in per_rank[:, 7]]} ("
+            + (
+                f"{ranks} ranks on one card, gloo through the host: a "
+                "correctness run, not a rate" if share_card
+                else f"{ranks} cards, eager steps"
+            )
+            + f"; the whole run graphed {whole_ms:.3f})",
+        )
+    for line in lines:
+        print(line)
+    return launches
+
+
+def _spatial_conv_shapes(ranks: int, side: int):
+    """``(halo'd rows, width, C_in, C_out, convs of the shape a step)``
+    of a rank's convs at ``ranks`` x ``side``: its rows plus one halo
+    row on each side, at each stage of the stack."""
+    out = []
+    for hw, ci, co, n, _ in CONV_SHAPES:
+        scale = SIZE // hw
+        out.append((side // ranks // scale + 2, side // scale, ci, co, n))
+    return out
+
+
+def _check_spatial_kernels(recs: dict[str, dict[str, Record]]) -> None:
+    """Both kernels at a rank's shapes of ``SPATIAL_RUNS``, every mode.
+
+    The conv at each halo'd shard shape, forward (conv + bias, no
+    ReLU: the sharded path applies it after the crop) and input
+    gradient (no mask), and the raw Gram of each style tap's shard
+    rows as ``ops.gram.gram_raw`` launches it (clamp ``inf``, norm 1)
+    with its gradient: each within 1e-4 of the mode's plain version,
+    timed beside it and cuDNN / ``torch.mm``, and summed over a
+    rank's step (each conv forward and backward, one Gram a tap) into
+    ``recs[mode]["conv3x3" or "gram"]`` of the run's shape set.
+    """
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    level = {"ieee": "highest", "tf32x3": "high", "tf32": "default"}
+    for ranks, side in SPATIAL_RUNS:
+        key = f"{ranks}x{side}"
+        for mode in MODES:
+            conv_rec, gram_rec = recs[mode][key]
+            kern = partial(conv3x3.conv3x3_kernel, mode=mode)
+            plain = partial(conv3x3.conv3x3_plain, mode=mode)
+            for rows, width, ci, co, count in _spatial_conv_shapes(
+                ranks, side,
+            ):
+                x = torch.randn((1, rows, width, ci), generator=gen,
+                                device="cuda")
+                w9 = torch.randn((9, ci, co), generator=gen,
+                                 device="cuda") * ((2.0 / (9 * ci)) ** 0.5)
+                b = 0.1 * torch.randn((co,), generator=gen, device="cuda")
+                g = torch.randn((1, rows, width, co), generator=gen,
+                                device="cuda")
+                w9f = flip_stencil(w9)
+                st = conv3x3.mode_stencil(mode, w9, pack_stencil(w9))
+                stf = conv3x3.mode_stencil(mode, w9f, pack_stencil(w9f))
+                label = f"spatial {key} 1x{rows}x{width} {ci}->{co} {mode}"
+                conv_rec.err(kern(x, st, b, False), plain(x, w9, b, False),
+                             f"{label} forward")
+                conv_rec.err(kern(g, stf, None, False),
+                             plain(g, w9f, None, False),
+                             f"{label} input gradient")
+                w_oihw, wf_oihw = (
+                    s.reshape(3, 3, *s.shape[1:]).permute(3, 2, 0, 1)
+                    .contiguous() for s in (w9, w9f)
+                )
+                fwd = tuple(map(_few_ms, (
+                    partial(kern, x, st, b, False),
+                    partial(plain, x, w9, b, False),
+                    _library(mode, partial(
+                        F.conv2d, x.permute(0, 3, 1, 2), w_oihw, b,
+                        padding=1,
+                    )),
+                )))
+                bwd = tuple(map(_few_ms, (
+                    partial(kern, g, stf, None, False),
+                    partial(plain, g, w9f, None, False),
+                    _library(mode, partial(
+                        F.conv2d, g.permute(0, 3, 1, 2), wf_oihw, None,
+                        padding=1,
+                    )),
+                )))
+                pix = rows * width
+                flops = 2.0 * 9 * pix * ci * co
+                nbytes = 4.0 * (pix * (ci + co) + 9 * ci * co)
+                conv_rec.add(count, *fwd, flops, nbytes + 4.0 * co)
+                conv_rec.add(count, *bwd, flops, nbytes)
+                del x, g
+            for p512, c in GRAM_SHAPES:
+                p = p512 * (side // SIZE) ** 2 // ranks
+                f = torch.randn((1, p, 1, c), generator=gen, device="cuda")
+                flat = f.view(p, c)
+                raw_k, g_k = gram.gram_kernel(flat, math.inf, 1.0, mode)
+                raw_p, _ = gram.gram_plain(flat, math.inf, 1.0, mode)
+                gram_rec.err(raw_k, raw_p, f"spatial {key} raw gram "
+                             f"({p},{c}) {mode}")
+                if not torch.equal(g_k, raw_k):
+                    msg = f"spatial raw gram {mode}: G is not raw"
+                    raise AssertionError(msg)
+                dg = torch.randn((c, c), generator=gen, device="cuda")
+                fk = f.clone().requires_grad_(True)
+                gram.gram_raw(fk, resolve_precision(level[mode])).backward(dg)
+                ref = flat @ (dg + dg.T) if mode != "tf32" else (
+                    round_tf32(flat) @ round_tf32(dg + dg.T)
+                )
+                gram_rec.err(fk.grad.view(p, c), ref,
+                             f"spatial {key} raw gram ({p},{c}) {mode} "
+                             "backward")
+                times = tuple(map(_few_ms, (
+                    partial(gram.gram_kernel, flat, math.inf, 1.0, mode),
+                    partial(gram.gram_plain, flat, math.inf, 1.0, mode),
+                    _library(mode, partial(torch.mm, flat.T, flat)),
+                )))
+                gram_rec.add(1, *times, float(p * c * (c + 1)),
+                             4.0 * (p * c + 2 * c * c))
+                del f, flat, fk
+            gc.collect()
+            torch.cuda.empty_cache()
+        print(
+            f"spatial kernels {key}: each rank's halo'd conv shapes "
+            f"{[s[:4] for s in _spatial_conv_shapes(ranks, side)]} and "
+            f"shard Gram taps, forward and backward, in {MODES}, within "
+            f"{TOL} of their plain versions",
+        )
+
+
 # ---- the targets-as-argument pipelines: sweep, regional, sequence
 
 
@@ -4845,6 +5213,48 @@ def _modes_only(card: str) -> int:
     return 0
 
 
+def _spatial_only(card: str, *, share_card: bool = True) -> int:
+    """``--spatial``: build, the spatial phase and its kernel check;
+    ``--spatial-cards`` the phase with NCCL, one card a rank (a machine
+    with 4 cards)."""
+    print(f"card: {card}")
+    _build_phase()
+    t0 = time.perf_counter()
+    _spatial(share_card)
+    if not share_card:
+        print(f"phase seconds: spatial {time.perf_counter() - t0:.1f}")
+        print(f"card: {card}")
+        return 0
+    recs = {
+        mode: {
+            key.removeprefix("spatial_"): tuple(
+                Record(name, "", "", mode) for name in ("conv3x3", "gram")
+            )
+            for key in SPATIAL_KEYS
+        }
+        for mode in MODES
+    }
+    t1 = time.perf_counter()
+    _check_spatial_kernels(recs)
+    print(
+        f"phase seconds: spatial {t1 - t0:.1f}, spatial kernels "
+        f"{time.perf_counter() - t1:.1f}",
+    )
+    for mode, by_key in recs.items():
+        for key, (conv_rec, gram_rec) in by_key.items():
+            for rec in (conv_rec, gram_rec):
+                entry = rec.finish({"main path": 0}, {})
+                print(
+                    f"spatial {key} {entry['name']} {mode}: ms "
+                    f"{entry['ms']:.4f} plain_ms {entry['plain_ms']:.4f} "
+                    f"library_ms {entry['library_ms']:.4f} bound_ms "
+                    f"{entry['bound_ms']:.4f} ({entry['bound_by']}) "
+                    f"max_rel_err {entry['max_rel_err']:.3g}",
+                )
+    print(f"card: {card}")
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     """Run every phase; return 0 when all pass (failures raise).
 
@@ -4869,6 +5279,10 @@ def main(argv: list[str] | None = None) -> int:
         return _tf32_tiles_only(card)
     if args == ["--ieee-gram-shapes"]:
         return _ieee_gram_shapes_only(card)
+    if args == ["--spatial"]:
+        return _spatial_only(card)
+    if args == ["--spatial-cards"]:
+        return _spatial_only(card, share_card=False)
     print(f"card: {card}")
     start = time.perf_counter()
     seconds: dict[str, float] = {}
@@ -4891,11 +5305,11 @@ def main(argv: list[str] | None = None) -> int:
                 name, f"{PACKAGE}/{source}",
                 f"style_transfer_visualizer_tpu/{replaces}",
             )
-            for _ in range(6)
+            for _ in range(8)
         )
         records[name] = (main_rec, dict(zip(
             ("at_1024", batch_key, "level_2048_first", "at_720p",
-             "band_4k_first"), extra,
+             "band_4k_first", *SPATIAL_KEYS), extra,
             strict=True,
         )))
     conv_rec, conv_extra = records["conv3x3"]
@@ -4922,6 +5336,21 @@ def main(argv: list[str] | None = None) -> int:
             for name in ("conv3x3", "gram")
         )
     timed("band kernels", _check_band_kernels, band_recs)
+    spatial_recs = {
+        mode: {
+            key.removeprefix("spatial_"): tuple(
+                (conv_extra, gram_extra)[i][key] if mode == "tf32x3"
+                else mode_recs[name][mode][1].setdefault(key, Record(
+                    f"{name}_{mode}",
+                    mode_recs[name][mode][0].entry["source"],
+                    mode_recs[name][mode][0].entry["replaces"], mode,
+                ))
+                for i, name in enumerate(("conv3x3", "gram"))
+            )
+            for key in SPATIAL_KEYS
+        }
+        for mode in MODES
+    }
     phases = {}
     for name, phase, *args in (
         ("main path", _main_path),
@@ -4936,12 +5365,15 @@ def main(argv: list[str] | None = None) -> int:
         ("banded 4K", _banded_4k),
         ("banded 8K", _banded_8k),
         ("remat", _remat),
+        ("spatial", _spatial),
         ("sweep", _sweep),
         ("regional", _regional, gram_rec),
         ("sequence", _sequence),
         ("dispatch", _dispatch),
     ):
         phases[name] = timed(name, phase, *args)
+        if name == "spatial":
+            timed("spatial kernels", _check_spatial_kernels, spatial_recs)
         if name == "warm start 4 MP":
             timed(
                 "level kernels", _check_level_kernels,

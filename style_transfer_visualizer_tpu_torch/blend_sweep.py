@@ -11,6 +11,11 @@ convex combination (``models.features.blend_targets``), handed to one
 update step as an argument (``sequence.build_targets_update``). Frame 0
 is pure style 0: its weights ``[1, 0, ...]`` give style 0's Grams
 exactly, so frame 0 is the single run of style 0.
+
+With ``hardware.spatial_shards = N > 1`` the frames' rows run over N
+processes, as the sequence's do (``sequence.maybe_spatial_context``):
+the Grams whole on every rank, the content features in rows once for
+the sweep, rank 0 writing every file.
 """
 from __future__ import annotations
 
@@ -54,10 +59,16 @@ from style_transfer_visualizer_tpu_torch.runtime.output import (
 from style_transfer_visualizer_tpu_torch.runtime.validation import (
     validate_input_paths,
 )
+from style_transfer_visualizer_tpu_torch.main import check_spatial
+from style_transfer_visualizer_tpu_torch.models.features import Targets
+from style_transfer_visualizer_tpu_torch.parallel.mesh import Mesh, launch
 from style_transfer_visualizer_tpu_torch.sequence import (
     _SEQUENCE_MAX_CHUNK,
     assemble_output_video,
     build_targets_update,
+    maybe_spatial_context,
+    spatial_frame_targets,
+    spatial_start,
 )
 from style_transfer_visualizer_tpu_torch.utils.logging import logger
 
@@ -118,6 +129,7 @@ def stylize_blend_sweep(
     n_frames: int,
     sweep_steps: int | None = None,
     output_fps: float | None = None,
+    mesh: Mesh | None = None,
 ) -> BlendSweepResult:
     """Render an ``n_frames`` morph of the content across the styles.
 
@@ -134,7 +146,9 @@ def stylize_blend_sweep(
     ``preserve_color="match"`` remaps every style onto the content's
     color statistics before the Grams are made; ``"luminance"``
     recolors every frame with the content's chrominance. Runs on
-    ``config.hardware.device``.
+    ``config.hardware.device``. With ``spatial_shards > 1`` and no
+    ``mesh`` it starts the ranks and returns rank 0's result; with a
+    ``mesh`` it is that rank's part.
     """
     if len(style_paths) < _MIN_SWEEP_STYLES:
         msg = (
@@ -152,12 +166,24 @@ def stylize_blend_sweep(
         msg = f"sweep_steps must be >= 1, got {per_frame_steps}"
         raise ValueError(msg)
     config.validate()
-    device = setup_device(config.hardware.device)
+    if check_spatial(config, mesh) and mesh is None:
+        return launch(
+            stylize_blend_sweep, (content_path, style_paths, config),
+            config.hardware.spatial_shards, config.hardware.device,
+            kwargs={
+                "n_frames": n_frames, "sweep_steps": sweep_steps,
+                "output_fps": output_fps,
+            },
+        )
+    device = (
+        mesh.device if mesh is not None
+        else setup_device(config.hardware.device)
+    )
     generator = setup_random_seed(config.optimization.seed, device)
     return _sweep_on_device(
         Path(content_path), [Path(p) for p in style_paths], config,
         device, generator, weights_rows=weights_rows,
-        per_frame_steps=per_frame_steps, output_fps=output_fps,
+        per_frame_steps=per_frame_steps, output_fps=output_fps, mesh=mesh,
     )
 
 
@@ -171,8 +197,10 @@ def _sweep_on_device(
     weights_rows: list[list[float]],
     per_frame_steps: int,
     output_fps: float | None,
+    mesh: Mesh | None,
 ) -> BlendSweepResult:
     opt = config.optimization
+    writes = mesh is None or mesh.is_root
     output_dir = setup_output_directory(config.output.output)
     content_host = image_io.load_image_to_host_array(content_path)
     content_img = image_io.host_array_to_device(
@@ -199,32 +227,54 @@ def _sweep_on_device(
     # One Targets per style, made once; the content features ride on
     # the first entry (blend_targets carries them through every mix).
     precision = resolve_precision(config.hardware.precision)
+    spatial = maybe_spatial_context(
+        config, params, tuple(content_img.shape), mesh,
+    )
     per_style = [
         compute_targets(
             params, s_img, content_img, style_layers,
-            content_layers if i == 0 else (), precision,
+            content_layers if i == 0 and spatial is None else (), precision,
         )
         for i, s_img in enumerate(style_imgs)
     ]
+    spatial_feats = None
+    if spatial is not None:
+        # The content is fixed across the sweep: its rows' features
+        # (and Laplacian target) are made once for every mixture.
+        spatial_feats = spatial_frame_targets(
+            spatial, params, content_img, {}, config,
+        ).content_feats
     _, update_many, init_state, run_params = build_targets_update(
-        params, tuple(content_img.shape), config,
+        params,
+        tuple(content_img.shape) if spatial is None else spatial.rows_shape,
+        config,
+        loss_fn=None if spatial is None else spatial.loss_fn,
+        mesh=mesh,
     )
 
     opt.coarse_steps = resolve_coarse_steps(
         opt.coarse_steps, int(content_img.shape[1]),
         int(content_img.shape[2]), opt.steps,
     )
-    x = None
-    if opt.coarse_steps > 0:
-        # Frame 0 is pure style 0: the warm start serves the very
-        # objective the sweep's first frame optimizes.
-        x = coarse_init(params, content_img, style_imgs[0], config, generator)
-    if x is None:
-        x = initialize_input(content_img, opt.init_method, generator)
+
+    def start() -> torch.Tensor:
+        x = None
+        if opt.coarse_steps > 0:
+            # Frame 0 is pure style 0: the warm start serves the very
+            # objective the sweep's first frame optimizes.
+            x = coarse_init(
+                params, content_img, style_imgs[0], config, generator,
+            )
+        if x is None:
+            x = initialize_input(content_img, opt.init_method, generator)
+        return x
+
+    x = spatial_start(spatial, start)
     # The content is fixed across the sweep: one response serves every
     # mixture frame.
     lap_target = (
-        lap_response(content_img, opt.lap_pool) if opt.lap_w else None
+        lap_response(content_img, opt.lap_pool)
+        if opt.lap_w and spatial is None else None
     )
 
     outputs: list[Path] = []
@@ -235,7 +285,11 @@ def _sweep_on_device(
     for i, weights in enumerate(weights_rows):
         frame_start = time.perf_counter()
         targets = blend_targets(per_style, weights)
-        if opt.lap_w:
+        if spatial_feats is not None:
+            targets = Targets(
+                style_grams=targets.style_grams, content_feats=spatial_feats,
+            )
+        elif opt.lap_w:
             targets = (targets, lap_target)
         # The captured step reads its targets and state where they
         # are: each frame's mixture is copied into the targets held,
@@ -249,15 +303,17 @@ def _sweep_on_device(
         )
         total_steps += budget
         out_path = output_dir / f"sweep_{i:04d}.png"
-        image_io.save_array_as_image(
-            maybe_restore_color(
-                image_io.prepare_image_for_output(
-                    x, normalize=opt.normalize,
+        whole = x if spatial is None else spatial.mesh.gather(x)
+        if writes:
+            image_io.save_array_as_image(
+                maybe_restore_color(
+                    image_io.prepare_image_for_output(
+                        whole, normalize=opt.normalize,
+                    ),
+                    chroma_source,
                 ),
-                chroma_source,
-            ),
-            out_path,
-        )
+                out_path,
+            )
         outputs.append(out_path)
         frame_seconds.append(time.perf_counter() - frame_start)
         frame_losses.append(float(auxes.loss[-1]))
@@ -273,9 +329,11 @@ def _sweep_on_device(
         output_dir
         / f"blend_sweep_{content_path.stem.replace(' ', '_')}_x_{joined}.gif"
     )
-    assemble_output_video(
-        outputs, video_path, output_fps or float(config.video.fps), config,
-    )
+    if writes:
+        assemble_output_video(
+            outputs, video_path, output_fps or float(config.video.fps),
+            config,
+        )
     return BlendSweepResult(
         frame_paths=outputs,
         video_path=video_path,

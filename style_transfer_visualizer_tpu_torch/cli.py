@@ -24,8 +24,9 @@ checkpoint flags (``--checkpoint-every``, ``--checkpoint-path``,
 card every step is a CUDA-graph replay; the value sets the chunk
 between host reads), ``--tile-rows`` and ``--remat`` (banded
 evaluation and rematerialization, automatic past the H100 thresholds
-of ``constants.py``), and ``--config`` (a TOML in the
-JAX package's layout, under the typed flags) with
+of ``constants.py``), ``--spatial-shards`` (the image's rows over N
+processes, one card each, ``parallel/spatial.py``), and ``--config``
+(a TOML in the JAX package's layout, under the typed flags) with
 ``--validate-config-only``. A realtime or postprocess MP4 needs
 ``ffmpeg`` on PATH; the GIF needs imageio. ``--styles`` without
 ``--style-blend`` is the JAX package's per-style batch: one
@@ -101,6 +102,15 @@ def _add_optimization_flags(p: argparse.ArgumentParser) -> None:
             "Fuse this many optimizer steps into one device "
             "dispatch to amortize host overhead. 0 = auto (gcd "
             "of logging/frame cadences); 1 disables fusion."
+        ),
+    )
+    p.add_argument(
+        "--spatial-shards", dest="spatial_shards", type=int,
+        help=(
+            "Shard image rows across this many processes, one card "
+            "each (halo-exchange convolutions, Gram partials summed "
+            "over NCCL). Requires that many attached cards; on "
+            "--device cpu the ranks run gloo on the host."
         ),
     )
     p.add_argument("--seed", type=int)
@@ -462,7 +472,9 @@ _COPIED = {
         "metadata_artist", "create_gif", "gif_include_intro",
         "gif_include_outro", "final_frame_compare",
     ),
-    "hardware": ("device", "precision", "steps_per_dispatch"),
+    "hardware": (
+        "device", "precision", "steps_per_dispatch", "spatial_shards",
+    ),
 }
 
 
@@ -633,6 +645,13 @@ def _run_regional(
     style_paths: list[str],
 ) -> None:
     """Masked regional transfer: one style per masked region."""
+    if config.hardware.spatial_shards > 1:
+        msg = (
+            "--spatial-shards is not supported with --style-masks "
+            "(regional mode evaluates mask-weighted Grams whole-image); "
+            "drop --spatial-shards for regional runs"
+        )
+        raise SystemExit(msg)
     mask_paths = [
         m.strip() for m in args.style_masks.split(",") if m.strip()
     ]
@@ -702,6 +721,8 @@ def main(argv: Sequence[str] | None = None) -> int:
     if args.config:
         logger.info("Loaded config from: %s", args.config)
     logger.info("Matmul Precision: %s", config.hardware.precision)
+    if config.hardware.spatial_shards > 1:
+        logger.info("Spatial Shards: %d", config.hardware.spatial_shards)
     if config.optimization.tile_rows > 0:
         logger.info("Tile Rows: %d", config.optimization.tile_rows)
     if config.hardware.steps_per_dispatch:

@@ -224,12 +224,18 @@ class HardwareConfig:
     ``steps_per_dispatch`` is the JAX package's: 0 picks the chunk from
     the cadences (``engine.runner.aligned_chunk``), 1 dispatches single
     steps, N > 1 folds into the same gcd. On the card every dispatched
-    step is a CUDA-graph replay whatever the chunk.
+    step is a CUDA-graph replay whatever the chunk, but a row-sharded
+    one's, which dispatches eagerly.
+
+    ``spatial_shards`` is the JAX package's: N > 1 splits the image's
+    rows over N processes (``parallel/spatial.py``), one card each on
+    ``cuda`` (NCCL), any number on ``cpu`` (gloo).
     """
 
     device: str = d.DEFAULT_DEVICE
     precision: PrecisionName = d.DEFAULT_PRECISION
     steps_per_dispatch: int = 0
+    spatial_shards: int = 1
 
     def __post_init__(self) -> None:
         self.validate()
@@ -246,6 +252,7 @@ class HardwareConfig:
         )
         _check_choice("precision", self.precision, PrecisionName)
         _check(self.steps_per_dispatch >= 0, "steps_per_dispatch must be >= 0")
+        _check(self.spatial_shards >= 1, "spatial_shards must be >= 1")
 
 
 @dataclass
@@ -349,9 +356,6 @@ _SECTIONS = {
 #: the JAX default and then ignored; any other value raises
 #: ``NotImplementedError`` naming what it waits for.
 _UNPORTED: dict[tuple[str, str], tuple[object, str]] = {
-    ("hardware", "spatial_shards"): (
-        1, "ROADMAP.md queue item 'Spatial and dp×sp'",
-    ),
     ("hardware", "conv_backend"): (
         "auto", "nothing: the port has no backend knob (ROADMAP.md, "
         "'Kernels are the only backend on the card')",

@@ -75,3 +75,16 @@ BATCH_AUTO_REMAT_PIXEL_THRESHOLD = AUTO_TILE_PIXEL_THRESHOLD
 # reserved (75%); in 3 of 1440 (12.3 MP) at 76,657,197,056 B reserved
 # (90%); in 2 of 2160 it runs out of memory.
 MAX_BAND_PIXELS = 8_000_000
+
+# --- Row-sharded evaluation (parallel/mesh.py, parallel/spatial.py) ----
+# The mesh's two logical axes, named as in the JAX package: ``style``
+# (independent style targets) and ``space`` (image rows).
+MESH_AXIS_STYLE = "style"
+MESH_AXIS_SPACE = "space"
+
+# Seconds a rank waits at the rendezvous or in one collective before it
+# raises: a rank that died or took another branch fails the run instead
+# of hanging it. Rank 0 makes the starting image alone (the warm start
+# included) while the others wait in its broadcast, so the bound is
+# generous.
+SPATIAL_TIMEOUT_SECONDS = 1800.0

@@ -19,6 +19,16 @@ never reads a value back to the host (no ``.item()``). The curvature
 ring of :class:`LbfgsState` is updated IN PLACE; every other field is
 replaced by a new tensor.
 
+With ``mesh`` (a ``parallel.mesh.Mesh`` of N > 1 ranks, the JAX
+``axis_name``) the vector ``x`` and every vector of the state are one
+rank's rows of the whole image's: each dot product, norm and maximum
+that a decision or a step length reads is reduced over the ranks
+(:func:`_sums`, :func:`_maxes`; in the compact direction the four ring
+products in one collective), so every rank takes the same branches and
+the same step. The two-loop direction reduces each of its 2m dots on
+its own: correct, and slow over a process group. Adam is elementwise
+and needs nothing.
+
 The multi-style batch runs S independent problems in one step
 (:func:`lbfgs_step_batched`, :func:`adam_step_batched`): every state
 field gains a leading style axis, and every decision (``done``, the
@@ -45,6 +55,25 @@ import torch
 TOLERANCE_GRAD = 1e-7
 TOLERANCE_CHANGE = 1e-9
 _CURVATURE_EPS = 1e-10
+
+
+def _sums(mesh, *parts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Each scalar summed over the mesh's ranks, in one collective.
+
+    Without a mesh (or on one rank) the tensors come back as they are.
+    """
+    if mesh is None or mesh.size == 1:
+        return parts
+    packed = mesh.all_sum(torch.stack(parts))
+    return tuple(packed.unbind(0))
+
+
+def _maxes(mesh, *parts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Each scalar's maximum over the mesh's ranks, in one collective."""
+    if mesh is None or mesh.size == 1:
+        return parts
+    packed = mesh.all_max(torch.stack(parts))
+    return tuple(packed.unbind(0))
 
 # value_and_grad over flattened pixels:
 # x (N,) -> ((loss, (style_score, content_score)), grad (N,))
@@ -133,11 +162,14 @@ def _row(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return t.index_select(0, i.reshape(1))[0]
 
 
-def _two_loop(grad: torch.Tensor, state: LbfgsState) -> torch.Tensor:
+def _two_loop(
+    grad: torch.Tensor, state: LbfgsState, mesh=None,
+) -> torch.Tensor:
     """Two-loop recursion: approximate -H^{-1} g from curvature pairs.
 
     The ring's valid length is a device value, so both loops walk all
-    ``m`` slots and mask the ones past ``hist_len``.
+    ``m`` slots and mask the ones past ``hist_len``. With ``mesh``
+    each of the 2m dots is summed over the ranks.
     """
     m = state.rho.shape[0]
     num, pos = state.hist_len, state.hist_pos
@@ -148,7 +180,8 @@ def _two_loop(grad: torch.Tensor, state: LbfgsState) -> torch.Tensor:
         valid = i < num
         j = (pos - 1 - i) % m
         s_j = _row(state.s_hist, j).float()
-        alpha = _row(state.rho, j) * torch.dot(s_j, q)
+        (sq,) = _sums(mesh, torch.dot(s_j, q))
+        alpha = _row(state.rho, j) * sq
         y_j = _row(state.y_hist, j).float()
         q = torch.where(valid, q - alpha * y_j, q)
         alphas = torch.where(valid & (slots == j), alpha, alphas)
@@ -157,7 +190,8 @@ def _two_loop(grad: torch.Tensor, state: LbfgsState) -> torch.Tensor:
         valid = i < num
         j = (pos - num + i) % m
         y_j = _row(state.y_hist, j).float()
-        beta = _row(state.rho, j) * torch.dot(y_j, r)
+        (yr,) = _sums(mesh, torch.dot(y_j, r))
+        beta = _row(state.rho, j) * yr
         s_j = _row(state.s_hist, j).float()
         r = torch.where(valid, r + s_j * (_row(alphas, j) - beta), r)
     return r
@@ -176,6 +210,7 @@ def _column_blocks(n: int) -> list[slice]:
 def _compact_direction(
     grad: torch.Tensor,
     state: LbfgsState,
+    mesh=None,
 ) -> torch.Tensor:
     """Compact-representation direction (Byrd-Nocedal-Schnabel 1994).
 
@@ -190,7 +225,9 @@ def _compact_direction(
     a whole fp32 copy of the ring (2 x m x n floats, twice the bf16
     ring itself) would set the run's peak memory. Up to
     ``UPCAST_COLUMNS`` pixels x channels it is one block, the products
-    of the whole ring.
+    of the whole ring. With ``mesh`` the four products are each rank's
+    partials, summed over the ranks in one collective; the small
+    solves then run alike on every rank.
     """
     m = state.rho.shape[0]
     num = state.hist_len
@@ -208,6 +245,13 @@ def _compact_direction(
             a + b for a, b in zip(sums, part, strict=True)
         )
         del s32, y32
+    if mesh is not None and mesh.size > 1:
+        packed = mesh.all_sum(torch.cat([t.reshape(-1) for t in sums]))
+        sums = tuple(
+            part.reshape(t.shape) for part, t in zip(
+                packed.split([t.numel() for t in sums]), sums, strict=True,
+            )
+        )
     sy, yy, p, q = sums
 
     # Time order (oldest pair first); slots past hist_len are masked.
@@ -286,12 +330,14 @@ def lbfgs_step(
     max_iter: int,
     max_eval: int,
     direction_method: str = "two-loop",
+    mesh=None,
 ) -> tuple[torch.Tensor, LbfgsState, StepAux]:
     """One outer L-BFGS step (torch semantics, fixed-step strategy).
 
     ``x`` is the flattened parameter vector. Returns the new vector,
     the state (its ring updated in place) and the metrics of the
-    *last* function evaluation of the step.
+    *last* function evaluation of the step. With ``mesh`` ``x`` is
+    this rank's rows and every reduction runs over the ranks.
     """
     try:
         direction_fn = _DIRECTION_METHODS[direction_method]
@@ -299,7 +345,8 @@ def lbfgs_step(
         msg = f"Unknown L-BFGS direction method: {direction_method!r}"
         raise ValueError(msg) from None
     (loss, (style, content)), grad = vag(x)
-    done = grad.abs().max() <= TOLERANCE_GRAD
+    (grad_max,) = _maxes(mesh, grad.abs().max())
+    done = grad_max <= TOLERANCE_GRAD
     evals = torch.ones((), dtype=torch.int64, device=x.device)
     st = state
 
@@ -312,18 +359,17 @@ def lbfgs_step(
         # or when the curvature condition y.s > eps fails.
         y = grad - st.prev_grad
         s = st.direction * st.step_size
-        ys = torch.dot(y, s)
-        yy = torch.dot(y, y)
+        ys, yy = _sums(mesh, torch.dot(y, s), torch.dot(y, y))
         do_insert = active & ~first & (ys > _CURVATURE_EPS)
         _insert_pair(st, s, y, ys, yy, do_insert)
 
-        direction = torch.where(first, -grad, direction_fn(grad, st))
+        direction = torch.where(first, -grad, direction_fn(grad, st, mesh))
+        l1, gtd = _sums(mesh, grad.abs().sum(), torch.dot(grad, direction))
         t = torch.where(
             first,
-            torch.clamp(1.0 / grad.abs().sum(), max=1.0) * lr,
+            torch.clamp(1.0 / l1, max=1.0) * lr,
             torch.full((), lr, dtype=torch.float32, device=x.device),
         )
-        gtd = torch.dot(grad, direction)
         break_gtd = gtd > -TOLERANCE_CHANGE
         x_new = torch.where(break_gtd, x, x + t * direction)
 
@@ -340,11 +386,14 @@ def lbfgs_step(
             loss_n, style_n, content_n, grad_n = loss, style, content, grad
         evals_n = evals + reeval.to(evals.dtype)
 
+        grad_n_max, step_max = _maxes(
+            mesh, grad_n.abs().max(), (t * direction).abs().max(),
+        )
         done_n = (
             break_gtd
             | (evals_n >= max_eval)
-            | (grad_n.abs().max() <= TOLERANCE_GRAD)
-            | ((t * direction).abs().max() <= TOLERANCE_CHANGE)
+            | (grad_n_max <= TOLERANCE_GRAD)
+            | (step_max <= TOLERANCE_CHANGE)
             | ((loss_n - loss).abs() < TOLERANCE_CHANGE)
         )
 

@@ -28,6 +28,12 @@ Behavioral contracts kept from the JAX package:
 - a checkpoint is saved after the frame at every ``checkpoint_every``
   step when a ``checkpoint_path`` is given (one host read per save);
 - every resource is closed even when one fails (``_cleanup``).
+
+On a mesh (``parallel.mesh.Mesh``, a row-sharded run) every rank runs
+the loop on its rows; rank 0 alone writes the CSV, the frames and the
+checkpoints. The frames, the checkpoints and the returned image gather
+the rows on every rank at the same steps (a gather is a collective),
+and the losses, replicated, are read on every rank alike.
 """
 from __future__ import annotations
 
@@ -61,6 +67,9 @@ from style_transfer_visualizer_tpu_torch.media.stream import AsyncFrameStream
 from style_transfer_visualizer_tpu_torch.ops.color import (
     maybe_restore_color,
     yiq_matrices,
+)
+from style_transfer_visualizer_tpu_torch.parallel.spatial import (
+    gather_state,
 )
 from style_transfer_visualizer_tpu_torch.runtime.checkpoint import (
     save_checkpoint,
@@ -221,6 +230,7 @@ class OptimizationRunner:
         chroma_source: torch.Tensor | None = None,
         start_step: int = 0,
         checkpoint_path: Path | None = None,
+        mesh=None,
     ) -> None:
         """Set up the loop; nothing runs until :meth:`run`.
 
@@ -232,6 +242,8 @@ class OptimizationRunner:
         on the device before the pack. The loop runs steps ``start_step
         + 1`` to ``steps``; ``checkpoint_path`` receives a checkpoint at
         every ``output.checkpoint_every`` step (none without a path).
+        ``mesh`` makes ``input_img`` and ``opt_state`` this rank's rows
+        of a row-sharded run; rank 0 then holds the sinks and the path.
         """
         self.update_fn = update_fn
         self.chunked_update_fn = chunked_update_fn
@@ -260,11 +272,20 @@ class OptimizationRunner:
         self._step_index = start_step
         self._start_step = start_step
         self._checkpoint_path = checkpoint_path
+        self._mesh = mesh
+        self._writes = mesh is None or mesh.is_root
 
         self.loss_logger: LossCSVLogger | None = None
         self._accumulator: LossAccumulator | None = None
         self._latest_logged: LoggedLoss | None = None
         self._configure_logging()
+        self._frames_on = video_writer is not None or gif_collector is not None
+        self._csv_on = self.loss_logger is not None
+        if mesh is not None:
+            # Every rank takes rank 0's frame and chunk decisions.
+            self._frames_on, self._csv_on = mesh.any(
+                self._frames_on, self._csv_on,
+            )
         # Running device-side eval counter, read once at the end.
         self._eval_total: torch.Tensor | int = 0
 
@@ -334,7 +355,7 @@ class OptimizationRunner:
             history = self._accumulator.export_history()
         else:
             history = {}
-        return self.input_img, history, elapsed
+        return self._whole(self.input_img), history, elapsed
 
     # ------------------------------------------------------------------
     # internals
@@ -348,6 +369,10 @@ class OptimizationRunner:
             self.input_img, self.opt_state, 1,
         )
         return image, state, auxes.at(0)
+
+    def _whole(self, image: torch.Tensor) -> torch.Tensor:
+        """The whole image: gathered from every rank on a mesh."""
+        return image if self._mesh is None else self._mesh.gather(image)
 
     def _fetch_frame(self, image: torch.Tensor) -> torch.Tensor:
         # Denorm, scrub, the luminance transfer and uint8 packing run on
@@ -367,7 +392,7 @@ class OptimizationRunner:
         track_history = True
         self.loss_logger = None
 
-        if out_cfg.log_loss:
+        if out_cfg.log_loss and self._writes:
             try:
                 self.loss_logger = LossCSVLogger(
                     out_cfg.log_loss, out_cfg.log_every,
@@ -423,9 +448,9 @@ class OptimizationRunner:
         ):
             return 1
         cadences = []
-        if self.loss_logger is not None:
+        if self._csv_on:
             cadences.append(self.config.output.log_every)
-        if self.video_writer is not None or self.gif_collector is not None:
+        if self._frames_on:
             cadences.append(self.config.video.save_every)
         if self.config.output.checkpoint_every:
             cadences.append(self.config.output.checkpoint_every)
@@ -467,9 +492,12 @@ class OptimizationRunner:
             or step_idx % cadence != 0
         ):
             return
-        save_checkpoint(
-            self._checkpoint_path, step_idx, self.input_img, self.opt_state,
-        )
+        image, state = self.input_img, self.opt_state
+        if self._mesh is not None:
+            image = self._mesh.gather(image)
+            state = gather_state(self._mesh, state)
+        if self._writes:
+            save_checkpoint(self._checkpoint_path, step_idx, image, state)
 
     def _after_record(
         self, step_idx: int, logged: LoggedLoss | None,
@@ -515,13 +543,13 @@ class OptimizationRunner:
     def _maybe_write_video_frame(self, metrics: StepMetrics) -> None:
         save_every = self.config.video.save_every
         step_idx = metrics.step
-        if (
-            step_idx % save_every != 0
-            or (self.video_writer is None and self.gif_collector is None)
-        ):
+        if step_idx % save_every != 0 or not self._frames_on:
+            return
+        image = self._whole(self.input_img)
+        if not self._writes:
             return
 
-        device_frame = self._fetch_frame(self.input_img)
+        device_frame = self._fetch_frame(image)
         if self._async_frames:
             if self._frame_stream is None:
                 self._frame_stream = AsyncFrameStream()

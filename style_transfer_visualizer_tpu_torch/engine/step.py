@@ -18,6 +18,14 @@ arguments of every call (the sequence, the blend sweep and the
 regional run build on it, through ``sequence.build_targets_update``);
 :func:`build_update_step` binds one set of targets to it, so both run
 the same arithmetic.
+
+A row-sharded step (``parallel/spatial.py``: ``loss_fn`` and ``mesh``
+given) dispatches eagerly, by design: its halo exchanges and sums are
+collectives of a process group, which a CUDA graph cannot hold under
+gloo, and NCCL under capture cannot be tested on one card.
+:func:`chunked` gives such a step an :class:`EagerChunk` (the same
+chunks, each step issued from the host), and :class:`GraphedChunk`
+refuses it.
 """
 from __future__ import annotations
 
@@ -172,6 +180,7 @@ def targets_update(
     lbfgs_history_size: int = 100,
     lbfgs_history_dtype: str = "float32",
     lbfgs_direction: str = "two-loop",
+    mesh=None,
 ) -> tuple[Callable, Callable[[], OptState]]:
     """``(update, init_state)`` for an objective whose targets are an
     argument.
@@ -184,7 +193,9 @@ def targets_update(
     ``state`` to it in place and returns it, so a pipeline that restarts
     the optimizer every frame keeps one state (the tensors a captured
     step reads). The gradient is autograd's through ``loss_fn(params,
-    image, targets)``.
+    image, targets)``. With ``mesh`` (a ``parallel.mesh.Mesh``) the
+    image is one rank's rows and ``loss_fn`` the replicated sharded
+    loss; the optimizer reduces over the ranks.
     """
     n = 1
     for dim in image_shape:
@@ -218,6 +229,7 @@ def targets_update(
                 max_iter=lbfgs_max_iter,
                 max_eval=lbfgs_max_eval,
                 direction_method=lbfgs_direction,
+                mesh=mesh,
             )
             return new_flat.reshape(image_shape), new_state, aux
 
@@ -276,6 +288,8 @@ def build_update_step(
     precision: PrecisionLike = MIXED,
     remat: bool = False,
     tile_rows: int = 0,
+    loss_fn: LossFn | None = None,
+    mesh=None,
 ) -> StepBundle:
     """Build ``update(image, state) -> (image, state, StepAux)``.
 
@@ -288,18 +302,26 @@ def build_update_step(
     ``precision`` is the resolved tier; ``remat`` and ``tile_rows``
     (``> 0``: banded evaluation) as in :func:`make_objective`. The
     update is :func:`targets_update`'s over :func:`make_objective`,
-    with the weights and ``targets`` bound.
+    with the weights and ``targets`` bound. ``loss_fn(params, image,
+    targets)`` replaces that objective (the JAX package injects the
+    row-sharded loss so, ``parallel.spatial.make_spatial_loss``, whose
+    targets carry its own terms); ``mesh`` is then its mesh, ``image``
+    this rank's rows, and the step is an :class:`EagerChunk`.
     """
-    if lap_w and lap_target is None:
-        msg = "lap_w > 0 requires a precomputed lap_target response"
-        raise ValueError(msg)
     device = next(iter(params.values()))["w9"].device
-    loss_fn = make_objective(
-        style_w=style_w, content_w=content_w, tv_w=tv_w, lap_w=lap_w,
-        lap_pool=lap_pool, style_layers=style_layers,
-        content_layers=content_layers, style_weights=style_weights,
-        precision=precision, remat=remat, tile_rows=tile_rows,
-    )
+    if loss_fn is None:
+        if lap_w and lap_target is None:
+            msg = "lap_w > 0 requires a precomputed lap_target response"
+            raise ValueError(msg)
+        loss_fn = make_objective(
+            style_w=style_w, content_w=content_w, tv_w=tv_w, lap_w=lap_w,
+            lap_pool=lap_pool, style_layers=style_layers,
+            content_layers=content_layers, style_weights=style_weights,
+            precision=precision, remat=remat, tile_rows=tile_rows,
+        )
+        bound = (targets, lap_target) if lap_w else targets
+    else:
+        bound = targets
     update, init_state = targets_update(
         loss_fn, image_shape, device,
         optimizer=optimizer,
@@ -309,8 +331,8 @@ def build_update_step(
         lbfgs_history_size=lbfgs_history_size,
         lbfgs_history_dtype=lbfgs_history_dtype,
         lbfgs_direction=lbfgs_direction,
+        mesh=mesh,
     )
-    bound = (targets, lap_target) if lap_w else targets
 
     def update_fn(image: torch.Tensor, state: OptState):
         return update(image, state, params, bound)
@@ -318,18 +340,25 @@ def build_update_step(
     return StepBundle(
         update_fn=update_fn,
         opt_state=init_state(),
-        chunked_update_fn=chunked(update_fn),
+        chunked_update_fn=chunked(update_fn, mesh),
     )
 
 
-def chunked(update_fn: Callable) -> GraphedChunk:
+def _holds_group(mesh) -> bool:
+    return mesh is not None and mesh.group is not None
+
+
+def chunked(update_fn: Callable, mesh=None) -> GraphedChunk:
     """``chunked_update_fn(image, state, *extra, k)`` over ``update_fn``.
 
     ``k`` steps of ``update_fn(image, state, *extra)`` (``extra`` is
     empty for :func:`build_update_step`'s update, the weights and
     targets for :func:`targets_update`'s), the metrics stacked along a
-    leading ``k`` axis: a :class:`GraphedChunk`.
+    leading ``k`` axis: a :class:`GraphedChunk`, or an
+    :class:`EagerChunk` when ``mesh`` holds a process group.
     """
+    if _holds_group(mesh):
+        return EagerChunk(update_fn)
     return GraphedChunk(update_fn)
 
 
@@ -516,8 +545,19 @@ class GraphedChunk:
     :func:`recording` each dispatch is recorded (:meth:`note`).
     """
 
-    def __init__(self, update_fn: Callable) -> None:
-        """Wrap ``update_fn(image, state, *extra) -> (image, state, aux)``."""
+    def __init__(self, update_fn: Callable, mesh=None) -> None:
+        """Wrap ``update_fn(image, state, *extra) -> (image, state, aux)``.
+
+        ``mesh`` is the step's mesh: one that holds a process group
+        raises ``ValueError`` (its collectives are not captured;
+        :class:`EagerChunk` runs such a step).
+        """
+        if _holds_group(mesh):
+            msg = (
+                "a step that holds a process group is not captured in a "
+                "CUDA graph; it dispatches eagerly (EagerChunk)"
+            )
+            raise ValueError(msg)
         self.update_fn = update_fn
         self._entry: _Captured | None = None
         self.capture_seconds: list[float] = []
@@ -673,3 +713,21 @@ class GraphedChunk:
             packed=packed,
             aux_dtypes=tuple(getattr(new_aux, f).dtype for f in _AUX_FIELDS),
         ), first
+
+
+class EagerChunk(GraphedChunk):
+    """``chunk(image, state, *extra, k)``: ``k`` eager steps on any
+    device.
+
+    The dispatch of a row-sharded step, whose collectives no graph
+    holds: the loop of :meth:`GraphedChunk.loop` on the CPU and on the
+    card alike, each CUDA dispatch recorded in an open
+    :func:`recording` as a graphed one is.
+    """
+
+    def __call__(self, image: torch.Tensor, state, *rest):
+        """Run ``k`` (the last argument) steps; ``(image, state, aux)``."""
+        out = self.loop(image, state, *rest)
+        if image.device.type == "cuda":
+            self.note(rest[-1])
+        return out

@@ -37,6 +37,18 @@ it has no bands, as in the JAX package.
 
 All run on ``config.hardware.device``, CUDA unless the caller asks for
 the CPU.
+
+``hardware.spatial_shards = N > 1`` splits the image's rows over N
+processes (``parallel/spatial.py``): :func:`style_transfer` and
+:func:`run_style_transfer` start the N ranks themselves
+(``parallel.mesh.launch``: NCCL, one card a rank; gloo on the CPU) and
+return rank 0's result; called with a ``mesh`` they are that rank's
+part. Rank 0 makes the starting image (the warm start included) and
+hands it to every rank; the style Grams are computed whole on every
+rank (C x C, whatever the size); the content targets and the working
+image stay in rows; rank 0 writes every file. Resume loads the whole
+checkpoint on every rank and keeps its rows. Sharding excludes
+``tile_rows`` (the JAX package's refusal), and runs no remat.
 """
 from __future__ import annotations
 
@@ -78,6 +90,7 @@ from style_transfer_visualizer_tpu_torch.models.arch import (
     layer_table_from_params,
 )
 from style_transfer_visualizer_tpu_torch.models.features import (
+    Targets,
     compute_targets,
     initialize_input,
     targets_maybe_blended,
@@ -95,10 +108,22 @@ from style_transfer_visualizer_tpu_torch.ops.tiled import (
     compute_tiled_targets,
     validate_tiling,
 )
+from style_transfer_visualizer_tpu_torch.parallel.mesh import (
+    BATCH_ITEM,
+    launch,
+)
 from style_transfer_visualizer_tpu_torch.parallel.multistyle import (
     build_multi_style_update,
     initialize_multi_inputs,
     multi_style_targets,
+)
+from style_transfer_visualizer_tpu_torch.parallel.spatial import (
+    LAP_RESPONSE_KEY,
+    compute_sharded_targets,
+    make_spatial_loss,
+    padded_lap_target,
+    shard_state,
+    whole_state_like,
 )
 from style_transfer_visualizer_tpu_torch.runtime.checkpoint import (
     load_checkpoint,
@@ -141,10 +166,31 @@ if TYPE_CHECKING:
         VideoFrameSink,
     )
     from style_transfer_visualizer_tpu_torch.models.vgg19 import Params
+    from style_transfer_visualizer_tpu_torch.parallel.mesh import Mesh
     from style_transfer_visualizer_tpu_torch.type_defs import (
         InputPaths,
         LossHistory,
     )
+
+
+def check_spatial(config: StyleTransferConfig, mesh: Mesh | None) -> bool:
+    """Whether the run is row-sharded; raises for what sharding refuses.
+
+    ``tile_rows > 0`` with ``spatial_shards > 1`` raises the JAX
+    package's ``ValueError``. A ``mesh`` must have ``spatial_shards``
+    ranks.
+    """
+    n_space = config.hardware.spatial_shards
+    if n_space > 1 and config.optimization.tile_rows > 0:
+        msg = (
+            "--spatial-shards and --tile-rows are mutually "
+            "exclusive: sharding already bounds per-device graphs."
+        )
+        raise ValueError(msg)
+    if mesh is not None and mesh.size != n_space:
+        msg = f"a mesh of {mesh.size} ranks for spatial_shards={n_space}"
+        raise ValueError(msg)
+    return n_space > 1
 
 
 def prepare_model_and_input(
@@ -154,6 +200,7 @@ def prepare_model_and_input(
     *,
     params: Params | None = None,
     style_blend: list[tuple[np.ndarray, float]] | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[StepBundle, torch.Tensor]:
     """Weights, targets, the optimizer step and the starting image.
 
@@ -165,11 +212,25 @@ def prepare_model_and_input(
     coarse warm start's auto mode is resolved here, against the
     content's size, and written back to ``config``. ``params`` reuses
     weights already on the run's device; by default they are loaded
-    (or made from the seed) for ``config.optimization.model``.
+    (or made from the seed) for ``config.optimization.model``. With
+    ``spatial_shards > 1`` it is this ``mesh`` rank's part
+    (:func:`_prepare_spatial`): the step of its rows and its rows of
+    the starting image.
     """
     config.validate()
+    sharded = check_spatial(config, mesh)
+    if sharded and mesh is None:
+        msg = (
+            f"spatial_shards={config.hardware.spatial_shards} runs one "
+            "process per shard: pass each rank's mesh (parallel.mesh."
+            "launch starts them)"
+        )
+        raise ValueError(msg)
     opt = config.optimization
-    device = setup_device(config.hardware.device)
+    device = (
+        mesh.device if mesh is not None
+        else setup_device(config.hardware.device)
+    )
     generator = setup_random_seed(opt.seed, device)
     content_img = image_io.host_array_to_device(
         content, device, normalize=opt.normalize,
@@ -193,6 +254,11 @@ def prepare_model_and_input(
         params = load_pretrained_params(
             device, arch=get_architecture(opt.model),
             allow_random=opt.allow_random_weights, seed=opt.seed,
+        )
+    if sharded:
+        return _prepare_spatial(
+            params, content_img, style_img, config, generator,
+            blend_imgs=blend_imgs, mesh=mesh,
         )
     style_layers = tuple(opt.style_layers)
     content_layers = tuple(opt.content_layers)
@@ -265,6 +331,114 @@ def prepare_model_and_input(
         tile_rows=tile_rows,
     )
     return bundle, input_img
+
+
+def _prepare_spatial(
+    params: Params,
+    content_img: torch.Tensor,
+    style_img: torch.Tensor,
+    config: StyleTransferConfig,
+    generator: torch.Generator,
+    *,
+    blend_imgs: list[tuple[torch.Tensor, float]] | None,
+    mesh: Mesh,
+) -> tuple[StepBundle, torch.Tensor]:
+    """One rank's row-sharded step and rows of the starting image.
+
+    The JAX package's ``_prepare_spatial_model_and_input``: the style
+    Grams (blended, if so) whole on every rank, C x C and independent
+    of size, so the style image needs no divisibility; the content
+    targets from the content's rows (``compute_sharded_targets``),
+    with this rank's rows of the padded Laplacian target; the shared
+    step with the mesh loss injected. Rank 0 makes the whole starting
+    image (the warm start, if it runs) and every rank takes its rows.
+    """
+    opt = config.optimization
+    precision = resolve_precision(config.hardware.precision)
+    style_layers = tuple(opt.style_layers)
+    loss_fn = spatial_loss(config, params, tuple(content_img.shape), mesh)
+    grams = targets_maybe_blended(
+        lambda s_img, _: compute_targets(
+            params, s_img, content_img, style_layers, (), precision,
+        ),
+        style_img, (), blend_imgs,
+    ).style_grams
+    start = None
+    if mesh.is_root:
+        start = _initial_image(
+            params, content_img, style_img, config, generator,
+            blend_imgs=blend_imgs,
+        )
+    input_img = mesh.shard(mesh.broadcast(start, like=content_img))
+    bundle = build_update_step(
+        params,
+        Targets(
+            style_grams=grams,
+            content_feats=sharded_content_feats(
+                config, params, content_img, mesh,
+            ),
+        ),
+        tuple(input_img.shape),
+        optimizer=opt.optimizer,
+        lr=opt.lr,
+        style_w=opt.style_w,
+        content_w=opt.content_w,
+        style_layers=style_layers,
+        content_layers=tuple(opt.content_layers),
+        lbfgs_max_iter=opt.lbfgs_max_iter,
+        lbfgs_max_eval=opt.lbfgs_max_eval,
+        lbfgs_history_size=opt.lbfgs_history_size,
+        lbfgs_history_dtype=opt.lbfgs_history_dtype,
+        lbfgs_direction=opt.lbfgs_direction,
+        precision=precision,
+        loss_fn=loss_fn,
+        mesh=mesh,
+    )
+    return bundle, input_img
+
+
+def spatial_loss(
+    config: StyleTransferConfig,
+    params: Params,
+    image_shape: tuple[int, ...],
+    mesh: Mesh,
+):
+    """The row-sharded objective of ``config`` for a whole image of
+    ``image_shape`` (``parallel.spatial.make_spatial_loss``: it owns
+    the TV and Laplacian terms; the divisibility checks raise here)."""
+    opt = config.optimization
+    return make_spatial_loss(
+        mesh, tuple(image_shape),
+        style_w=opt.style_w, content_w=opt.content_w, tv_w=opt.tv_w,
+        lap_w=opt.lap_w, lap_pool=opt.lap_pool,
+        style_layers=tuple(opt.style_layers),
+        style_weights=opt.style_weights_tuple(),
+        content_layers=tuple(opt.content_layers),
+        precision=resolve_precision(config.hardware.precision),
+        table=layer_table_from_params(params),
+    )
+
+
+def sharded_content_feats(
+    config: StyleTransferConfig,
+    params: Params,
+    content_img: torch.Tensor,
+    mesh: Mesh,
+) -> dict[int, torch.Tensor]:
+    """This rank's content targets from the whole ``content_img``: the
+    features of its rows, and with ``lap_w`` its rows of the padded
+    Laplacian target under ``LAP_RESPONSE_KEY``."""
+    opt = config.optimization
+    rows = mesh.shard(content_img)
+    feats = compute_sharded_targets(
+        mesh, params, rows, rows, (), tuple(opt.content_layers),
+        precision=resolve_precision(config.hardware.precision),
+    ).content_feats
+    if opt.lap_w:
+        feats[LAP_RESPONSE_KEY] = mesh.shard(
+            padded_lap_target(content_img, opt.lap_pool),
+        )
+    return feats
 
 
 def _resolve_tile_rows(
@@ -393,17 +567,26 @@ def _resume(
     config: StyleTransferConfig,
     image: torch.Tensor,
     state,
+    mesh: Mesh | None = None,
 ) -> tuple[torch.Tensor, object, int]:
     """``(image, state, start_step)``: the checkpoint's when resuming.
 
     The start step is clamped to ``steps``; without ``resume_from`` the
-    arguments come back with step 0.
+    arguments come back with step 0. On a ``mesh`` every rank loads the
+    whole checkpoint and keeps its rows.
     """
     if not config.output.resume_from:
         return image, state, 0
-    ckpt = load_checkpoint(config.output.resume_from, state, image.device)
+    step_cap = config.optimization.steps
+    if mesh is None:
+        ckpt = load_checkpoint(config.output.resume_from, state, image.device)
+        return ckpt.image, ckpt.opt_state, min(ckpt.step, step_cap)
+    ckpt = load_checkpoint(
+        config.output.resume_from, whole_state_like(mesh, state), "cpu",
+    )
     return (
-        ckpt.image, ckpt.opt_state, min(ckpt.step, config.optimization.steps),
+        mesh.shard(ckpt.image), shard_state(mesh, ckpt.opt_state),
+        min(ckpt.step, step_cap),
     )
 
 
@@ -461,6 +644,7 @@ def run_style_transfer(
     config: StyleTransferConfig,
     *,
     style_blend: list[tuple[np.ndarray, float]] | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[torch.Tensor, LossHistory]:
     """Stylize ``content`` with ``style``; both (1, H, W, 3) in [0, 1].
 
@@ -470,13 +654,21 @@ def run_style_transfer(
     and the loss history (``{}`` when a loss CSV owns the series; a
     resumed run's holds its own steps). No media and no progress bar:
     frames, plot and PNG belong to :func:`style_transfer`. Checkpoints
-    default to ``<output>/checkpoint.npz``.
+    default to ``<output>/checkpoint.npz``. ``spatial_shards > 1``
+    without a ``mesh`` starts the ranks (module docstring) and returns
+    rank 0's result.
     """
+    if check_spatial(config, mesh) and mesh is None:
+        return launch(
+            run_style_transfer, (content, style, config),
+            config.hardware.spatial_shards, config.hardware.device,
+            kwargs={"style_blend": style_blend},
+        )
     bundle, input_img = prepare_model_and_input(
-        content, style, config, style_blend=style_blend,
+        content, style, config, style_blend=style_blend, mesh=mesh,
     )
     input_img, opt_state, start_step = _resume(
-        config, input_img, bundle.opt_state,
+        config, input_img, bundle.opt_state, mesh,
     )
     runner = OptimizationRunner(
         bundle.update_fn, opt_state, input_img, config,
@@ -486,6 +678,7 @@ def run_style_transfer(
         checkpoint_path=_checkpoint_path(
             config, Path(config.output.output),
         ),
+        mesh=mesh,
     )
     with _profiled(config, input_img.device):
         image, history, _ = runner.run()
@@ -504,6 +697,7 @@ def style_transfer(
     *,
     style_blend: list[tuple[str, float]] | None = None,
     progress_bar: ProgressReporter | None = None,
+    mesh: Mesh | None = None,
 ) -> torch.Tensor:
     """Run the full pipeline on image files; return the final image.
 
@@ -513,12 +707,20 @@ def style_transfer(
     ``style_blend``, one ``(style path, weight)`` per style, makes one
     stylization from the styles' blended Gram targets, named with the
     joined style stems; ``paths.style_path`` then only fronts the intro
-    and outro panels.
+    and outro panels. ``spatial_shards > 1`` without a ``mesh`` starts
+    the ranks (module docstring; rank 0 shows the progress) and
+    returns rank 0's image.
     """
     validate_input_paths(paths.content_path, paths.style_path)
     for blend_path, _ in style_blend or ():
         validate_input_paths(paths.content_path, blend_path)
     validate_parameters(config.video.quality)
+    if check_spatial(config, mesh) and mesh is None:
+        return launch(
+            style_transfer, (paths, config),
+            config.hardware.spatial_shards, config.hardware.device,
+            kwargs={"style_blend": style_blend},
+        )
 
     # Final-only mode disables all timelapse outputs.
     if config.video.final_only:
@@ -551,7 +753,7 @@ def style_transfer(
             )
 
     bundle, input_img = prepare_model_and_input(
-        content, style, config, style_blend=blend_arrays,
+        content, style, config, style_blend=blend_arrays, mesh=mesh,
     )
     style_name = None
     if style_blend:
@@ -568,6 +770,7 @@ def style_transfer(
         style_name=style_name,
         chroma_source=_chroma_source(content, config, input_img.device),
         progress_bar=progress_bar,
+        mesh=mesh,
     )
     return result.image
 
@@ -601,6 +804,7 @@ def run_with_artifacts(
     chroma_source: torch.Tensor | None = None,
     progress_bar: ProgressReporter | None = None,
     final_name: str | None = None,
+    mesh: Mesh | None = None,
 ) -> ArtifactRunResult:
     """Drive a prepared update loop with the full artifact contract.
 
@@ -618,24 +822,33 @@ def run_with_artifacts(
     with the content's chrominance. ``config.output.resume_from``
     replaces ``input_img`` and ``opt_state`` with the checkpoint's and
     starts at its step (clamped to ``steps``); the loss CSV is then
-    appended to.
+    appended to. On a ``mesh`` ``input_img`` and ``opt_state`` are this
+    rank's rows: rank 0 alone opens the sinks and writes the files,
+    the others run the loop with it (``engine.runner``).
     """
     opt_cfg = config.optimization
     output_path = setup_output_directory(config.output.output)
     # Before any sink opens: a checkpoint that does not fit raises here.
-    input_img, opt_state, start_step = _resume(config, input_img, opt_state)
+    input_img, opt_state, start_step = _resume(
+        config, input_img, opt_state, mesh,
+    )
+    writes = mesh is None or mesh.is_root
     content_name = content_path.stem
     if style_name is None:
         style_name = style_path.stem
     video_name = f"timelapse_{content_name}_x_{style_name}.mp4"
     gif_name = f"timelapse_{content_name}_x_{style_name}.gif"
 
-    video_writer = encode.setup_video_writer(
-        config.video, output_path, video_name,
-    )
-    gif_collector = encode.setup_gif_collector(
-        config.video, output_path, gif_name,
-    )
+    video_writer = gif_collector = None
+    if writes:
+        video_writer = encode.setup_video_writer(
+            config.video, output_path, video_name,
+        )
+        gif_collector = encode.setup_gif_collector(
+            config.video, output_path, gif_name,
+        )
+    else:
+        progress_bar = SilentProgress()
     gif_segment_options = segments.GifSegmentOptions(
         sink=gif_collector,
         include_intro=config.video.gif_include_intro,
@@ -671,6 +884,7 @@ def run_with_artifacts(
         chroma_source=chroma_source,
         start_step=start_step,
         checkpoint_path=_checkpoint_path(config, output_path),
+        mesh=mesh,
     )
     # The optimized image must survive late media failures: every sink
     # is closed even when one fails, and the final PNG is saved before
@@ -718,7 +932,10 @@ def run_with_artifacts(
         chroma_source=chroma_source,
         final_name=final_name,
     )
-    save_outputs(input_img, loss_metrics, output_path, elapsed, save_opts)
+    if writes:
+        save_outputs(
+            input_img, loss_metrics, output_path, elapsed, save_opts,
+        )
     if close_errors:
         raise next(iter(close_errors.values()))
 
@@ -803,8 +1020,11 @@ def prepare_multi_style(
     single run's: ``preserve_color="match"`` recolors every style to
     the content first. The auto warm start is resolved against the
     content, as in :func:`prepare_model_and_input`. Returns the bundle
-    and the ``(S, 1, H, W, 3)`` starting images.
+    and the ``(S, 1, H, W, 3)`` starting images. ``spatial_shards > 1``
+    raises ``NotImplementedError``: the batch over cards waits for its
+    queue item (``parallel.mesh.BATCH_ITEM``).
     """
+    _refuse_sharded_batch(config)
     config.validate()
     opt = config.optimization
     device = setup_device(config.hardware.device)
@@ -868,6 +1088,17 @@ def prepare_multi_style(
     return bundle, images
 
 
+def _refuse_sharded_batch(config: StyleTransferConfig) -> None:
+    """Raise for a batch with ``spatial_shards > 1`` (not ported)."""
+    if config.hardware.spatial_shards > 1:
+        msg = (
+            "the multi-style batch with spatial_shards="
+            f"{config.hardware.spatial_shards} is not ported; it waits "
+            f"for {BATCH_ITEM}"
+        )
+        raise NotImplementedError(msg)
+
+
 def _multi_initial_images(
     params: Params,
     content_img: torch.Tensor,
@@ -906,6 +1137,7 @@ def multi_style_transfer(
     if not style_paths:
         msg = "multi_style_transfer requires at least one style path"
         raise ValueError(msg)
+    _refuse_sharded_batch(config)
     # The single run's final-only cascade.
     if config.video.final_only:
         config.video.create_video = False

@@ -653,7 +653,20 @@ def _launch_ieee(x, w9, b, apply_relu, mask) -> torch.Tensor:
     return out
 
 
-def _conv(x, w9, wk, b, apply_relu, mask, mode: Mode) -> torch.Tensor:
+def conv3x3_apply(
+    x: torch.Tensor,
+    w9: torch.Tensor,
+    wk: PackedStencil,
+    b: torch.Tensor | None,
+    apply_relu: bool,
+    mask: torch.Tensor | None,
+    mode: Mode,
+) -> torch.Tensor:
+    """One conv without autograd, by the tensor's device: ``mode``'s
+    kernel on a CUDA tensor (:func:`conv3x3_kernel` on the stencil the
+    mode reads), the plain version on a CPU one; any other device
+    raises. ``w9`` and its packed halves ``wk`` as in
+    :func:`conv3x3_bias_relu`."""
     if x.device.type == "cuda":
         return conv3x3_kernel(
             x, mode_stencil(mode, w9, wk), b, apply_relu, mask, mode,
@@ -671,7 +684,9 @@ class _Conv3x3Fn(torch.autograd.Function):
     ):
         """Run the conv in ``mode``; keep the output when the ReLU is
         fused."""
-        out = _conv(x.contiguous(), w9, wk, b, apply_relu, None, mode)
+        out = conv3x3_apply(
+            x.contiguous(), w9, wk, b, apply_relu, None, mode,
+        )
         ctx.apply_relu = apply_relu
         ctx.bwd_mode = bwd_mode
         ctx.save_for_backward(out if apply_relu else None, w9_flip, *wk_flip)
@@ -682,7 +697,7 @@ class _Conv3x3Fn(torch.autograd.Function):
         """Image gradient: the flipped conv of ``g`` masked by the ReLU,
         in the backward's mode."""
         out, w9_flip, *wk_flip = ctx.saved_tensors
-        dx = _conv(
+        dx = conv3x3_apply(
             g.contiguous(), w9_flip, tuple(wk_flip), None, False,
             out if ctx.apply_relu else None, ctx.bwd_mode,
         )

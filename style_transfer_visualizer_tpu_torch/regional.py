@@ -242,6 +242,16 @@ def stylize_regional(
     panels show the first style), loss CSV or history and plot,
     checkpoints and resume. Runs on ``config.hardware.device``.
     """
+    if config.hardware.spatial_shards > 1:
+        # The mask-weighted Grams have no sharded evaluation; running
+        # whole would not be the memory layout asked for.
+        msg = (
+            "--spatial-shards is not supported in regional (masked) "
+            "mode: the mask-weighted region Grams are evaluated "
+            "whole-image. Run without --spatial-shards (banded "
+            "evaluation auto-enables for 4K-class inputs)."
+        )
+        raise ValueError(msg)
     if len(style_paths) < _MIN_STYLES:
         msg = (
             "Regional transfer needs at least 2 --styles entries, got "

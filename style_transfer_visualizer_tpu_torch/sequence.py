@@ -23,6 +23,14 @@ an event recorded after it; the worker waits on that event, so the
 copy is ordered right after the frame's own steps and the next
 frame's kernels queue behind it. The one host read per frame is its
 final loss.
+
+``hardware.spatial_shards = N > 1`` splits every frame's rows over N
+processes (:func:`maybe_spatial_context`, :func:`spatial_frame_targets`,
+the JAX package's): the style Grams are made whole on every rank, each
+frame's content targets in rows, and the update is the row-sharded
+loss's. :func:`stylize_sequence` starts the ranks itself
+(``parallel.mesh.launch``); rank 0 makes frame 0's start and writes
+every file, each frame gathered to it after its steps.
 """
 from __future__ import annotations
 
@@ -57,6 +65,11 @@ from style_transfer_visualizer_tpu_torch.media.decode import (
     probe_video,
 )
 from style_transfer_visualizer_tpu_torch.media.stream import AsyncFrameStream
+from style_transfer_visualizer_tpu_torch.main import (
+    check_spatial,
+    sharded_content_feats,
+    spatial_loss,
+)
 from style_transfer_visualizer_tpu_torch.models.arch import get_architecture
 from style_transfer_visualizer_tpu_torch.models.features import (
     Targets,
@@ -73,6 +86,7 @@ from style_transfer_visualizer_tpu_torch.ops.lap import lap_response
 from style_transfer_visualizer_tpu_torch.ops.precision import (
     resolve_precision,
 )
+from style_transfer_visualizer_tpu_torch.parallel.mesh import Mesh, launch
 from style_transfer_visualizer_tpu_torch.runtime.device import (
     setup_device,
     setup_random_seed,
@@ -150,11 +164,88 @@ def discover_frames(frames_dir: str | Path) -> list[Path]:
     return frames
 
 
+@dataclass(frozen=True)
+class SpatialContext:
+    """A row-sharded sequence's or sweep's mesh and loss.
+
+    The single run's spatial path (``main._prepare_spatial``) for
+    frames: ``loss_fn`` is ``main.spatial_loss`` at the whole frame's
+    ``shape``.
+    """
+
+    mesh: Mesh
+    loss_fn: Callable
+    n_space: int
+    shape: tuple[int, ...]
+
+    @property
+    def rows_shape(self) -> tuple[int, ...]:
+        """The shape of one rank's rows of a frame."""
+        b, h, w, c = self.shape
+        return (b, h // self.n_space, w, c)
+
+
+def maybe_spatial_context(
+    config: StyleTransferConfig,
+    params: Params,
+    image_shape: tuple[int, ...],
+    mesh: Mesh | None,
+) -> SpatialContext | None:
+    """A :class:`SpatialContext` when ``spatial_shards > 1``, else None.
+
+    The frames run the mesh loss, so the memory layout asked for is
+    the one run; the divisibility checks raise here.
+    """
+    if not check_spatial(config, mesh):
+        return None
+    loss_fn = spatial_loss(config, params, image_shape, mesh)
+    logger.info("Spatial sharding: frame rows over %d ranks.", mesh.size)
+    return SpatialContext(
+        mesh=mesh, loss_fn=loss_fn, n_space=mesh.size,
+        shape=tuple(image_shape),
+    )
+
+
+def spatial_frame_targets(
+    spatial: SpatialContext,
+    params: Params,
+    content: torch.Tensor,
+    style_grams: dict[int, torch.Tensor],
+    config: StyleTransferConfig,
+) -> Targets:
+    """A sharded frame's targets: ``style_grams`` (replicated), the
+    content features of this rank's rows of the whole frame
+    ``content``, and with ``lap_w`` this rank's rows of the frame's
+    padded Laplacian target (``main.sharded_content_feats``)."""
+    return Targets(
+        style_grams=style_grams,
+        content_feats=sharded_content_feats(
+            config, params, content, spatial.mesh,
+        ),
+    )
+
+
+def spatial_start(spatial: SpatialContext | None, make_start):
+    """A frame's starting image: ``make_start()``, or on a mesh rank
+    0's ``make_start()`` handed to every rank, each keeping its rows.
+
+    ``make_start`` returns the whole image; on a mesh the other ranks
+    do not call it.
+    """
+    if spatial is None:
+        return make_start()
+    mesh = spatial.mesh
+    start = make_start() if mesh.is_root else None
+    like = torch.empty(spatial.shape, device=mesh.device)
+    return mesh.shard(mesh.broadcast(start, like=like))
+
+
 def build_targets_update(
     params: Params,
     image_shape: tuple[int, ...],
     cfg: StyleTransferConfig,
     loss_fn: Callable | None = None,
+    mesh: Mesh | None = None,
 ):
     """``(update, update_many, init_state, run_params)``, targets as
     arguments.
@@ -175,7 +266,9 @@ def build_targets_update(
     Laplacian. ``loss_fn(params, image, targets) -> (total, (style,
     content))`` replaces it (the regional run's); ``targets`` is then
     whatever that function takes. The default objective runs at
-    ``cfg.hardware.precision``, resolved here.
+    ``cfg.hardware.precision``, resolved here. With ``mesh`` (a
+    row-sharded ``loss_fn``) ``image_shape`` is one rank's rows and
+    ``update_many`` dispatches eagerly (``engine.step.EagerChunk``).
     """
     opt = cfg.optimization
     if loss_fn is None:
@@ -201,8 +294,9 @@ def build_targets_update(
         lbfgs_history_size=opt.lbfgs_history_size,
         lbfgs_history_dtype=opt.lbfgs_history_dtype,
         lbfgs_direction=opt.lbfgs_direction,
+        mesh=mesh,
     )
-    return update, chunked(update), init_state, params
+    return update, chunked(update, mesh), init_state, params
 
 
 def _resolve_frame_source(
@@ -294,6 +388,7 @@ def stylize_sequence(
     output_fps: float | None = None,
     max_frames: int | None = None,
     frame_stride: int = 1,
+    mesh: Mesh | None = None,
 ) -> SequenceResult:
     """Stylize every frame of ``frames_dir`` against one style image.
 
@@ -316,9 +411,23 @@ def stylize_sequence(
     ``preserve_color="match"`` remaps the styles onto frame 0's colors;
     ``"luminance"`` recolors each stylized frame with its own source
     frame's chrominance. ``params`` reuses weights already on the
-    run's device. Runs on ``config.hardware.device``.
+    run's device. Runs on ``config.hardware.device``. With
+    ``spatial_shards > 1`` and no ``mesh`` it starts the ranks (each
+    loads its own weights; ``params`` stays here) and returns rank 0's
+    result; with a ``mesh`` it is that rank's part.
     """
     config.validate()
+    if check_spatial(config, mesh) and mesh is None:
+        return launch(
+            stylize_sequence, (frames_dir, style_path, config, output_dir),
+            config.hardware.spatial_shards, config.hardware.device,
+            kwargs={
+                "assemble_gif": assemble_gif, "style_blend": style_blend,
+                "output_video": output_video, "output_fps": output_fps,
+                "max_frames": max_frames, "frame_stride": frame_stride,
+            },
+        )
+    writes = mesh is None or mesh.is_root
     opt = config.optimization
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
@@ -327,7 +436,10 @@ def stylize_sequence(
         max_frames=max_frames, frame_stride=frame_stride,
     )
     try:
-        device = setup_device(config.hardware.device)
+        device = (
+            mesh.device if mesh is not None
+            else setup_device(config.hardware.device)
+        )
         generator = setup_random_seed(opt.seed, device)
         if params is None:
             params = load_pretrained_params(
@@ -354,8 +466,16 @@ def stylize_sequence(
         first_content = image_io.host_array_to_device(
             first_host, device, normalize=opt.normalize,
         )
+        spatial = maybe_spatial_context(
+            config, params, tuple(first_content.shape), mesh,
+        )
         _, update_many, init_state, run_params = build_targets_update(
-            params, tuple(first_content.shape), config,
+            params,
+            tuple(first_content.shape) if spatial is None
+            else spatial.rows_shape,
+            config,
+            loss_fn=None if spatial is None else spatial.loss_fn,
+            mesh=mesh,
         )
         style_layers = tuple(opt.style_layers)
         # The style Grams are the clip's: made once; each frame makes
@@ -367,7 +487,8 @@ def stylize_sequence(
                 precision,
             ),
             style_img,
-            tuple(opt.content_layers),
+            # A sharded run takes every frame's features in rows.
+            tuple(opt.content_layers) if spatial is None else (),
             blend_imgs,
         )
         outputs, frame_seconds, frame_losses, total_steps = _stylize_frames(
@@ -375,19 +496,19 @@ def stylize_sequence(
             update_many, init_state, run_params,
             style_img=style_img, blend_imgs=blend_imgs,
             generator=generator, output_dir=output_dir,
-            first_host=first_host,
+            first_host=first_host, spatial=spatial,
         )
     finally:
         if extracted_dir is not None:
             shutil.rmtree(extracted_dir, ignore_errors=True)
 
-    if assemble_gif and outputs:
+    if assemble_gif and outputs and writes:
         gif_path = output_dir / "stylized_sequence.gif"
         _append_png_frames(
             encode.GifFrameCollector(gif_path, config.video.fps), outputs,
         )
         logger.info("Sequence GIF saved to: %s", gif_path)
-    if output_video and outputs:
+    if output_video and outputs and writes:
         fps = output_fps or source_fps or float(config.video.fps)
         assemble_output_video(
             outputs, output_dir / output_video, fps, config,
@@ -486,12 +607,14 @@ def _stylize_frames(
     generator: torch.Generator,
     output_dir: Path,
     first_host: np.ndarray,
+    spatial: SpatialContext | None = None,
 ) -> tuple[list[Path], list[float], list[float], int]:
     """The per-frame warm-start loop; returns the run's telemetry.
 
     ``first_host``, frame 0 as a (1, H, W, 3) [0, 1] host array, is
     also the ``preserve_color="luminance"`` chrominance of frame 0;
-    each later frame's is its own.
+    each later frame's is its own. With ``spatial`` the image is this
+    rank's rows; each frame is gathered to rank 0, which saves it.
     """
     opt = config.optimization
     device = first_content.device
@@ -529,14 +652,22 @@ def _stylize_frames(
                     f"first ({tuple(first_content.shape)})"
                 )
                 raise ValueError(msg)
-            targets = _frame_targets(
-                run_params, content, base_targets, config, first=i == 0,
-            )
-            if x is None:
-                x = _first_image(
-                    run_params, content, config, style_img=style_img,
-                    blend_imgs=blend_imgs, generator=generator,
+            if spatial is None:
+                targets = _frame_targets(
+                    run_params, content, base_targets, config, first=i == 0,
                 )
+            else:
+                targets = spatial_frame_targets(
+                    spatial, run_params, content, base_targets.style_grams,
+                    config,
+                )
+            if x is None:
+                x = spatial_start(spatial, lambda content=content: (
+                    _first_image(
+                        run_params, content, config, style_img=style_img,
+                        blend_imgs=blend_imgs, generator=generator,
+                    )
+                ))
             # else: the warm start, x carried over from the last frame.
             # The captured step reads its targets and state where they
             # are: this frame's targets are copied into those held,
@@ -550,6 +681,7 @@ def _stylize_frames(
             total_steps += opt.steps
 
             out_path = output_dir / f"stylized_{frame_path.stem}.png"
+            whole = x if spatial is None else spatial.mesh.gather(x)
             chroma = (
                 image_io.host_array_to_device(content_host, device)
                 if keep_luminance
@@ -557,17 +689,18 @@ def _stylize_frames(
             )
             # A fresh uint8 tensor that no later step writes, copied to
             # the host behind this frame's steps.
-            saver.submit(
-                image_io.pack_uint8_frame(
-                    maybe_restore_color(
-                        image_io.prepare_image_for_output(
-                            x, normalize=opt.normalize,
+            if spatial is None or spatial.mesh.is_root:
+                saver.submit(
+                    image_io.pack_uint8_frame(
+                        maybe_restore_color(
+                            image_io.prepare_image_for_output(
+                                whole, normalize=opt.normalize,
+                            ),
+                            chroma,
                         ),
-                        chroma,
                     ),
-                ),
-                _png_writer(out_path),
-            )
+                    _png_writer(out_path),
+                )
             outputs.append(out_path)
             # The frame's one host read: it waits for this frame's
             # device work, so the frame time is the critical path.

@@ -8,9 +8,9 @@ names and help:
 
 ``--config`` loads a TOML in the JAX package's layout under the typed
 flags (a flag the user did not type is absent, ``argparse.SUPPRESS``),
-as ``cli.py`` does. ``--precision`` takes the four tiers. ``--spatial-shards``
-is accepted only at its JAX default (1): each other value exits naming
-the ROADMAP.md item it waits for (``config._UNPORTED``).
+as ``cli.py`` does. ``--precision`` takes the four tiers;
+``--spatial-shards N`` splits each frame's rows over N processes
+(``parallel/spatial.py``), one card each.
 The run is ``sequence.stylize_sequence`` on ``--device`` (``cuda`` by
 default).
 """
@@ -26,16 +26,10 @@ from style_transfer_visualizer_tpu_torch.cli import (
     _parse_blend_weights,
     config_from_args,
 )
-from style_transfer_visualizer_tpu_torch.config import (
-    ConfigLoader,
-    check_unported,
-)
+from style_transfer_visualizer_tpu_torch.config import ConfigLoader
 from style_transfer_visualizer_tpu_torch.ops.precision import PRECISION_NAMES
 from style_transfer_visualizer_tpu_torch.sequence import stylize_sequence
 from style_transfer_visualizer_tpu_torch.utils.logging import logger
-
-# Flags of JAX fields the port lacks: (flag dest, config section).
-_UNPORTED_FLAGS = (("spatial_shards", "hardware"),)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -151,8 +145,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default=s)
     p.add_argument(
         "--spatial-shards", dest="spatial_shards", type=int, default=s,
-        help="Shard each frame's rows over N devices; the port takes "
-             "only 1 (not ported: ROADMAP.md, 'Spatial and dp×sp')",
+        help="Shard each frame's rows over N processes, one card each "
+             "(halo-exchange convs, Gram partials summed over NCCL); "
+             "frame heights must divide N * 2^pools (see "
+             "style-visualizer-torch --help)",
     )
     p.add_argument(
         "--precision", choices=list(PRECISION_NAMES), default=s,
@@ -225,9 +221,6 @@ def main(argv: Sequence[str] | None = None) -> int:
     style_path, style_blend = _style_choice(args)
     typed = vars(args)
     try:
-        for key, section in _UNPORTED_FLAGS:
-            if key in typed:
-                check_unported(section, key, typed[key])
         base = ConfigLoader.load(args.config) if args.config else None
         config = config_from_args(args, base)
     except (OSError, ValueError, NotImplementedError) as exc:

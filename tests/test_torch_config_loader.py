@@ -399,7 +399,7 @@ def test_validate_config_only_runs_nothing(tmp_path, monkeypatch) -> None:
     with pytest.raises(SystemExit) as exc:
         cli.main(["--validate-config-only"])
     assert exc.value.code == 2
-    bad = _write(tmp_path, "[hardware]\nspatial_shards = 2\n", "bad.toml")
+    bad = _write(tmp_path, '[hardware]\nconv_backend = "pallas"\n', "bad.toml")
     with pytest.raises(SystemExit) as exc:
         cli.main(["--config", str(bad), "--validate-config-only"])
     assert exc.value.code == 2

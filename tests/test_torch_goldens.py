@@ -1,7 +1,8 @@
 """The port's single run end to end on the golden corpus, on the CPU.
 
 For the ``single``, ``coarse``, ``banded`` (``tile_rows=16``: four
-bands), ``blend``, ``vgg16`` and ``preserve_luminance`` modes of
+bands), ``sharded`` (``spatial_shards=2``: two row shards), ``blend``,
+``vgg16`` and ``preserve_luminance`` modes of
 ``tests/goldens_lib.py``, the port's
 ``main.style_transfer`` runs on ``goldens_lib.write_inputs`` with
 ``goldens_lib``'s configuration (Adam, 3 steps, taps [0, 5]/[2], content
@@ -57,11 +58,15 @@ _BASE = {
     "seed": goldens_lib.SEED, "allow_random_weights": True,
     "coarse_steps": 0,
 }
-#: mode -> (optimization overrides, blended)
+#: mode -> (optimization overrides, blended); a ``spatial_shards``
+#: entry goes to the hardware section (both packages split the rows
+#: over 2: the JAX package's virtual CPU devices, the port's gloo
+#: ranks)
 MODES = {
     "single": ({}, False),
     "coarse": ({"coarse_steps": 2}, False),
     "banded": ({"tile_rows": 16}, False),
+    "sharded": ({"spatial_shards": 2}, False),
     "blend": ({}, True),
     "vgg16": (
         {"model": "vgg16", "style_layers": [0, 5, 10],
@@ -79,16 +84,21 @@ def golden_inputs(tmp_path, monkeypatch):
 
 
 def _port_config(out: Path, opt: dict, video: dict, output: dict):
+    opt = dict(opt)
+    shards = opt.pop("spatial_shards", 1)
     return StyleTransferConfig(
         output=OutputConfig(output=str(out), plot_losses=False, **output),
         optimization=OptimizationConfig(**{**_BASE, **opt}),
         video=VideoConfig(**video),
-        hardware=HardwareConfig(device="cpu"),
+        hardware=HardwareConfig(device="cpu", spatial_shards=shards),
     )
 
 
 def _jax_config(out: Path, opt: dict, video: dict, output: dict):
+    opt = dict(opt)
+    shards = opt.pop("spatial_shards", 1)
     cfg = goldens_lib._config(out, **opt)  # noqa: SLF001 - the corpus's own
+    cfg.hardware.spatial_shards = shards
     cfg.video = type(cfg.video).model_validate(video)
     for key, value in output.items():
         setattr(cfg.output, key, value)

@@ -21,8 +21,8 @@ On the CPU, with the same seeded weights and numpy inputs:
   loss), with the shipped L-BFGS and a random start;
 - assembly (GIF, ``--output-video``) and the JAX refusals;
 - ``style-sequence-torch`` flag for flag against the JAX package's
-  ``style-sequence``, and ``--precision``/``--spatial-shards`` refused
-  off their JAX defaults, naming the ROADMAP.md item.
+  ``style-sequence``, and ``--precision``/``--spatial-shards`` off
+  their JAX defaults reaching the run's config.
 """
 from __future__ import annotations
 
@@ -500,9 +500,9 @@ def test_sequence_cli_refuses_unported_values(
     capsys, monkeypatch, flag, item,
 ) -> None:
     argv = ["--frames", "fr", "--style", "s.png", *flag]
-    if flag[0] == "--precision":
-        # Ported since (the precision tiers): the value reaches the
-        # config the run gets.
+    if flag[0] in ("--precision", "--spatial-shards"):
+        # Ported since (the precision tiers; row-sharded evaluation):
+        # the value reaches the config the run gets.
         seen = {}
         monkeypatch.setattr(
             sequence_cli, "stylize_sequence",
@@ -511,7 +511,8 @@ def test_sequence_cli_refuses_unported_values(
             )[1],
         )
         assert sequence_cli.main(argv) == 0
-        assert seen["r"][0].hardware.precision == flag[1]
+        key = flag[0].removeprefix("--").replace("-", "_")
+        assert str(getattr(seen["r"][0].hardware, key)) == flag[1]
         return
     with pytest.raises(SystemExit) as exc:
         sequence_cli.main(argv)
