@@ -8,6 +8,8 @@
     python3 chip_smoke.py --ieee-gram-shapes
     python3 chip_smoke.py --spatial
     python3 chip_smoke.py --spatial-cards
+    python3 chip_smoke.py --batch-mesh
+    python3 chip_smoke.py --batch-cards
 
 The third form builds the kernels and runs only the kernel-mode check
 (phase 4b below) and what ``mixed`` moves to IEEE fp32 (the end of
@@ -22,7 +24,10 @@ alone and at S = 4 in one launch (kernel ms against ``torch.mm`` /
 calls alone, so that an older tree's kernel is timed by the same
 lines. The seventh builds and runs only the spatial phase and its
 kernel check (12f, 12g below); the eighth only the phase, with NCCL
-ranks one card each (it needs 4 cards). The second form runs two graphed A/Bs
+ranks one card each (it needs 4 cards). The ninth builds and runs only
+the batch-over-cards phase and its kernel check (12h, 12i below); the
+tenth only the phase, with NCCL ranks one card each (it needs 4
+cards), with 10-step runs for the rates. The second form runs two graphed A/Bs
 alone, rounds interleaved, and checks nothing else:
 ``steps_per_dispatch`` 1 against 0 (one dispatch of 25) on the
 512x512 main path through the runner and on the S = 4 batch with a
@@ -198,6 +203,29 @@ exits non-zero:
    the halo'd shard (rows + 2), forward without ReLU and the input
    gradient without mask, the raw Gram of each style tap's shard rows
    and its gradient; timed (``spatial_2x2048``, ``spatial_4x1024``);
+12h. batch cards: the multi-style batch over a style x space mesh
+   (``main.prepare_multi_style`` and ``main.run_multi_style_loop``
+   with each rank's mesh; ``parallel.spatial.build_dp_sp_update`` on a
+   style row of several ranks), every rank on this one card with gloo
+   between them: S = 4 styles (the batch phase's) at 1024x1024 on a
+   2 (style) x 2 (space) mesh, then at 512x512 on a 4 x 1 mesh,
+   shipped defaults. Against the single-card S = 4 batch on
+   ``cuda:0``: each style's step-0 loss (1e-5) and gradient (1e-4 of
+   its largest magnitude), each style's 3 L-BFGS steps within
+   ``max(control, 1e-3)`` (the control: the largest error of the
+   batch from content perturbed by 1e-7, four perturbations); each
+   rank's launches by kernel and mode, its
+   counts set to 0 just before its run and read just after, equal to
+   the policy's for a batch of its S_local styles
+   (``_batch_policy_launches``); at 4 x 1, 5 Adam steps at lr 0.05
+   each style's image bit-equal to the single-card batch's; each
+   rank's own peak and ms/step (a correctness run, not a rate);
+12i. batch cards kernels: both kernels at a 2 x 2 rank's shapes at
+   1024x1024 in every mode against their plain versions within 1e-4:
+   the conv on the halo'd shard of its 2 styles, ``(2, 514, 1024,
+   C)`` and the deeper stages, forward and input gradient; the
+   batched raw Gram ``(2, P_shard, C)`` of each style tap in one
+   launch and its gradient; timed (``batch_2x2_1024``);
 13. sweep: ``blend_sweep.stylize_blend_sweep`` at 512x512 on
    full-width VGG19, 3 styles, 5 frames, the shipped L-BFGS with 20
    steps for frame 0 and 10 for each later frame (60 steps): launches
@@ -271,8 +299,9 @@ phase's step at S = 4 under ``n4_512`` (conv) and ``batched_s4_512``
 (Gram), for the 2048x2048 level's first shapes under
 ``level_2048_first``, for a 1280x720 frame's step under
 ``at_720p``, for a 4K band's first window under
-``band_4k_first``, and for one rank's step of 12f under
-``spatial_2x2048`` and ``spatial_4x1024``). The conv and Gram entries
+``band_4k_first``, for one rank's step of 12f under
+``spatial_2x2048`` and ``spatial_4x1024``, and for one rank's step of
+12h's 2 x 2 mesh under ``batch_2x2_1024``). The conv and Gram entries
 are their 3xTF32 kernels;
 ``conv3x3_ieee``, ``conv3x3_tf32``, ``gram_ieee`` and ``gram_tf32``
 the other modes, with the same keys; each entry's ``launches`` is its
@@ -358,6 +387,7 @@ from style_transfer_visualizer_tpu_torch.media import encode, segments
 from style_transfer_visualizer_tpu_torch.models.arch import VGG16, VGG19
 from style_transfer_visualizer_tpu_torch.models.features import (
     Targets,
+    batched_total_loss,
     blend_targets,
     compute_targets,
 )
@@ -381,6 +411,9 @@ from style_transfer_visualizer_tpu_torch.ops.precision import (
 from style_transfer_visualizer_tpu_torch.ops.tf32 import round_tf32
 from style_transfer_visualizer_tpu_torch.parallel import spatial
 from style_transfer_visualizer_tpu_torch.parallel.mesh import launch
+from style_transfer_visualizer_tpu_torch.parallel.multistyle import (
+    multi_style_targets,
+)
 from style_transfer_visualizer_tpu_torch.runtime.checkpoint import (
     load_checkpoint,
     save_checkpoint,
@@ -2927,6 +2960,58 @@ def _spatial_conv_shapes(ranks: int, side: int):
     return out
 
 
+def _check_halo_convs(
+    conv_rec: Record, mode: str, n: int, ranks: int, side: int,
+    gen: torch.Generator, what: str,
+) -> None:
+    """The conv in ``mode`` at each halo'd shard shape of ``ranks`` x
+    ``side`` (``_spatial_conv_shapes``) at a batch of ``n``: forward
+    (conv + bias, no ReLU: the sharded path applies it after the crop)
+    and input gradient (no mask), each within 1e-4 of the plain
+    version, timed beside it and cuDNN, and summed over a rank's step
+    (each conv forward and backward) into ``conv_rec``."""
+    kern = partial(conv3x3.conv3x3_kernel, mode=mode)
+    plain = partial(conv3x3.conv3x3_plain, mode=mode)
+    for rows, width, ci, co, count in _spatial_conv_shapes(ranks, side):
+        x = torch.randn((n, rows, width, ci), generator=gen, device="cuda")
+        w9 = torch.randn((9, ci, co), generator=gen,
+                         device="cuda") * ((2.0 / (9 * ci)) ** 0.5)
+        b = 0.1 * torch.randn((co,), generator=gen, device="cuda")
+        g = torch.randn((n, rows, width, co), generator=gen, device="cuda")
+        w9f = flip_stencil(w9)
+        st = conv3x3.mode_stencil(mode, w9, pack_stencil(w9))
+        stf = conv3x3.mode_stencil(mode, w9f, pack_stencil(w9f))
+        label = f"{what} {n}x{rows}x{width} {ci}->{co} {mode}"
+        conv_rec.err(kern(x, st, b, False), plain(x, w9, b, False),
+                     f"{label} forward")
+        conv_rec.err(kern(g, stf, None, False), plain(g, w9f, None, False),
+                     f"{label} input gradient")
+        w_oihw, wf_oihw = (
+            s.reshape(3, 3, *s.shape[1:]).permute(3, 2, 0, 1).contiguous()
+            for s in (w9, w9f)
+        )
+        fwd = tuple(map(_few_ms, (
+            partial(kern, x, st, b, False),
+            partial(plain, x, w9, b, False),
+            _library(mode, partial(
+                F.conv2d, x.permute(0, 3, 1, 2), w_oihw, b, padding=1,
+            )),
+        )))
+        bwd = tuple(map(_few_ms, (
+            partial(kern, g, stf, None, False),
+            partial(plain, g, w9f, None, False),
+            _library(mode, partial(
+                F.conv2d, g.permute(0, 3, 1, 2), wf_oihw, None, padding=1,
+            )),
+        )))
+        pix = n * rows * width
+        flops = 2.0 * 9 * pix * ci * co
+        nbytes = 4.0 * (pix * (ci + co) + 9 * ci * co)
+        conv_rec.add(count, *fwd, flops, nbytes + 4.0 * co)
+        conv_rec.add(count, *bwd, flops, nbytes)
+        del x, g
+
+
 def _check_spatial_kernels(recs: dict[str, dict[str, Record]]) -> None:
     """Both kernels at a rank's shapes of ``SPATIAL_RUNS``, every mode.
 
@@ -2945,53 +3030,9 @@ def _check_spatial_kernels(recs: dict[str, dict[str, Record]]) -> None:
         key = f"{ranks}x{side}"
         for mode in MODES:
             conv_rec, gram_rec = recs[mode][key]
-            kern = partial(conv3x3.conv3x3_kernel, mode=mode)
-            plain = partial(conv3x3.conv3x3_plain, mode=mode)
-            for rows, width, ci, co, count in _spatial_conv_shapes(
-                ranks, side,
-            ):
-                x = torch.randn((1, rows, width, ci), generator=gen,
-                                device="cuda")
-                w9 = torch.randn((9, ci, co), generator=gen,
-                                 device="cuda") * ((2.0 / (9 * ci)) ** 0.5)
-                b = 0.1 * torch.randn((co,), generator=gen, device="cuda")
-                g = torch.randn((1, rows, width, co), generator=gen,
-                                device="cuda")
-                w9f = flip_stencil(w9)
-                st = conv3x3.mode_stencil(mode, w9, pack_stencil(w9))
-                stf = conv3x3.mode_stencil(mode, w9f, pack_stencil(w9f))
-                label = f"spatial {key} 1x{rows}x{width} {ci}->{co} {mode}"
-                conv_rec.err(kern(x, st, b, False), plain(x, w9, b, False),
-                             f"{label} forward")
-                conv_rec.err(kern(g, stf, None, False),
-                             plain(g, w9f, None, False),
-                             f"{label} input gradient")
-                w_oihw, wf_oihw = (
-                    s.reshape(3, 3, *s.shape[1:]).permute(3, 2, 0, 1)
-                    .contiguous() for s in (w9, w9f)
-                )
-                fwd = tuple(map(_few_ms, (
-                    partial(kern, x, st, b, False),
-                    partial(plain, x, w9, b, False),
-                    _library(mode, partial(
-                        F.conv2d, x.permute(0, 3, 1, 2), w_oihw, b,
-                        padding=1,
-                    )),
-                )))
-                bwd = tuple(map(_few_ms, (
-                    partial(kern, g, stf, None, False),
-                    partial(plain, g, w9f, None, False),
-                    _library(mode, partial(
-                        F.conv2d, g.permute(0, 3, 1, 2), wf_oihw, None,
-                        padding=1,
-                    )),
-                )))
-                pix = rows * width
-                flops = 2.0 * 9 * pix * ci * co
-                nbytes = 4.0 * (pix * (ci + co) + 9 * ci * co)
-                conv_rec.add(count, *fwd, flops, nbytes + 4.0 * co)
-                conv_rec.add(count, *bwd, flops, nbytes)
-                del x, g
+            _check_halo_convs(
+                conv_rec, mode, 1, ranks, side, gen, f"spatial {key}",
+            )
             for p512, c in GRAM_SHAPES:
                 p = p512 * (side // SIZE) ** 2 // ranks
                 f = torch.randn((1, p, 1, c), generator=gen, device="cuda")
@@ -3028,6 +3069,429 @@ def _check_spatial_kernels(recs: dict[str, dict[str, Record]]) -> None:
             f"shard Gram taps, forward and backward, in {MODES}, within "
             f"{TOL} of their plain versions",
         )
+
+
+#: The batch over cards: (style rows, space ranks, side), S = 4 each.
+BATCH_CARD_RUNS = ((2, 2, 1024), (4, 1, 512))
+#: The kernel shapes of one rank of the 2 x 2 mesh at 1024x1024.
+BATCH_CARD_KEY = "batch_2x2_1024"
+BATCH_CARD_STYLES = 4
+BATCH_CARD_STEPS = 3
+BATCH_CARD_ADAM_STEPS = 5
+#: The perturbed-content runs whose largest curve error is the control:
+#: at S = 4 on noise styles the shipped L-BFGS's third step reads a
+#: curvature pair from two nearly equal gradients, so one perturbation
+#: samples its spread too thinly.
+BATCH_CARD_CONTROL_SEEDS = (9, 10, 11, 12)
+#: Steps of the timed runs of ``--batch-cards`` (NCCL, one card a rank).
+BATCH_CARD_TIMED_STEPS = 10
+
+
+def _batch_card_inputs(side: int):
+    """Seeded ``side`` x ``side`` content, the batch phase's 4 styles
+    (one 384x640) and step 0's noise, made alike in the script and in
+    every rank."""
+    content = np.random.default_rng(21).uniform(
+        size=(1, side, side, 3),
+    ).astype(np.float32)
+    noise = np.random.default_rng(6).standard_normal(
+        (BATCH_CARD_STYLES, 1, side, side, 3),
+    ).astype(np.float32)
+    return content, _style_arrays(BATCH_CARD_STYLES), noise
+
+
+def _batch_card_config(steps: int, shards: int, device: str = "cuda",
+                       **opt):
+    """Shipped defaults (``mixed``, L-BFGS, compact, bf16 ring), no
+    warm start, no media; ``device`` ``cuda:0`` keeps a batch on the
+    first card whatever the machine holds."""
+    config = _band_config(steps, 0, **opt)
+    config.hardware.device = device
+    config.hardware.spatial_shards = shards
+    config.output.plot_losses = False
+    config.video.create_gif = config.video.create_video = False
+    return config
+
+
+def _batch_step0(params, content, styles, noise, mesh=None):
+    """Each style's step-0 loss and whole gradient at the content plus
+    0.1 of its own noise (normalized): the single-card batch's
+    objective, or a rank's: a style axis alone runs the batch's
+    objective on its styles; a style row of several ranks the dp x sp
+    one (Grams whole, content targets in rows). Gathered whole."""
+    precision = resolve_precision("mixed")
+    opt = _batch_card_config(1, 1).optimization
+    sl, cl = tuple(opt.style_layers), tuple(opt.content_layers)
+    device = params[0]["w9"].device
+    content_img = image_io.host_array_to_device(content, device,
+                                                normalize=True)
+    start = content_img[None] + 0.1 * torch.from_numpy(noise).to(device)
+    lo, hi = (0, len(styles)) if mesh is None else mesh.styles(len(styles))
+    style_imgs = [
+        image_io.host_array_to_device(s, device, normalize=True)
+        for s in styles[lo:hi]
+    ]
+    if mesh is None or mesh.size == 1:
+        targets = multi_style_targets(
+            params, content_img, style_imgs, sl, cl, precision,
+        )
+        x = start[lo:hi].contiguous().requires_grad_(True)
+        total, _ = batched_total_loss(
+            params, x.flatten(0, 1), targets, opt.style_w, opt.content_w,
+            sl, cl, None, precision,
+        )
+    else:
+        rows = mesh.shard(content_img)
+        feats = spatial.compute_sharded_targets(
+            mesh, params, rows, rows, (), cl, precision=precision,
+        ).content_feats
+        targets = Targets(
+            style_grams=multi_style_targets(
+                params, content_img, style_imgs, sl, (), precision,
+            ).style_grams,
+            content_feats={
+                k: f.expand(hi - lo, *f.shape) for k, f in feats.items()
+            },
+        )
+        loss_fn = spatial.make_spatial_loss(
+            mesh, tuple(content_img.shape), style_w=opt.style_w,
+            content_w=opt.content_w, style_layers=sl, content_layers=cl,
+            precision=precision, per_image=True,
+        )
+        x = mesh.shard(start[lo:hi], 2).requires_grad_(True)
+        total, _ = loss_fn(params, x.flatten(0, 1), targets)
+    (grad,) = torch.autograd.grad(total.sum(), x)
+    total = total.detach()
+    if mesh is not None:
+        grad = mesh.gather_styles(mesh.gather(grad.contiguous(), 2))
+        total = mesh.gather_styles(total)
+    return total.cpu(), grad.cpu()
+
+
+def _batch_card_run(content, styles, config, mesh=None):
+    """``prepare_multi_style`` and ``run_multi_style_loop`` (with
+    ``mesh``: this rank's part): the ``(steps, S)`` losses and the
+    whole final images."""
+    bundle, images = prepare_multi_style(content, styles, config, mesh=mesh)
+    losses: list[torch.Tensor] = []
+    images, _, errors = run_multi_style_loop(
+        bundle, images, config,
+        Path(__file__).resolve().parent / PACKAGE / "build" / "batch_cards",
+        [f"s{i}" for i in range(len(styles))],
+        progress_bar=_Progress(),
+        on_step_end=lambda _s, _i, aux: losses.append(aux.loss),
+        mesh=mesh,
+    )
+    if errors:
+        raise errors[0]
+    curve = torch.stack(losses)
+    if mesh is not None:
+        curve = mesh.gather_styles(curve, dim=1)
+    return curve.cpu().numpy(), images
+
+
+def _batch_card_rank(side: int, timed: bool, *, mesh) -> dict:
+    """One rank of the batch-over-cards phase (spawned by
+    ``parallel.mesh.launch``): step 0, then ``BATCH_CARD_STEPS``
+    L-BFGS steps with this rank's launch counts set to 0 just before
+    and read just after, its own peak and ms/step; on a style axis
+    alone also ``BATCH_CARD_ADAM_STEPS`` Adam steps; with ``timed`` a
+    ``BATCH_CARD_TIMED_STEPS`` run for the rate. World rank 0 returns
+    every rank's counts, peak and ms/step."""
+    content, styles, noise = _batch_card_inputs(side)
+    params = load_pretrained_params(mesh.device, allow_random=True, seed=0)
+    loss0, grad0 = _batch_step0(params, content, styles, noise, mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    conv3x3.launches.reset()
+    gram.launches.reset()
+    torch.cuda.synchronize()
+    with _dispatch_log() as log:
+        curve, images = _batch_card_run(
+            content, styles, _batch_card_config(BATCH_CARD_STEPS, mesh.size),
+            mesh,
+        )
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    counts = [
+        float(v) for counter in (conv3x3.launches, gram.launches)
+        for v in counter.launched_by_mode().values()
+    ]
+    ms = log.ms_per_step()
+    if timed:
+        with _dispatch_log() as log:
+            _batch_card_run(content, styles, _batch_card_config(
+                BATCH_CARD_TIMED_STEPS, mesh.size,
+            ), mesh)
+        ms = log.ms_per_step()
+    mine = torch.tensor(
+        [[[*counts, float(peak), ms]]], dtype=torch.float64,
+        device=mesh.device,
+    )
+    out = {
+        "loss0": loss0, "grad0": grad0, "curve": curve,
+        "finite": bool(torch.isfinite(images).all()),
+        "shape": tuple(images.shape),
+        "per_rank": mesh.gather_styles(mesh.gather(mine, 1))
+        .reshape(-1, mine.shape[-1]).cpu().numpy(),
+    }
+    if mesh.size == 1:
+        _, adam = _batch_card_run(content, styles, _batch_card_config(
+            BATCH_CARD_ADAM_STEPS, 1, optimizer="adam", lr=GATE_LR,
+        ), mesh)
+        out["adam"] = adam.cpu()
+    return out
+
+
+def _batch_policy_launches(opt, tier: str, n_styles: int):
+    """``_policy_launches`` of a batch of ``n_styles`` on one rank: a
+    style sweep per style (one Gram a style tap each), the content sweep
+    once, and each step's convs and Grams once for the whole batch."""
+    want = _policy_launches(VGG19, opt, tier)
+    prec = resolve_precision(tier)
+    last_style = max(opt.style_layers)
+    for idx in VGG19.conv_indices:
+        if idx <= last_style:
+            mode = kernel_mode(conv_precision(prec, idx))
+            want["conv3x3"][mode] += n_styles - 1
+    want["gram"][kernel_mode(gram_precision(prec))] += (
+        len(opt.style_layers) * (n_styles - 1)
+    )
+    return want
+
+
+def _batch_cards(share_card: bool = True) -> tuple[int, int]:
+    """The multi-style batch over a style x space mesh.
+
+    S = 4 styles, shipped defaults: at 1024x1024 on a 2 (style) x 2
+    (space) mesh and at 512x512 on a 4 x 1 mesh, every rank on this one
+    card with gloo between them (``launch(share_card=True)``), or with
+    ``share_card=False`` NCCL ranks, one card a rank. Against the
+    single-card S = 4 batch on ``cuda:0``: each style's step-0 loss
+    (1e-5) and gradient (1e-4 of its largest magnitude); 3 L-BFGS steps
+    per style within ``max(control, 1e-3)``, the control the largest
+    error of the batch from content perturbed by 1e-7 relative
+    (``BATCH_CARD_CONTROL_SEEDS``); each rank's launches by kernel
+    and mode, its counts set to 0 just before its run and read just
+    after, equal to the policy's for its S_local
+    (``_batch_policy_launches``; at 2 x 2 the halo'd shapes); at 4 x 1
+    5 Adam steps (lr 0.05) each style's image bit-equal to the
+    single-card batch's (the kernels are per image); each rank's own
+    peak and ms/step. With NCCL, a 10-step run of each for the rate.
+    Returns world rank 0's conv and Gram launches at 2 x 2.
+    """
+    lines = []
+    failures: list[str] = []
+    launches = None
+    timed = not share_card
+    for n_style, n_space, side in BATCH_CARD_RUNS:
+        label = f"batch cards {n_style}x{n_space} {side}x{side}"
+        content, styles, noise = _batch_card_inputs(side)
+        params = load_pretrained_params(
+            torch.device("cuda", 0), allow_random=True, seed=0,
+        )
+        loss_w, grad_w = _batch_step0(params, content, styles, noise)
+        del params
+        curves = {}
+        runs = [("whole", content)] + [
+            (f"nudged {seed}", (content * (
+                1 + 1e-7 * np.random.default_rng(seed)
+                .standard_normal(content.shape)
+            )).astype(np.float32))
+            for seed in BATCH_CARD_CONTROL_SEEDS
+        ]
+        for name, image in runs:
+            before = _fresh_peak()
+            with _dispatch_log() as log:
+                curves[name], _ = _batch_card_run(
+                    image, styles, _batch_card_config(
+                        BATCH_CARD_STEPS, 1, "cuda:0",
+                    ),
+                )
+            if name == "whole":
+                whole_ms = log.ms_per_step()
+                whole_peak = torch.cuda.max_memory_allocated() - before
+        if timed:
+            with _dispatch_log() as log:
+                _batch_card_run(content, styles, _batch_card_config(
+                    BATCH_CARD_TIMED_STEPS, 1, "cuda:0",
+                ))
+            whole_ms = log.ms_per_step()
+        adam_whole = None
+        if n_space == 1:
+            adam_whole = _batch_card_run(content, styles, _batch_card_config(
+                BATCH_CARD_ADAM_STEPS, 1, "cuda:0", optimizer="adam",
+                lr=GATE_LR,
+            ))[1].cpu()
+        _fresh_peak()
+        out = launch(
+            _batch_card_rank, (side, timed), n_space, "cuda",
+            n_style=n_style, share_card=share_card, timeout=SPATIAL_TIMEOUT,
+        )
+        loss_err = float(((out["loss0"] - loss_w).abs() / loss_w.abs()).max())
+        grad_err = max(
+            float((out["grad0"][s] - grad_w[s]).abs().max()
+                  / grad_w[s].abs().max())
+            for s in range(BATCH_CARD_STYLES)
+        )
+        if not (loss_err <= BAND_LOSS_TOL and grad_err <= BAND_GRAD_TOL):
+            failures.append(
+                f"{label} step 0: per-style loss rel err {loss_err:.3g} "
+                f"(bound {BAND_LOSS_TOL}), gradient {grad_err:.3g} (bound "
+                f"{BAND_GRAD_TOL})",
+            )
+        control = max(
+            _curve_err(curves[name], curves["whole"])
+            for name, _ in runs[1:]
+        )
+        bound = max(control, GATE_TOL)
+        errs = [
+            _curve_err(out["curve"][:, s], curves["whole"][:, s])
+            for s in range(BATCH_CARD_STYLES)
+        ]
+        if not (max(errs) <= bound and out["finite"] and out["shape"] == (
+            BATCH_CARD_STYLES, 1, side, side, 3,
+        )):
+            failures.append(
+                f"{label} L-BFGS: per-style curve rel errs {errs} > "
+                f"{bound:.3g}, or output {out['shape']} finite "
+                f"{out['finite']}",
+            )
+        print(
+            f"{label} curves by step (rows) and style: "
+            + ", ".join(f"{k} {v.tolist()}" for k, v in curves.items())
+            + f", mesh {out['curve'].tolist()}",
+        )
+        s_local = BATCH_CARD_STYLES // n_style
+        want = _batch_policy_launches(
+            _batch_card_config(BATCH_CARD_STEPS, n_space).optimization,
+            "mixed", s_local,
+        )
+        want_row = [
+            want[name][mode] for name in ("conv3x3", "gram") for mode in MODES
+        ]
+        per_rank = out["per_rank"]
+        for r, row in enumerate(per_rank):
+            if [int(v) for v in row[:6]] != want_row:
+                failures.append(
+                    f"{label}: rank {r} launches by kernel and mode "
+                    f"{[int(v) for v in row[:6]]}, expected {want_row} "
+                    f"({MODES} for conv3x3, then gram; S_local {s_local})",
+                )
+        adam_note = ""
+        if adam_whole is not None:
+            differ = [
+                s for s in range(BATCH_CARD_STYLES)
+                if not torch.equal(out["adam"][s], adam_whole[s])
+            ]
+            if differ:
+                failures.append(
+                    f"{label} Adam: styles {differ} not bit-equal to the "
+                    "single-card batch after "
+                    f"{BATCH_CARD_ADAM_STEPS} steps (largest difference "
+                    f"{float((out['adam'] - adam_whole).abs().max()):.3g})",
+                )
+            adam_note = (
+                f"; Adam {BATCH_CARD_ADAM_STEPS} steps every style "
+                "bit-equal to the single-card batch"
+            )
+        if launches is None:
+            row = per_rank[0]
+            launches = (int(sum(row[:3])), int(sum(row[3:6])))
+        rank_ms = [round(float(v), 3) for v in per_rank[:, 7]]
+        rate = BATCH_CARD_STYLES / (max(rank_ms) / 1e3)
+        where = (
+            "gloo through the host, every rank on this card" if share_card
+            else "NCCL, one card a rank"
+        )
+        lines.append(
+            f"{label} ({where}): step 0 per-style loss rel err "
+            f"{loss_err:.3g}, gradient {grad_err:.3g}; L-BFGS "
+            f"{BATCH_CARD_STEPS} steps per-style curve rel errs "
+            f"{[f'{e:.3g}' for e in errs]} (control {control:.3g}, bound "
+            f"{bound:.3g}){adam_note}; per rank launches {want_row} (conv "
+            f"then gram, {MODES}, S_local {s_local}) as worked out; own "
+            f"peak {[int(v) for v in per_rank[:, 6]]} (the single-card "
+            f"batch's own {whole_peak}); ms/step {rank_ms}, style-steps/s "
+            f"{rate:.2f} ("
+            + (
+                f"{n_style * n_space} ranks on one card, gloo through the "
+                "host: a correctness run, not a rate" if share_card
+                else f"{n_style * n_space} cards, "
+                f"{BATCH_CARD_TIMED_STEPS}-step runs"
+            )
+            + f"; the single-card S = {BATCH_CARD_STYLES} batch graphed "
+            f"{whole_ms:.3f} ms/step, "
+            f"{BATCH_CARD_STYLES / (whole_ms / 1e3):.2f} style-steps/s)",
+        )
+    for line in lines:
+        print(line)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
+def _check_batch_card_kernels(recs: dict[str, tuple[Record, Record]]) -> None:
+    """Both kernels at a 2 x 2 rank's shapes at 1024x1024 (S_local 2),
+    every mode, against their plain versions within 1e-4: the conv on
+    the halo'd shard of both styles, ``(2, rows + 2, W, C)``, forward
+    without ReLU and input gradient without mask; the batched raw Gram
+    of each style tap's shard rows, ``(2, P_shard, C)`` in one launch
+    at clamp ``inf`` and norm 1 as ``ops.gram.gram_raw_batched``
+    launches it, and its gradient. Timed beside cuDNN / ``torch.bmm``
+    and summed over a rank's step into ``recs[mode]``."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    level = {"ieee": "highest", "tf32x3": "high", "tf32": "default"}
+    n_style, n_space, side = BATCH_CARD_RUNS[0]
+    s_local = BATCH_CARD_STYLES // n_style
+    for mode in MODES:
+        conv_rec, gram_rec = recs[mode]
+        _check_halo_convs(
+            conv_rec, mode, s_local, n_space, side, gen, BATCH_CARD_KEY,
+        )
+        for p512, c in GRAM_SHAPES:
+            p = p512 * (side // SIZE) ** 2 // n_space
+            f = torch.randn((s_local, p, 1, c), generator=gen, device="cuda")
+            flat = f.view(s_local, p, c)
+            raw_k, g_k = gram.gram_kernel_batched(flat, math.inf, 1.0, mode)
+            raw_p, _ = gram.gram_plain_batched(flat, math.inf, 1.0, mode)
+            gram_rec.err(raw_k, raw_p, f"{BATCH_CARD_KEY} raw gram "
+                         f"({s_local},{p},{c}) {mode}")
+            if not torch.equal(g_k, raw_k):
+                msg = f"{BATCH_CARD_KEY} raw gram {mode}: G is not raw"
+                raise AssertionError(msg)
+            dg = torch.randn((s_local, c, c), generator=gen, device="cuda")
+            fk = f.clone().requires_grad_(True)
+            gram.gram_raw_batched(
+                fk, resolve_precision(level[mode]),
+            ).backward(dg)
+            sym = dg + dg.mT
+            ref = flat @ sym if mode != "tf32" else (
+                round_tf32(flat) @ round_tf32(sym)
+            )
+            gram_rec.err(fk.grad.view(s_local, p, c), ref,
+                         f"{BATCH_CARD_KEY} raw gram ({s_local},{p},{c}) "
+                         f"{mode} backward")
+            times = tuple(map(_few_ms, (
+                partial(gram.gram_kernel_batched, flat, math.inf, 1.0, mode),
+                partial(gram.gram_plain_batched, flat, math.inf, 1.0, mode),
+                _library(mode, partial(torch.bmm, flat.mT, flat)),
+            )))
+            gram_rec.add(1, *times, float(s_local * p * c * (c + 1)),
+                         4.0 * (s_local * p * c + 2 * s_local * c * c))
+            del f, flat, fk
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(
+        f"batch cards kernels {BATCH_CARD_KEY}: each 2 x 2 rank's halo'd "
+        f"conv shapes at N = {s_local} "
+        f"{[s[:4] for s in _spatial_conv_shapes(n_space, side)]} and "
+        f"batched raw Gram taps ({s_local}, P_shard, C), forward and "
+        f"backward, in {MODES}, within {TOL} of their plain versions",
+    )
 
 
 # ---- the targets-as-argument pipelines: sweep, regional, sequence
@@ -5150,6 +5614,23 @@ def _precision() -> tuple[int, int]:
     return (sum(mixed["conv3x3"].values()), sum(mixed["gram"].values()))
 
 
+def _mode_key_records(
+    mode: str, conv_extra: dict, gram_extra: dict, mode_recs: dict, key: str,
+) -> tuple[Record, Record]:
+    """The conv's and the Gram's record of shape set ``key`` in
+    ``mode``: the 3xTF32 entries' own, else a new one among the mode's
+    entry's extras."""
+    if mode == "tf32x3":
+        return conv_extra[key], gram_extra[key]
+    return tuple(
+        mode_recs[name][mode][1].setdefault(key, Record(
+            f"{name}_{mode}", mode_recs[name][mode][0].entry["source"],
+            mode_recs[name][mode][0].entry["replaces"], mode,
+        ))
+        for name in ("conv3x3", "gram")
+    )
+
+
 def _mode_entries(recs: dict) -> list[dict]:
     """The new modes' JSON entries. ``launches``: the mode's count on
     the main path at the shipped tier (``mixed``), or, for a mode that
@@ -5255,6 +5736,44 @@ def _spatial_only(card: str, *, share_card: bool = True) -> int:
     return 0
 
 
+def _batch_cards_only(card: str, *, share_card: bool = True) -> int:
+    """``--batch-mesh``: build, the batch-over-cards phase on this one
+    card and its kernel check; ``--batch-cards`` the phase with NCCL,
+    one card a rank (a machine with 4 cards), and its rates."""
+    print(f"card: {card}")
+    _build_phase()
+    t0 = time.perf_counter()
+    _batch_cards(share_card)
+    if not share_card:
+        print(f"phase seconds: batch cards {time.perf_counter() - t0:.1f}")
+        print(f"card: {card}")
+        return 0
+    recs = {
+        mode: tuple(
+            Record(name, "", "", mode) for name in ("conv3x3", "gram")
+        )
+        for mode in MODES
+    }
+    t1 = time.perf_counter()
+    _check_batch_card_kernels(recs)
+    print(
+        f"phase seconds: batch cards {t1 - t0:.1f}, batch cards kernels "
+        f"{time.perf_counter() - t1:.1f}",
+    )
+    for mode, (conv_rec, gram_rec) in recs.items():
+        for rec in (conv_rec, gram_rec):
+            entry = rec.finish({"main path": 0}, {})
+            print(
+                f"{BATCH_CARD_KEY} {entry['name']} {mode}: ms "
+                f"{entry['ms']:.4f} plain_ms {entry['plain_ms']:.4f} "
+                f"library_ms {entry['library_ms']:.4f} bound_ms "
+                f"{entry['bound_ms']:.4f} ({entry['bound_by']}) "
+                f"max_rel_err {entry['max_rel_err']:.3g}",
+            )
+    print(f"card: {card}")
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     """Run every phase; return 0 when all pass (failures raise).
 
@@ -5283,6 +5802,10 @@ def main(argv: list[str] | None = None) -> int:
         return _spatial_only(card)
     if args == ["--spatial-cards"]:
         return _spatial_only(card, share_card=False)
+    if args == ["--batch-mesh"]:
+        return _batch_cards_only(card)
+    if args == ["--batch-cards"]:
+        return _batch_cards_only(card, share_card=False)
     print(f"card: {card}")
     start = time.perf_counter()
     seconds: dict[str, float] = {}
@@ -5305,11 +5828,11 @@ def main(argv: list[str] | None = None) -> int:
                 name, f"{PACKAGE}/{source}",
                 f"style_transfer_visualizer_tpu/{replaces}",
             )
-            for _ in range(8)
+            for _ in range(9)
         )
         records[name] = (main_rec, dict(zip(
             ("at_1024", batch_key, "level_2048_first", "at_720p",
-             "band_4k_first", *SPATIAL_KEYS), extra,
+             "band_4k_first", *SPATIAL_KEYS, BATCH_CARD_KEY), extra,
             strict=True,
         )))
     conv_rec, conv_extra = records["conv3x3"]
@@ -5351,6 +5874,12 @@ def main(argv: list[str] | None = None) -> int:
         }
         for mode in MODES
     }
+    batch_card_recs = {
+        mode: _mode_key_records(
+            mode, conv_extra, gram_extra, mode_recs, BATCH_CARD_KEY,
+        )
+        for mode in MODES
+    }
     phases = {}
     for name, phase, *args in (
         ("main path", _main_path),
@@ -5366,6 +5895,7 @@ def main(argv: list[str] | None = None) -> int:
         ("banded 8K", _banded_8k),
         ("remat", _remat),
         ("spatial", _spatial),
+        ("batch cards", _batch_cards),
         ("sweep", _sweep),
         ("regional", _regional, gram_rec),
         ("sequence", _sequence),
@@ -5374,6 +5904,11 @@ def main(argv: list[str] | None = None) -> int:
         phases[name] = timed(name, phase, *args)
         if name == "spatial":
             timed("spatial kernels", _check_spatial_kernels, spatial_recs)
+        if name == "batch cards":
+            timed(
+                "batch cards kernels", _check_batch_card_kernels,
+                batch_card_recs,
+            )
         if name == "warm start 4 MP":
             timed(
                 "level kernels", _check_level_kernels,

@@ -200,7 +200,7 @@ def _sweep_on_device(
     mesh: Mesh | None,
 ) -> BlendSweepResult:
     opt = config.optimization
-    writes = mesh is None or mesh.is_root
+    writes = mesh is None or mesh.writes
     output_dir = setup_output_directory(config.output.output)
     content_host = image_io.load_image_to_host_array(content_path)
     content_img = image_io.host_array_to_device(

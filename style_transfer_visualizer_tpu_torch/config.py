@@ -229,7 +229,11 @@ class HardwareConfig:
 
     ``spatial_shards`` is the JAX package's: N > 1 splits the image's
     rows over N processes (``parallel/spatial.py``), one card each on
-    ``cuda`` (NCCL), any number on ``cpu`` (gloo).
+    ``cuda`` (NCCL), any number on ``cpu`` (gloo). A multi-style batch
+    spreads its styles over the cards as well (``main.batch_layout``):
+    on ``cuda`` over every card, each style's rows over N of them; on
+    ``cuda:N`` on that card alone; on ``cpu`` over ``S * N`` processes
+    when N > 1, else in one.
     """
 
     device: str = d.DEFAULT_DEVICE

@@ -385,6 +385,9 @@ def multi_coarse_init(
     style_imgs: list[torch.Tensor],
     config,
     generator: torch.Generator | None,
+    *,
+    first: int = 0,
+    n_drawn: int | None = None,
 ) -> torch.Tensor | None:
     """Warm-started ``(S, 1, H, W, 3)`` starting images, or None.
 
@@ -394,7 +397,10 @@ def multi_coarse_init(
     at that level, the Laplacian skipped below ``3 * lap_pool``. The
     stacked images are resized between levels and to full size with
     :func:`resize_image`. None when ``coarse_steps`` is 0 or the image
-    is too small to halve.
+    is too small to halve. ``style_imgs`` may be styles ``first ..``
+    of an ``n_drawn``-style batch (a style row's block): the coarsest
+    start is drawn for all ``n_drawn`` and the block's kept, so a
+    style's start does not depend on how the batch is split.
     """
     opt_cfg = config.optimization
     _, height, width, _ = content_img.shape
@@ -442,8 +448,9 @@ def multi_coarse_init(
         )
         if x is None:
             x = initialize_multi_inputs(
-                coarse_content, opt_cfg.init_method, generator, n_styles,
-            )
+                coarse_content, opt_cfg.init_method, generator,
+                n_drawn or n_styles,
+            )[first:first + n_styles]
         else:
             x = resize_image(x[:, 0], ch, cw)[:, None]
         logger.info(

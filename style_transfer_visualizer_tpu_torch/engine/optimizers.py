@@ -33,7 +33,9 @@ The multi-style batch runs S independent problems in one step
 (:func:`lbfgs_step_batched`, :func:`adam_step_batched`): every state
 field gains a leading style axis, and every decision (``done``, the
 curvature-pair skip, the ring position) is taken per style, as the JAX
-package's ``vmap`` of the single step takes it. The masks and updates
+package's ``vmap`` of the single step takes it. Over a dp x sp mesh
+(``mesh``) the S styles' scalars of one point go over the row in one
+collective. The masks and updates
 are batched elementwise operations; every reduction over the pixels
 (the dots, the direction's ring contractions and solves) runs per
 style through the single step's own functions. So each style's step
@@ -58,7 +60,8 @@ _CURVATURE_EPS = 1e-10
 
 
 def _sums(mesh, *parts: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """Each scalar summed over the mesh's ranks, in one collective.
+    """Each part (a scalar, or the batch's ``(S,)`` of them) summed
+    over the mesh's ranks, all in one collective.
 
     Without a mesh (or on one rank) the tensors come back as they are.
     """
@@ -69,7 +72,7 @@ def _sums(mesh, *parts: torch.Tensor) -> tuple[torch.Tensor, ...]:
 
 
 def _maxes(mesh, *parts: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """Each scalar's maximum over the mesh's ranks, in one collective."""
+    """Each part's maximum over the mesh's ranks, in one collective."""
     if mesh is None or mesh.size == 1:
         return parts
     packed = mesh.all_max(torch.stack(parts))
@@ -560,13 +563,20 @@ def lbfgs_step_batched(
     max_iter: int,
     max_eval: int,
     direction_method: str = "two-loop",
+    mesh=None,
 ) -> tuple[torch.Tensor, LbfgsState, StepAux]:
     """:func:`lbfgs_step` for S problems at once.
 
     ``x`` is ``(S, n)``; ``vag`` maps it to ``(S,)`` losses and scores
     and ``(S, n)`` gradients. Each style's masks are its own: a style
     that is done keeps its image, its state and its ring position
-    while the others go on. Returns ``(S,)`` metrics.
+    while the others go on. Returns ``(S,)`` metrics. With ``mesh``
+    (a dp x sp rank's style row) each row of ``x`` and of the state's
+    vectors is this rank's rows of its style's image: every per-style
+    reduction a decision or a step length reads is summed or maxed
+    over the row, all S of one point in one collective, so every rank
+    of a row takes each style's same branches; each style's direction
+    reduces over the row as the single step's does.
     """
     try:
         direction_fn = _DIRECTION_METHODS[direction_method]
@@ -576,7 +586,8 @@ def lbfgs_step_batched(
     (loss, (style, content)), grad = vag(x)
     n_styles = x.shape[0]
     dev = x.device
-    done = grad.abs().amax(dim=1) <= TOLERANCE_GRAD
+    (grad_max,) = _maxes(mesh, grad.abs().amax(dim=1))
+    done = grad_max <= TOLERANCE_GRAD
     evals = torch.ones(n_styles, dtype=torch.int64, device=dev)
     st = state
 
@@ -587,22 +598,23 @@ def lbfgs_step_batched(
 
         y = grad - st.prev_grad
         s = st.direction * st.step_size[:, None]
-        ys = _dots(y, s)
-        yy = _dots(y, y)
+        ys, yy = _sums(mesh, _dots(y, s), _dots(y, y))
         do_insert = active & ~first & (ys > _CURVATURE_EPS)
         _insert_pair_batched(st, s, y, ys, yy, do_insert)
 
         directions = torch.stack([
-            direction_fn(g, _style(st, i)) for i, g in enumerate(grad)
+            direction_fn(g, _style(st, i), mesh) for i, g in enumerate(grad)
         ])
         direction = torch.where(first[:, None], -grad, directions)
-        l1 = torch.stack([g.abs().sum() for g in grad])
+        l1, gtd = _sums(
+            mesh, torch.stack([g.abs().sum() for g in grad]),
+            _dots(grad, direction),
+        )
         t = torch.where(
             first,
             torch.clamp(1.0 / l1, max=1.0) * lr,
             torch.full((n_styles,), lr, dtype=torch.float32, device=dev),
         )
-        gtd = _dots(grad, direction)
         break_gtd = gtd > -TOLERANCE_CHANGE
         x_new = torch.where(break_gtd[:, None], x, x + t[:, None] * direction)
 
@@ -618,11 +630,15 @@ def lbfgs_step_batched(
             loss_n, style_n, content_n, grad_n = loss, style, content, grad
         evals_n = evals + reeval.to(evals.dtype)
 
+        grad_n_max, step_max = _maxes(
+            mesh, grad_n.abs().amax(dim=1),
+            (t[:, None] * direction).abs().amax(dim=1),
+        )
         done_n = (
             break_gtd
             | (evals_n >= max_eval)
-            | (grad_n.abs().amax(dim=1) <= TOLERANCE_GRAD)
-            | ((t[:, None] * direction).abs().amax(dim=1) <= TOLERANCE_CHANGE)
+            | (grad_n_max <= TOLERANCE_GRAD)
+            | (step_max <= TOLERANCE_CHANGE)
             | ((loss_n - loss).abs() < TOLERANCE_CHANGE)
         )
 

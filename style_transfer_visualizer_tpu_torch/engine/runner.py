@@ -273,7 +273,7 @@ class OptimizationRunner:
         self._start_step = start_step
         self._checkpoint_path = checkpoint_path
         self._mesh = mesh
-        self._writes = mesh is None or mesh.is_root
+        self._writes = mesh is None or mesh.writes
 
         self.loss_logger: LossCSVLogger | None = None
         self._accumulator: LossAccumulator | None = None

@@ -49,6 +49,16 @@ rank (C x C, whatever the size); the content targets and the working
 image stay in rows; rank 0 writes every file. Resume loads the whole
 checkpoint on every rank and keeps its rows. Sharding excludes
 ``tile_rows`` (the JAX package's refusal), and runs no remat.
+
+The multi-style batch spreads its S styles over the cards as the JAX
+package does (:func:`batch_layout`): a style axis of the largest
+divisor of S that fits the cards left after ``spatial_shards`` takes
+its share, one block of styles a rank; with ``spatial_shards = N > 1``
+each style's rows also split over N ranks (a style x space mesh,
+``parallel.spatial.build_dp_sp_update``). On the CPU, whose ranks are
+processes started on request, the count is ``S * spatial_shards`` when
+``spatial_shards > 1`` and one process otherwise. World rank 0 writes
+every file.
 """
 from __future__ import annotations
 
@@ -108,10 +118,7 @@ from style_transfer_visualizer_tpu_torch.ops.tiled import (
     compute_tiled_targets,
     validate_tiling,
 )
-from style_transfer_visualizer_tpu_torch.parallel.mesh import (
-    BATCH_ITEM,
-    launch,
-)
+from style_transfer_visualizer_tpu_torch.parallel.mesh import launch
 from style_transfer_visualizer_tpu_torch.parallel.multistyle import (
     build_multi_style_update,
     initialize_multi_inputs,
@@ -119,7 +126,9 @@ from style_transfer_visualizer_tpu_torch.parallel.multistyle import (
 )
 from style_transfer_visualizer_tpu_torch.parallel.spatial import (
     LAP_RESPONSE_KEY,
+    build_dp_sp_update,
     compute_sharded_targets,
+    gather_state,
     make_spatial_loss,
     padded_lap_target,
     shard_state,
@@ -573,7 +582,8 @@ def _resume(
 
     The start step is clamped to ``steps``; without ``resume_from`` the
     arguments come back with step 0. On a ``mesh`` every rank loads the
-    whole checkpoint and keeps its rows.
+    whole checkpoint (the whole image's, and the whole batch's) and
+    keeps its styles and its rows.
     """
     if not config.output.resume_from:
         return image, state, 0
@@ -584,8 +594,11 @@ def _resume(
     ckpt = load_checkpoint(
         config.output.resume_from, whole_state_like(mesh, state), "cpu",
     )
+    whole = ckpt.image
+    if mesh.style_size > 1:
+        whole = mesh.style_block(whole)
     return (
-        mesh.shard(ckpt.image), shard_state(mesh, ckpt.opt_state),
+        mesh.shard(whole, whole.dim() - 3), shard_state(mesh, ckpt.opt_state),
         min(ckpt.step, step_cap),
     )
 
@@ -832,7 +845,7 @@ def run_with_artifacts(
     input_img, opt_state, start_step = _resume(
         config, input_img, opt_state, mesh,
     )
-    writes = mesh is None or mesh.is_root
+    writes = mesh is None or mesh.writes
     content_name = content_path.stem
     if style_name is None:
         style_name = style_path.stem
@@ -1006,12 +1019,64 @@ def _maybe_append_final_segments(
 # ---- the multi-style batch
 
 
+def batch_layout(
+    config: StyleTransferConfig, n_styles: int,
+) -> tuple[int, int]:
+    """``(n_style, n_space)``: the mesh an ``n_styles`` batch runs on.
+
+    The JAX package's layout: ``hardware.spatial_shards`` is the space
+    axis and must divide the cards (``torch.cuda.device_count()`` on
+    ``cuda``; one on ``cuda:N``, which names a card), or its
+    ``ValueError`` is raised; the style axis is the largest divisor of
+    S that fits the cards the space axis leaves. On the CPU, whose
+    ranks are processes started on request, the count is ``S *
+    spatial_shards`` when ``spatial_shards > 1`` (a style row for every
+    style) and 1 otherwise (the batch stays in one process).
+    """
+    n_space = config.hardware.spatial_shards
+    device = torch.device(config.hardware.device.lower())
+    if device.type == "cuda":
+        cards = torch.cuda.device_count()
+        if not cards:
+            setup_device(config.hardware.device)  # raises: no card
+        if device.index is not None:
+            cards = 1
+    else:
+        cards = n_styles * n_space if n_space > 1 else 1
+    if cards % n_space:
+        msg = (
+            f"--spatial-shards {n_space} must divide the {cards} attached "
+            f"{device.type} devices"
+        )
+        raise ValueError(msg)
+    budget = cards // n_space
+    n_style = max(
+        d for d in range(1, min(n_styles, budget) + 1) if n_styles % d == 0
+    )
+    return n_style, n_space
+
+
+def _check_batch_mesh(
+    config: StyleTransferConfig, n_styles: int, mesh: Mesh,
+) -> None:
+    """Raise for a rank's mesh that does not fit the batch: its space
+    axis must be ``spatial_shards`` and its style axis divide S."""
+    n_space = config.hardware.spatial_shards
+    if mesh.size != n_space or n_styles % mesh.style_size:
+        msg = (
+            f"a {mesh.style_size} x {mesh.size} (style x space) mesh for "
+            f"{n_styles} styles at spatial_shards={n_space}"
+        )
+        raise ValueError(msg)
+
+
 def prepare_multi_style(
     content: np.ndarray,
     styles: list[np.ndarray],
     config: StyleTransferConfig,
     *,
     params: Params | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[StepBundle, torch.Tensor]:
     """Weights, stacked targets, the stacked step and starting images.
 
@@ -1020,24 +1085,47 @@ def prepare_multi_style(
     single run's: ``preserve_color="match"`` recolors every style to
     the content first. The auto warm start is resolved against the
     content, as in :func:`prepare_model_and_input`. Returns the bundle
-    and the ``(S, 1, H, W, 3)`` starting images. ``spatial_shards > 1``
-    raises ``NotImplementedError``: the batch over cards waits for its
-    queue item (``parallel.mesh.BATCH_ITEM``).
+    and the ``(S, 1, H, W, 3)`` starting images.
+
+    With a ``mesh`` it is that rank's part of the batch over cards
+    (:func:`batch_layout`): the step of its styles
+    ``mesh.styles(S)``, and their ``(S_local, 1, h, W, 3)`` rows of
+    the starting images. Each style's start does not depend on the
+    layout: the whole batch's start is drawn and the block kept. A
+    layout of more than one rank without a ``mesh`` raises: a step
+    bound to a rank's process group cannot leave the rank
+    (:func:`multi_style_transfer` starts the ranks).
     """
-    _refuse_sharded_batch(config)
     config.validate()
+    n_styles = len(styles)
+    if mesh is None:
+        layout = batch_layout(config, n_styles)
+        if layout != (1, 1):
+            msg = (
+                f"a batch of {n_styles} styles runs over a {layout[0]} x "
+                f"{layout[1]} (style x space) mesh, one process per rank: "
+                "pass each rank's mesh (multi_style_transfer and "
+                "parallel.mesh.launch start them)"
+            )
+            raise ValueError(msg)
+    else:
+        _check_batch_mesh(config, n_styles, mesh)
     opt = config.optimization
-    device = setup_device(config.hardware.device)
+    device = (
+        mesh.device if mesh is not None
+        else setup_device(config.hardware.device)
+    )
     generator = setup_random_seed(opt.seed, device)
     content_img = image_io.host_array_to_device(
         content, device, normalize=opt.normalize,
     )
     match_to = content if opt.preserve_color == "match" else None
+    first, last = (0, n_styles) if mesh is None else mesh.styles(n_styles)
     style_imgs = [
         image_io.style_array_to_device(
             host, device, normalize=opt.normalize, match_to=match_to,
         )
-        for host in styles
+        for host in styles[first:last]
     ]
     _resolve_auto_coarse(config, content_img)
     if params is None:
@@ -1045,7 +1133,12 @@ def prepare_multi_style(
             device, arch=get_architecture(opt.model),
             allow_random=opt.allow_random_weights, seed=opt.seed,
         )
-    n_styles = len(style_imgs)
+    if mesh is not None and mesh.size > 1:
+        return _prepare_dp_sp(
+            params, content_img, style_imgs, config, generator, mesh,
+            n_styles,
+        )
+    n_local = len(style_imgs)
     precision = resolve_precision(config.hardware.precision)
     targets = multi_style_targets(
         params, content_img, style_imgs,
@@ -1055,14 +1148,15 @@ def prepare_multi_style(
     # The warm start first, as in prepare_model_and_input.
     images = _multi_initial_images(
         params, content_img, style_imgs, config, generator,
+        first=first, n_drawn=n_styles,
     )
     _, height, width, _ = content_img.shape
-    # Activations grow with pixels x styles: one card holds all S.
+    # Activations grow with pixels x styles a card.
     remat = opt.remat or _auto_remat_batched(
-        int(height) * int(width), n_styles,
+        int(height) * int(width), n_local,
     )
     bundle = build_multi_style_update(
-        params, targets, tuple(content_img.shape), n_styles,
+        params, targets, tuple(content_img.shape), n_local,
         optimizer=opt.optimizer,
         lr=opt.lr,
         style_w=opt.style_w,
@@ -1088,15 +1182,68 @@ def prepare_multi_style(
     return bundle, images
 
 
-def _refuse_sharded_batch(config: StyleTransferConfig) -> None:
-    """Raise for a batch with ``spatial_shards > 1`` (not ported)."""
-    if config.hardware.spatial_shards > 1:
-        msg = (
-            "the multi-style batch with spatial_shards="
-            f"{config.hardware.spatial_shards} is not ported; it waits "
-            f"for {BATCH_ITEM}"
+def _prepare_dp_sp(
+    params: Params,
+    content_img: torch.Tensor,
+    style_imgs: list[torch.Tensor],
+    config: StyleTransferConfig,
+    generator: torch.Generator,
+    mesh: Mesh,
+    n_styles: int,
+) -> tuple[StepBundle, torch.Tensor]:
+    """One rank's dp x sp step and rows of its styles' starting images.
+
+    The JAX package's ``_dp_sp_multi_style``: each of the rank's styles'
+    Grams whole (a style image needs no divisibility); the content
+    targets from the content's rows, once, broadcast over the styles
+    (views, not copies), with the padded Laplacian target's rows; the
+    row's space root makes its styles' whole start (the warm start, if
+    it runs) and hands it over the row, and every rank keeps its rows.
+    """
+    opt = config.optimization
+    precision = resolve_precision(config.hardware.precision)
+    n_local = len(style_imgs)
+    grams = multi_style_targets(
+        params, content_img, style_imgs, tuple(opt.style_layers), (),
+        precision=precision,
+    ).style_grams
+    feats = sharded_content_feats(config, params, content_img, mesh)
+    start = None
+    if mesh.is_root:
+        first, _ = mesh.styles(n_styles)
+        start = _multi_initial_images(
+            params, content_img, style_imgs, config, generator,
+            first=first, n_drawn=n_styles,
         )
-        raise NotImplementedError(msg)
+    like = content_img.new_empty((n_local, *content_img.shape))
+    images = mesh.shard(mesh.broadcast(start, like=like), dim=2)
+    bundle = build_dp_sp_update(
+        mesh, params,
+        Targets(
+            style_grams=grams,
+            content_feats={
+                k: f.expand(n_local, *f.shape) for k, f in feats.items()
+            },
+        ),
+        tuple(content_img.shape), n_styles,
+        optimizer=opt.optimizer,
+        lr=opt.lr,
+        style_w=opt.style_w,
+        content_w=opt.content_w,
+        tv_w=opt.tv_w,
+        lap_w=opt.lap_w,
+        lap_pool=opt.lap_pool,
+        style_layers=tuple(opt.style_layers),
+        style_weights=opt.style_weights_tuple(),
+        content_layers=tuple(opt.content_layers),
+        precision=precision,
+        lbfgs_max_iter=opt.lbfgs_max_iter,
+        lbfgs_max_eval=opt.lbfgs_max_eval,
+        lbfgs_history_size=opt.lbfgs_history_size,
+        lbfgs_history_dtype=opt.lbfgs_history_dtype,
+        lbfgs_direction=opt.lbfgs_direction,
+    )
+    return bundle, images
 
 
 def _multi_initial_images(
@@ -1105,18 +1252,25 @@ def _multi_initial_images(
     style_imgs: list[torch.Tensor],
     config: StyleTransferConfig,
     generator: torch.Generator,
+    *,
+    first: int = 0,
+    n_drawn: int | None = None,
 ) -> torch.Tensor:
-    """The batched warm start when it runs, else ``init_method``."""
+    """The batched warm start when it runs, else ``init_method``.
+
+    ``style_imgs`` may be styles ``first ..`` of an ``n_drawn``-style
+    batch: the whole batch's start is drawn and the block's kept."""
+    n_drawn = n_drawn or len(style_imgs)
     if _warm_start_runs(config):
         warm = multi_coarse_init(
             params, content_img, style_imgs, config, generator,
+            first=first, n_drawn=n_drawn,
         )
         if warm is not None:
             return warm
     return initialize_multi_inputs(
-        content_img, config.optimization.init_method, generator,
-        len(style_imgs),
-    )
+        content_img, config.optimization.init_method, generator, n_drawn,
+    )[first:first + len(style_imgs)]
 
 
 def multi_style_transfer(
@@ -1125,6 +1279,7 @@ def multi_style_transfer(
     config: StyleTransferConfig,
     *,
     progress_bar: ProgressReporter | None = None,
+    mesh: Mesh | None = None,
 ) -> list[Path]:
     """Stylize one content image with each of S styles, in one batch.
 
@@ -1133,21 +1288,38 @@ def multi_style_transfer(
     ``stylized_{content}_x_{style}.png`` per style; ``--gif`` makes one
     timelapse GIF per style and video one postprocess MP4 per style
     (realtime is promoted to postprocess). Returns the PNG paths.
+
+    A layout of more than one rank (:func:`batch_layout`) without a
+    ``mesh`` starts the ranks (``parallel.mesh.launch``: NCCL, one card
+    a rank; gloo on the CPU) and returns world rank 0's paths; called
+    with a ``mesh`` it is that rank's part, and world rank 0 alone
+    writes the files (the other ranks return no paths).
     """
     if not style_paths:
         msg = "multi_style_transfer requires at least one style path"
         raise ValueError(msg)
-    _refuse_sharded_batch(config)
+    for style_path in style_paths:
+        validate_input_paths(content_path, style_path)
+    if mesh is None:
+        n_style, n_space = batch_layout(config, len(style_paths))
+        if n_style * n_space > 1:
+            logger.info(
+                "Multi-style run: %d styles over a %d-device style "
+                "axis%s.", len(style_paths), n_style,
+                f" x {n_space}-way row sharding" if n_space > 1 else "",
+            )
+            return launch(
+                multi_style_transfer, (content_path, style_paths, config),
+                n_space, config.hardware.device, n_style=n_style,
+            )
     # The single run's final-only cascade.
     if config.video.final_only:
         config.video.create_video = False
         config.video.create_gif = False
-    for style_path in style_paths:
-        validate_input_paths(content_path, style_path)
 
     content = image_io.load_image_to_host_array(content_path)
     styles = [image_io.load_image_to_host_array(p) for p in style_paths]
-    bundle, images = prepare_multi_style(content, styles, config)
+    bundle, images = prepare_multi_style(content, styles, config, mesh=mesh)
     logger.info(
         "Multi-style run: %d styles in one stacked step.", len(styles),
     )
@@ -1162,12 +1334,15 @@ def multi_style_transfer(
         style_paths=[Path(p) for p in style_paths],
         chroma_source=chroma_source,
         progress_bar=progress_bar,
+        mesh=mesh,
     )
-    saved = _save_multi_style_outputs(
-        images, style_names, content_name, output_path,
-        normalize=config.optimization.normalize,
-        chroma_source=chroma_source,
-    )
+    saved = []
+    if mesh is None or mesh.writes:
+        saved = _save_multi_style_outputs(
+            images, style_names, content_name, output_path,
+            normalize=config.optimization.normalize,
+            chroma_source=chroma_source,
+        )
     if close_errors:
         raise close_errors[0]
     return saved
@@ -1366,6 +1541,7 @@ def run_multi_style_loop(
     progress_bar: ProgressReporter | None = None,
     make_sink: Callable[[str, str], VideoFrameSink] | None = None,
     on_step_end: Callable[[int, torch.Tensor, StepAux], None] | None = None,
+    mesh: Mesh | None = None,
 ):
     """The batch's step loop with its logging and timelapse contract.
 
@@ -1401,6 +1577,17 @@ def run_multi_style_loop(
     every dispatch a single step. Returns
     ``(images, state, close_errors)``: the caller saves the PNGs before
     it raises the first close error.
+
+    On a ``mesh`` ``images`` and the bundle's state are this rank's
+    styles and rows, ``style_names`` the whole batch's; every rank
+    runs the loop, and world rank 0 alone opens the sinks, writes the
+    CSVs and saves checkpoints. At the same steps on every rank (each
+    a collective): a ``log_every`` chunk's ``(3, k, S_local)`` metrics
+    gather to ``(3, k, S)``; a frame is packed to uint8 on the device
+    from the rank's rows and gathered; a checkpoint gathers the whole
+    batch's images and state (the single-card batch's layout, so
+    either resumes the other); ``resume_from`` keeps each rank's part.
+    The returned images are the whole batch's, on every rank.
     """
     opt_cfg = config.optimization
     out_cfg = config.output
@@ -1418,16 +1605,30 @@ def run_multi_style_loop(
             return _default_sink(config, output_path, kind, name)
 
     # Before any sink opens: a checkpoint that does not fit raises here.
-    images, state, start_step = _resume(config, images, bundle.opt_state)
+    images, state, start_step = _resume(
+        config, images, bundle.opt_state, mesh,
+    )
     if start_step:
         logger.info("Resumed batch run at step %d.", start_step)
+    writes = mesh is None or mesh.writes
+
+    def whole(imgs: torch.Tensor) -> torch.Tensor:
+        """The whole batch: every rank's styles and rows."""
+        if mesh is None:
+            return imgs
+        return mesh.gather_styles(mesh.gather(imgs, dim=2))
 
     intro_paths = None
     if content_path is not None and style_paths is not None:
         intro_paths = [(content_path, s) for s in style_paths]
+    # Each rank's timelapse frames and chunks follow the configuration
+    # alone: a frame is a collective on a mesh.
+    frames_on = bool(
+        (video.create_gif or video.create_video) and video.save_every,
+    )
     media = _BatchFrames(
-        config, output_path, content_name, style_names, make_sink,
-        intro_paths,
+        config, output_path, content_name,
+        style_names if writes else [], make_sink, intro_paths,
     )
     frame_stream = None
     if media.active:
@@ -1436,26 +1637,32 @@ def run_multi_style_loop(
             "intro/outro segments as a single run where enabled.",
         )
         frame_stream = AsyncFrameStream()
+    chroma_rows = chroma_source
+    if mesh is not None and chroma_source is not None:
+        chroma_rows = mesh.shard(chroma_source)
 
     def submit_frames(imgs: torch.Tensor) -> None:
-        frame_stream.submit(
-            _prepared_frames(
-                imgs, normalize=opt_cfg.normalize,
-                chroma_source=chroma_source,
-            ),
-            media.deliver,
+        frames = _prepared_frames(
+            imgs, normalize=opt_cfg.normalize, chroma_source=chroma_rows,
         )
+        if mesh is not None:
+            frames = mesh.gather_styles(mesh.gather(frames, dim=1))
+        if frame_stream is not None:
+            frame_stream.submit(frames, media.deliver)
 
     checkpoint_path = _checkpoint_path(config, output_path)
 
     def maybe_checkpoint(step: int) -> None:
-        if checkpoint_path is not None and (
-            step % out_cfg.checkpoint_every == 0
-        ):
-            save_checkpoint(checkpoint_path, step, images, state)
+        if checkpoint_path is None or step % out_cfg.checkpoint_every:
+            return
+        ckpt_images, ckpt_state = images, state
+        if mesh is not None:
+            ckpt_images, ckpt_state = whole(images), gather_state(mesh, state)
+        if writes:
+            save_checkpoint(checkpoint_path, step, ckpt_images, ckpt_state)
 
     csv_loggers: list[LossCSVLogger | None] = [None] * len(style_names)
-    if out_cfg.log_loss:
+    if out_cfg.log_loss and writes:
         base = Path(out_cfg.log_loss)
         for i, name in enumerate(style_names):
             per_style = base.with_name(
@@ -1473,7 +1680,7 @@ def run_multi_style_loop(
         logger.info(
             "Per-style loss CSV logging enabled under %s.", base.parent,
         )
-    track_history = out_cfg.plot_losses and not out_cfg.log_loss
+    track_history = writes and out_cfg.plot_losses and not out_cfg.log_loss
     histories: list[LossHistory] = [
         {"style_loss": [], "content_loss": [], "total_loss": []}
         for _ in style_names
@@ -1482,9 +1689,12 @@ def run_multi_style_loop(
     chunk = 1 if on_step_end is not None else resolve_batch_chunk(
         bundle, config,
     )
-    bar = progress_bar or default_progress(
-        opt_cfg.steps, start_step, desc="Multi-Style Transfer",
-    )
+    if not writes:
+        bar = SilentProgress()
+    else:
+        bar = progress_bar or default_progress(
+            opt_cfg.steps, start_step, desc="Multi-Style Transfer",
+        )
 
     def log_step(step: int, vals: np.ndarray) -> None:
         # One (3, S) row: style, content, total.
@@ -1524,20 +1734,25 @@ def run_multi_style_loop(
                     # One (3, k, S) host read for the whole chunk.
                     vals = torch.stack(
                         [auxes.style_score, auxes.content_score, auxes.loss],
-                    ).cpu().numpy()
-                    for j in logged:
-                        log_step(step + j + 1, vals[:, j])
+                    )
+                    if mesh is not None:
+                        vals = mesh.gather_styles(vals, dim=2)
+                    if writes:
+                        vals = vals.cpu().numpy()
+                        for j in logged:
+                            log_step(step + j + 1, vals[:, j])
                 step += k
                 bar.update(k)
                 if on_step_end is not None:
                     on_step_end(step, images, auxes.at(0))
-                if frame_stream is not None and step % save_every == 0:
+                if frames_on and step % save_every == 0:
                     submit_frames(images)
                 maybe_checkpoint(step)
+        if frames_on and opt_cfg.steps % save_every:
+            # Every timelapse ends on the finished image.
+            submit_frames(images)
+        images = whole(images)
         if frame_stream is not None:
-            if opt_cfg.steps % save_every:
-                # Every timelapse ends on the finished image.
-                submit_frames(images)
             # FIFO: every frame lands before the outros are appended.
             frame_stream.drain()
             media.append_outros(

@@ -9,7 +9,8 @@ sum a band of ``ops/tiled.py`` adds up. The multi-style batch needs one
 Gram per image instead, as the JAX package's ``vmap`` of the single
 step gives it:
 :func:`gram_matrix_batched` takes ``(S, H, W, C)`` to ``(S, C, C)``,
-each image clamped and divided by H*W*C.
+each image clamped and divided by H*W*C, and :func:`gram_raw_batched`
+gives one raw sum per image (a dp x sp rank's shard partials).
 
 On a CUDA tensor the raw Grams and G come from the hand-written kernel
 ``csrc/gram.cu``, one launch per call whatever the batch, in the mode
@@ -501,6 +502,32 @@ def gram_raw(
     b, h, w, c = features.shape
     mode = kernel_mode(gram_precision(precision))
     flat = features.view(b * h * w, c)
+    return _GramFn.apply(flat, math.inf, 1.0, mode, mode)
+
+
+def gram_raw_batched(
+    features: torch.Tensor,
+    precision: PrecisionLike = HIGH,
+) -> torch.Tensor:
+    """The raw (S, C, C) Gram sums of an (S, H, W, C) batch, one per
+    image: no clamp, no norm.
+
+    :func:`gram_raw` for a batch of images (a dp x sp rank's shard
+    partials, one per style): one launch of the batched kernel at
+    clamp ``inf`` and norm 1 on the card, each image's partial bit for
+    bit as :func:`gram_raw` gives it alone, and a backward of one
+    product per image in the forward's mode. ``features`` must be
+    contiguous.
+    """
+    if not features.is_contiguous():
+        msg = (
+            "gram_raw_batched takes a contiguous feature map: "
+            f"{features.shape}"
+        )
+        raise ValueError(msg)
+    s, h, w, c = features.shape
+    mode = kernel_mode(gram_precision(precision))
+    flat = features.view(s, h * w, c)
     return _GramFn.apply(flat, math.inf, 1.0, mode, mode)
 
 

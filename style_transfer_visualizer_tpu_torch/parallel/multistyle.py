@@ -1,7 +1,7 @@
 """The multi-style batch: one content image against S styles.
 
-The port of the JAX package's ``parallel/multistyle.py`` without the
-mesh. Each style defines an independent problem with an image of its
+The port of the JAX package's ``parallel/multistyle.py``. Each style
+defines an independent problem with an image of its
 own; the S problems run as one stacked step on one card, the style
 axis being the batch dimension of every operation: the conv kernel
 runs at N = S, each Gram layer is one launch of the batched Gram
@@ -9,8 +9,13 @@ kernel for all S images, and the optimizer's state carries a leading
 style axis with every decision taken per style. The content targets
 and the Laplacian target are the one content's, broadcast across the
 styles, never copied. The JAX package's ``MultiStyleBundle`` is the
-port's ``engine.step.StepBundle``: with no mesh, the targets need no
-placement and the bundle holds the step and its state alone.
+port's ``engine.step.StepBundle``: each rank holds its own targets,
+so the bundle holds the step and its state alone.
+
+Over several cards each rank of a style axis runs this step on its
+block of styles (``main.prepare_multi_style``); over a style x space
+mesh the same step runs the row-sharded loss
+(``parallel.spatial.build_dp_sp_update``).
 """
 from __future__ import annotations
 
@@ -132,6 +137,8 @@ def build_multi_style_update(
     style_weights: tuple[float, ...] | None = None,
     precision: PrecisionLike = MIXED,
     remat: bool = False,
+    loss_fn=None,
+    mesh=None,
 ) -> StepBundle:
     """Build the stacked step of S independent problems.
 
@@ -145,10 +152,14 @@ def build_multi_style_update(
     ``precision`` is the resolved tier; ``remat`` rematerializes the
     feature sweep (``models.features.extract_features``), as the JAX
     package's batch does (it has no banded batch).
+
+    ``loss_fn(params, images, targets) -> ((S,) totals, ((S,) style,
+    (S,) content))`` replaces that objective, ``images`` the sweep's
+    ``(S * B, H, W, 3)``: the dp x sp step injects the row-sharded one
+    so (``parallel.spatial.build_dp_sp_update``), and ``mesh`` is then
+    its mesh, ``image_shape`` one style's rows on this rank, and the
+    step an ``EagerChunk`` when the row holds a group.
     """
-    if lap_w and lap_target is None:
-        msg = "lap_w > 0 requires a precomputed lap_target response"
-        raise ValueError(msg)
     device = next(iter(params.values()))["w9"].device
     n = 1
     for dim in image_shape:
@@ -156,24 +167,24 @@ def build_multi_style_update(
     stacked_shape = (n_styles, *image_shape)
     # The feature sweep's batch: one image per style.
     sweep_shape = (n_styles * int(image_shape[0]), *image_shape[1:])
-    style_layers = tuple(style_layers)
-    content_layers = tuple(content_layers)
+    if loss_fn is None:
+        if lap_w and lap_target is None:
+            msg = "lap_w > 0 requires a precomputed lap_target response"
+            raise ValueError(msg)
+        loss_fn = _batched_objective(
+            style_w=style_w, content_w=content_w, tv_w=tv_w, lap_w=lap_w,
+            lap_pool=lap_pool, lap_target=lap_target,
+            style_layers=tuple(style_layers),
+            content_layers=tuple(content_layers),
+            style_weights=style_weights, precision=precision, remat=remat,
+        )
 
     def vag(x_in: torch.Tensor):
         with torch.enable_grad():
             x = x_in.detach().requires_grad_(True)
-            img = x.reshape(sweep_shape)
-            total, (style, content) = batched_total_loss(
-                params, img, targets, style_w, content_w,
-                style_layers, content_layers, style_weights, precision,
-                remat=remat,
+            total, (style, content) = loss_fn(
+                params, x.reshape(sweep_shape), targets,
             )
-            if tv_w:
-                total = total + tv_w * tv_loss_per_image(img)
-            if lap_w:
-                total = total + lap_w * lap_loss_per_image(
-                    img, lap_target, lap_pool,
-                )
             (grad,) = torch.autograd.grad(total.sum(), x)
         return (total.detach(), (style.detach(), content.detach())), grad
 
@@ -193,6 +204,7 @@ def build_multi_style_update(
                 max_iter=lbfgs_max_iter,
                 max_eval=lbfgs_max_eval,
                 direction_method=lbfgs_direction,
+                mesh=mesh,
             )
             return new_flat.reshape(stacked_shape), new_state, aux
 
@@ -209,5 +221,39 @@ def build_multi_style_update(
     return StepBundle(
         update_fn=update_fn,
         opt_state=opt_state,
-        chunked_update_fn=chunked(update_fn),
+        chunked_update_fn=chunked(update_fn, mesh),
     )
+
+
+def _batched_objective(
+    *,
+    style_w: float,
+    content_w: float,
+    tv_w: float,
+    lap_w: float,
+    lap_pool: int,
+    lap_target: torch.Tensor | None,
+    style_layers: tuple[int, ...],
+    content_layers: tuple[int, ...],
+    style_weights: tuple[float, ...] | None,
+    precision: PrecisionLike,
+    remat: bool,
+):
+    """The batch's objective, ``loss_fn(params, images, targets)``:
+    each image's style, content, TV and Laplacian terms, ``(S,)``."""
+
+    def loss_fn(params: Params, img: torch.Tensor, targets: Targets):
+        total, (style, content) = batched_total_loss(
+            params, img, targets, style_w, content_w,
+            style_layers, content_layers, style_weights, precision,
+            remat=remat,
+        )
+        if tv_w:
+            total = total + tv_w * tv_loss_per_image(img)
+        if lap_w:
+            total = total + lap_w * lap_loss_per_image(
+                img, lap_target, lap_pool,
+            )
+        return total, (style, content)
+
+    return loss_fn

@@ -1,9 +1,8 @@
 """Row-sharded feature extraction and loss over a process mesh.
 
-The port of the JAX package's ``parallel/spatial.py`` (its single-run
-half; the style x space batch waits for ROADMAP.md's "Batch over cards
-and dp×sp"). Image rows are split over the ranks of a
-``parallel.mesh.Mesh``, rank r holding rows ``mesh.rows(h)``. Each 3x3
+The port of the JAX package's ``parallel/spatial.py``. Image rows are
+split over the ranks of a ``parallel.mesh.Mesh``'s style row, rank r
+holding rows ``mesh.rows(h)``. Each 3x3
 SAME conv takes one halo row from each neighbour
 (:func:`exchange_halos`; the edge ranks get zeros, exactly SAME padding
 at the image's border), 2x2 pools stay local because every shard's
@@ -18,8 +17,9 @@ output rows cropped: output row j in 1..h reads padded rows j-1..j+1,
 all inside the halo'd tensor, so it equals the JAX package's
 VALID-in-H conv. Its backward is the same on the gradient with the
 flipped stencil (:class:`_HaloConvFn`), as the JAX ``_halo_frozen_bwd``.
-Each shard's Gram partial is ``ops/gram.gram_raw`` (the Gram kernel at
-clamp ``inf``, as a band's partial in ``ops/tiled.py``). On the card
+Each shard's Gram partials are ``ops/gram.gram_raw_batched`` (the
+batched Gram kernel at clamp ``inf``, one raw sum per image, as a
+band's partial in ``ops/tiled.py``). On the card
 every conv and Gram is a kernel launch; on the CPU their plain
 versions run.
 
@@ -35,9 +35,17 @@ Every rank must issue the same collectives in the same order, the
 backward's included: a rank's graph never drops a collective's output
 (the last rank's TV seam is masked with ``torch.where``, not skipped).
 
+The loss is per image (:func:`make_spatial_loss`): a single run is a
+batch of one, and the multi-style batch over a style x space mesh
+(:func:`build_dp_sp_update`) runs a rank's block of styles as one batch
+of images, each style layer one batched launch and one sum over the
+row for every image, each style's optimizer decisions reduced over the
+row. Styles never communicate during a step.
+
 ``Mesh.rows`` and ``Mesh.shard`` take the place of the JAX
 ``spatial_shardings``: a rank's rows follow from its index and the
-mesh's size alone.
+mesh's size alone, its styles from its style row
+(``Mesh.styles``, ``Mesh.style_block``).
 """
 from __future__ import annotations
 
@@ -49,6 +57,7 @@ import torch.nn.functional as F  # noqa: N812
 from style_transfer_visualizer_tpu_torch.constants import (
     GRAM_MATRIX_CLAMP_MAX,
 )
+from style_transfer_visualizer_tpu_torch.engine.step import StepBundle
 from style_transfer_visualizer_tpu_torch.models.arch import (
     CONV,
     POOL,
@@ -65,7 +74,7 @@ from style_transfer_visualizer_tpu_torch.models.features import (
 )
 from style_transfer_visualizer_tpu_torch.models.vgg19 import Params
 from style_transfer_visualizer_tpu_torch.ops.conv3x3 import conv3x3_apply
-from style_transfer_visualizer_tpu_torch.ops.gram import gram_raw
+from style_transfer_visualizer_tpu_torch.ops.gram import gram_raw_batched
 from style_transfer_visualizer_tpu_torch.ops.lap import (
     _avg_pool,
     lap_response,
@@ -80,6 +89,9 @@ from style_transfer_visualizer_tpu_torch.ops.precision import (
     kernel_mode,
 )
 from style_transfer_visualizer_tpu_torch.parallel.mesh import Mesh
+from style_transfer_visualizer_tpu_torch.parallel.multistyle import (
+    build_multi_style_update,
+)
 
 LAYER_TABLE = VGG19.layer_table
 
@@ -320,20 +332,20 @@ def sharded_extract_features(
     return acts
 
 
-def sharded_gram(
+def sharded_grams(
     features: torch.Tensor,
-    global_pixels: int,
+    layer_pixels: int,
     mesh: Mesh,
-    *,
-    clamp_max: float = GRAM_MATRIX_CLAMP_MAX,
     precision: PrecisionLike = MIXED,
 ) -> torch.Tensor:
-    """The global Gram from row-sharded features: the ranks' raw
-    partials summed, then clamped, then divided by ``global_pixels``
-    (B * H * W of the whole map) times C, the whole image's order."""
+    """Each image's global Gram from row-sharded features, ``(N, C,
+    C)`` for the rows of N images: the ranks' raw partials (one
+    batched launch) summed over the row in one collective, then
+    clamped, then divided by ``layer_pixels`` (H * W of one image's
+    whole map) times C, the whole image's order."""
     c = features.shape[-1]
-    raw = psum(gram_raw(features.contiguous(), precision), mesh)
-    return torch.clamp(raw, max=clamp_max) / (global_pixels * c)
+    raw = psum(gram_raw_batched(features.contiguous(), precision), mesh)
+    return torch.clamp(raw, max=GRAM_MATRIX_CLAMP_MAX) / (layer_pixels * c)
 
 
 def sharded_tv(
@@ -341,29 +353,30 @@ def sharded_tv(
     global_shape: tuple[int, ...],
     mesh: Mesh,
 ) -> torch.Tensor:
-    """``ops.tv.tv_loss`` of the whole image from each rank's rows.
+    """``ops.tv.tv_loss`` of each whole image from each rank's rows:
+    ``(N,)`` for the ``(N, h, W, C)`` rows of N images of
+    ``global_shape`` ``(1, H, W, C)`` each.
 
     Horizontal differences are local; each rank adds the seam between
     its last row and the next rank's first, masked on the last rank.
-    The sums add over the ranks and divide by the global counts.
+    Each image's two sums add over the ranks in one collective and
+    divide by the whole image's counts.
     """
-    b, gh, gw, c = (int(d) for d in global_shape)
+    _, gh, gw, c = (int(d) for d in global_shape)
     xf = x.float()
-    local_dx = torch.sum(torch.square(xf[:, :, 1:] - xf[:, :, :-1]))
-    local_dy = torch.sum(torch.square(xf[:, 1:] - xf[:, :-1]))
+    dims = (1, 2, 3)
+    local_dx = torch.sum(torch.square(xf[:, :, 1:] - xf[:, :, :-1]), dims)
+    local_dy = torch.sum(torch.square(xf[:, 1:] - xf[:, :-1]), dims)
     if mesh.size > 1:
         below_top = exchange_halos(xf, mesh)[:, -1:]
-        seam = torch.sum(torch.square(below_top - xf[:, -1:]))
+        seam = torch.sum(torch.square(below_top - xf[:, -1:]), dims)
         interior = torch.full(
             (), mesh.index < mesh.size - 1, dtype=torch.bool,
             device=x.device,
         )
         local_dy = local_dy + torch.where(interior, seam, 0.0)
-    sum_dx = psum(local_dx, mesh)
-    sum_dy = psum(local_dy, mesh)
-    return sum_dy / (b * (gh - 1) * gw * c) + sum_dx / (
-        b * gh * (gw - 1) * c
-    )
+    sum_dy, sum_dx = psum(torch.stack([local_dy, local_dx]), mesh)
+    return sum_dy / ((gh - 1) * gw * c) + sum_dx / (gh * (gw - 1) * c)
 
 
 def sharded_lap(
@@ -374,7 +387,8 @@ def sharded_lap(
     *,
     pool: int = 4,
 ) -> torch.Tensor:
-    """``ops.lap.lap_loss`` of the whole image from each rank's rows.
+    """``ops.lap.lap_loss`` of each whole image from each rank's rows:
+    ``(N,)``, as :func:`sharded_tv`.
 
     Each rank mean-pools its rows (exact: shard heights divide
     ``pool``), takes a pooled halo row from each neighbour and runs the
@@ -382,9 +396,9 @@ def sharded_lap(
     row. Pooled rows 0 and ``hp - 1``, whose stencil leaves the image,
     are masked; the sums add over the ranks and divide by the whole
     image's response count. ``target_pad`` is this rank's rows of
-    :func:`padded_lap_target`.
+    :func:`padded_lap_target`, one content's for every image.
     """
-    b, gh, gw, c = (int(d) for d in global_shape)
+    _, gh, gw, c = (int(d) for d in global_shape)
     hp, wp = gh // pool, gw // pool
     xp = _avg_pool(x.float(), pool)
     local_hp = int(xp.shape[1])
@@ -395,8 +409,8 @@ def sharded_lap(
     )
     valid = ((global_row >= 1) & (global_row <= hp - 2)).to(diff.dtype)
     masked = torch.square(diff) * valid[None, :, None, None]
-    total = psum(torch.sum(masked), mesh)
-    return total / (b * (hp - 2) * (wp - 2) * c)
+    total = psum(torch.sum(masked, (1, 2, 3)), mesh)
+    return total / ((hp - 2) * (wp - 2) * c)
 
 
 def _sharded_loss(
@@ -416,8 +430,17 @@ def _sharded_loss(
     lap_w: float,
     lap_pool: int,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """One rank's evaluation of the replicated ``(total, (style,
-    content))``; TV and Laplacian add to the total only."""
+    """One rank's evaluation of each image's replicated ``(total,
+    (style, content))``, each ``(N,)``; TV and Laplacian add to the
+    total only.
+
+    ``x`` is the rows of N images of ``global_shape`` ``(1, H, W, 3)``;
+    ``targets`` holds ``(N, C, C)`` Grams and ``(N, 1, h, w, C)`` rows
+    of the content features (a broadcast view serves). Each style
+    layer is one batched launch of the raw partials and one sum over
+    the ranks for all N images; each content layer, the TV and the
+    Laplacian term one sum each.
+    """
     weight_of = dict(zip(
         style_layers, _resolve_style_weights(style_weights, style_layers),
         strict=True,
@@ -425,33 +448,37 @@ def _sharded_loss(
     table = layer_table_from_params(params)
     taps = tuple(sorted(set(style_layers) | set(content_layers)))
     acts = sharded_extract_features(params, x, taps, mesh, precision)
-    style_score = torch.zeros((), dtype=torch.float32, device=x.device)
-    content_score = torch.zeros((), dtype=torch.float32, device=x.device)
-    b, gh, gw, _ = global_shape
+    zero = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    style_score = content_score = zero
+    _, gh, gw, _ = global_shape
     for idx in taps:
         scale = 2 ** pools_before_in(table, idx)
         layer_h, layer_w = gh // scale, gw // scale
+        act = acts[idx]
+        c = act.shape[-1]
         if idx in style_layers:
-            gram = sharded_gram(
-                acts[idx], b * layer_h * layer_w, mesh, precision=precision,
-            )
+            gram = sharded_grams(act, layer_h * layer_w, mesh, precision)
             style_score = style_score + _weighted(
                 weight_of[idx],
-                torch.mean(torch.square(gram - targets.style_grams[idx])),
+                torch.mean(
+                    torch.square(gram - targets.style_grams[idx]), (1, 2),
+                ),
             )
         if idx in content_layers:
             local_sq = torch.sum(
-                torch.square(acts[idx] - targets.content_feats[idx]),
+                torch.square(act - targets.content_feats[idx][:, 0]),
+                (1, 2, 3),
             )
-            n_elems = b * layer_h * layer_w * acts[idx].shape[-1]
-            content_score = content_score + psum(local_sq, mesh) / n_elems
+            content_score = content_score + psum(local_sq, mesh) / (
+                layer_h * layer_w * c
+            )
     total = style_w * style_score + content_w * content_score
     if tv_w:
         total = total + tv_w * sharded_tv(x, global_shape, mesh)
     if lap_w:
         total = total + lap_w * sharded_lap(
-            x, targets.content_feats[LAP_RESPONSE_KEY], global_shape, mesh,
-            pool=lap_pool,
+            x, targets.content_feats[LAP_RESPONSE_KEY][:, 0], global_shape,
+            mesh, pool=lap_pool,
         )
     return total, (style_score, content_score)
 
@@ -470,6 +497,7 @@ def make_spatial_loss(
     style_weights: tuple[float, ...] | None = None,
     lap_w: float = 0.0,
     lap_pool: int = 4,
+    per_image: bool = False,
 ):
     """The row-sharded loss with the whole image's contract.
 
@@ -482,6 +510,11 @@ def make_spatial_loss(
     :func:`padded_lap_target` under ``LAP_RESPONSE_KEY`` when
     ``lap_w`` is set. The divisibility checks run here, against
     ``table``.
+
+    ``per_image=True`` gives the batch's form (:func:`build_dp_sp_update`):
+    ``image`` is the rows of N images of ``global_shape`` each, the
+    targets carry a leading axis of N (``(N, C, C)`` Grams, ``(N, 1,
+    h, w, C)`` feature rows), and every value is ``(N,)``.
     """
     validate_shard_divisibility(
         int(global_shape[1]), mesh.size,
@@ -500,11 +533,98 @@ def make_spatial_loss(
         "style_weights": style_weights, "lap_w": lap_w,
         "lap_pool": lap_pool,
     }
+    if per_image:
+        def loss_fn(params: Params, image: torch.Tensor, targets: Targets):
+            return _sharded_loss(params, image, targets, mesh, **settings)
 
-    def loss_fn(params: Params, image: torch.Tensor, targets: Targets):
-        return _sharded_loss(params, image, targets, mesh, **settings)
+        return loss_fn
 
-    return loss_fn
+    def single_loss_fn(params: Params, image: torch.Tensor, targets: Targets):
+        # The whole image is a batch of one.
+        one = Targets(
+            style_grams={k: g[None] for k, g in targets.style_grams.items()},
+            content_feats={
+                k: f[None] for k, f in targets.content_feats.items()
+            },
+        )
+        total, (style, content) = _sharded_loss(
+            params, image, one, mesh, **settings,
+        )
+        return total[0], (style[0], content[0])
+
+    return single_loss_fn
+
+
+def build_dp_sp_update(
+    mesh: Mesh,
+    params: Params,
+    stacked_targets: Targets,
+    image_shape: tuple[int, ...],
+    n_styles: int,
+    *,
+    optimizer: str = "adam",
+    lr: float = 0.05,
+    style_w: float = 1e4,
+    content_w: float = 1.0,
+    style_layers: tuple[int, ...] = (0, 5),
+    content_layers: tuple[int, ...] = (2,),
+    precision: PrecisionLike = MIXED,
+    lbfgs_max_iter: int = 1,
+    lbfgs_max_eval: int = 1,
+    lbfgs_history_size: int = 100,
+    lbfgs_history_dtype: str = "float32",
+    lbfgs_direction: str = "two-loop",
+    tv_w: float = 0.0,
+    style_weights: tuple[float, ...] | None = None,
+    lap_w: float = 0.0,
+    lap_pool: int = 4,
+) -> StepBundle:
+    """The step of an ``n_styles`` batch over both mesh axes (dp x sp).
+
+    The JAX package's ``build_dp_sp_update``: this rank holds styles
+    ``mesh.styles(n_styles)`` and, of each, rows ``mesh.rows(H)`` of
+    the ``image_shape`` ``(1, H, W, 3)`` image; its update takes the
+    ``(S_local, 1, h, W, 3)`` block and gives ``(S_local,)`` metrics.
+    ``stacked_targets`` are the block's: ``(S_local, C, C)`` whole
+    Grams and ``(S_local, 1, h, w, C)`` rows of the content features
+    (a broadcast of one content's serves), with the padded Laplacian
+    target's rows under ``LAP_RESPONSE_KEY`` when ``lap_w`` is set.
+
+    The block goes through the sharded features as one batch of
+    S_local images: halo convs over the row, each style layer's raw
+    partials in one batched launch and summed over the row in one
+    collective (:func:`make_spatial_loss` with ``per_image``). Adam is
+    shard-local, with no gradient collective; L-BFGS reduces each
+    style's scalars over the row (``lbfgs_step_batched(mesh=)``).
+    Styles never communicate during a step. No remat: a shard is the
+    memory cut. Returns the port's ``StepBundle``; the step is eager
+    when the row holds a group.
+    """
+    if n_styles % mesh.style_size:
+        msg = (
+            f"{n_styles} styles do not split over a style axis of "
+            f"{mesh.style_size}"
+        )
+        raise ValueError(msg)
+    b, h, w, c = (int(d) for d in image_shape)
+    loss_fn = make_spatial_loss(
+        mesh, (b, h, w, c), style_w=style_w, content_w=content_w,
+        style_layers=tuple(style_layers),
+        content_layers=tuple(content_layers), precision=precision,
+        tv_w=tv_w, table=layer_table_from_params(params),
+        style_weights=style_weights, lap_w=lap_w, lap_pool=lap_pool,
+        per_image=True,
+    )
+    return build_multi_style_update(
+        params, stacked_targets, (b, h // mesh.size, w, c),
+        n_styles // mesh.style_size,
+        optimizer=optimizer, lr=lr,
+        lbfgs_max_iter=lbfgs_max_iter, lbfgs_max_eval=lbfgs_max_eval,
+        lbfgs_history_size=lbfgs_history_size,
+        lbfgs_history_dtype=lbfgs_history_dtype,
+        lbfgs_direction=lbfgs_direction, precision=precision,
+        loss_fn=loss_fn, mesh=mesh,
+    )
 
 
 @torch.no_grad()
@@ -518,9 +638,9 @@ def compute_sharded_targets(
     *,
     precision: PrecisionLike = MIXED,
 ) -> Targets:
-    """Targets from each rank's rows of the style and content images:
-    the style Grams summed over the ranks (replicated), the content
-    features left in rows."""
+    """Targets from each rank's rows of one style image and of the
+    content image: the style Grams summed over the ranks (replicated),
+    the content features left in rows."""
     taps = tuple(set(style_layers) | set(content_layers))
     table = layer_table_from_params(params)
     for rows in (content_rows, style_rows):
@@ -533,33 +653,38 @@ def compute_sharded_targets(
     content_acts = sharded_extract_features(
         params, content_rows, tuple(content_layers), mesh, precision,
     )
-    sb, sh, sw, _ = style_rows.shape
+    _, sh, sw, _ = style_rows.shape
     grams = {}
     for idx, act in style_acts.items():
         scale = 2 ** pools_before_in(table, idx)
-        grams[idx] = sharded_gram(
-            act, sb * (sh * mesh.size // scale) * (sw // scale), mesh,
-            precision=precision,
-        )
+        grams[idx] = sharded_grams(
+            act, (sh * mesh.size // scale) * (sw // scale), mesh, precision,
+        )[0]
     return Targets(style_grams=grams, content_feats=dict(content_acts))
 
 
 #: The optimizer state's fields that hold image rows, and the axis of
 #: their rows: the L-BFGS vectors are the flattened image (one shard's
-#: rows are one block of it), Adam's moments the image's own shape.
+#: rows are one block of it), Adam's moments the image's own NHWC shape
+#: (rows third from the end: axis 1 of a single run's ``(1, H, W, 3)``,
+#: axis 2 of the batch's ``(S, 1, H, W, 3)``).
 ROW_FIELDS = {
     "s_hist": -1, "y_hist": -1, "prev_grad": -1, "direction": -1,
-    "mu": 1, "nu": 1,
+    "mu": -3, "nu": -3,
 }
 
 
 def gather_state(mesh: Mesh, state):
     """The whole run's optimizer state from each rank's, on every rank
-    (a checkpoint's layout: the whole image's)."""
-    return dataclasses.replace(state, **{
-        f.name: mesh.gather(getattr(state, f.name), ROW_FIELDS[f.name])
-        for f in dataclasses.fields(state) if f.name in ROW_FIELDS
-    })
+    (a checkpoint's layout: the whole image's, and with a style axis
+    the whole batch's, every field's styles on axis 0)."""
+    out = {}
+    for f in dataclasses.fields(state):
+        value = getattr(state, f.name)
+        if f.name in ROW_FIELDS:
+            value = mesh.gather(value, ROW_FIELDS[f.name])
+        out[f.name] = mesh.gather_styles(value)
+    return type(state)(**out)
 
 
 def shard_state(mesh: Mesh, state):
@@ -567,6 +692,8 @@ def shard_state(mesh: Mesh, state):
     out = {}
     for f in dataclasses.fields(state):
         value = getattr(state, f.name)
+        if mesh.style_size > 1:
+            value = mesh.style_block(value)
         out[f.name] = (
             mesh.shard(value, ROW_FIELDS[f.name]) if f.name in ROW_FIELDS
             else value.to(mesh.device)
@@ -584,5 +711,7 @@ def whole_state_like(mesh: Mesh, state):
         shape = list(value.shape)
         if f.name in ROW_FIELDS:
             shape[ROW_FIELDS[f.name]] *= mesh.size
+        if mesh.style_size > 1:
+            shape[0] *= mesh.style_size
         out[f.name] = torch.empty(shape, dtype=value.dtype, device="meta")
     return type(state)(**out)

@@ -427,7 +427,7 @@ def stylize_sequence(
                 "max_frames": max_frames, "frame_stride": frame_stride,
             },
         )
-    writes = mesh is None or mesh.is_root
+    writes = mesh is None or mesh.writes
     opt = config.optimization
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
@@ -689,7 +689,7 @@ def _stylize_frames(
             )
             # A fresh uint8 tensor that no later step writes, copied to
             # the host behind this frame's steps.
-            if spatial is None or spatial.mesh.is_root:
+            if spatial is None or spatial.mesh.writes:
                 saver.submit(
                     image_io.pack_uint8_frame(
                         maybe_restore_color(

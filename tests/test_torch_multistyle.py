@@ -504,7 +504,9 @@ def test_batch_takes_the_auto_warm_start(monkeypatch, size, runs) -> None:
     seen = {}
 
     def fake_multi_coarse_init(params, content_img, style_imgs, config,
-                               generator):
+                               generator, **block):
+        # One process holds the whole batch: its block is all of it.
+        assert block == {"first": 0, "n_drawn": len(style_imgs)}
         opt = config.optimization
         seen["coarse_steps"] = opt.coarse_steps
         seen["schedule"] = coarse.plan_pyramid(

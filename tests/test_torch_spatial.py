@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from style_transfer_visualizer_tpu.models import features as jax_features
 from style_transfer_visualizer_tpu.parallel import mesh as jax_mesh
@@ -396,9 +397,24 @@ def test_padded_lap_target_matches_jax() -> None:
     np.testing.assert_allclose(ours, ref, rtol=1e-6, atol=1e-6)
 
 
-def test_a_style_axis_waits_for_its_queue_item() -> None:
-    with pytest.raises(NotImplementedError, match="Batch over cards"):
-        mesh.create_mesh(n_style=2, n_space=2)
+def test_a_style_axis_waits_for_its_queue_item(tmp_path) -> None:
+    """A style axis is built, not refused (its 2 x 2 runs are
+    ``tests/test_torch_batch_mesh.py``'s): in one process, the mesh of
+    a one-rank group, and the rank count a 2 x 2 mesh needs."""
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp_path / 'rendezvous'}",
+        world_size=1, rank=0,
+    )
+    try:
+        one = mesh.create_mesh(1, 1, device="cpu")
+        assert (one.style_index, one.style_size, one.index, one.size) == (
+            0, 1, 0, 1,
+        )
+        assert one.writes and one.is_root
+        with pytest.raises(ValueError, match="Mesh 2x2 needs 4 devices"):
+            mesh.create_mesh(n_style=2, n_space=2, device="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def test_single_device_mesh_runs_the_loss_without_collectives() -> None:

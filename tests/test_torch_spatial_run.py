@@ -16,7 +16,8 @@ they are held to run in this process. Gates:
 - the sweep's and the sequence's frame 0 sharded against their whole
   frame 0, within the control;
 - the refusals: ``tile_rows``, regional masks (the JAX package's
-  messages), the batch (its queue item) and too few cards;
+  messages) and too few cards; the batch with ``spatial_shards``, which
+  now runs over a style x space mesh;
 - ``--spatial-shards`` on both CLIs and ``hardware.spatial_shards`` in
   the TOML, which start the ranks themselves.
 """
@@ -327,12 +328,21 @@ def test_regional_is_refused_with_the_jax_message(tmp_path, inputs) -> None:
 
 
 def test_the_batch_waits_for_its_queue_item(tmp_path, inputs) -> None:
+    """The batch with ``spatial_shards`` runs over a style x space mesh:
+    the entry point starts its 2 x 2 ranks and world rank 0 writes
+    both PNGs; ``prepare_multi_style``, whose step is bound to a rank's
+    process group, takes each rank's mesh and points there without
+    one (its ranks run in ``tests/test_torch_batch_mesh.py``)."""
     styles = [str(inputs["style"]), str(inputs["style2"])]
-    with pytest.raises(NotImplementedError, match="Batch over cards"):
-        main.multi_style_transfer(
-            str(inputs["content"]), styles, _config(tmp_path, SHARDS),
-        )
-    with pytest.raises(NotImplementedError, match="Batch over cards"):
+    saved = main.multi_style_transfer(
+        str(inputs["content"]), styles, _config(tmp_path, SHARDS, steps=2),
+    )
+    assert [p.name for p in saved] == [
+        "stylized_content_x_style.png", "stylized_content_x_style2.png",
+    ]
+    for path in saved:
+        assert path.is_file()
+    with pytest.raises(ValueError, match="pass each rank's mesh"):
         main.prepare_multi_style(
             _host(inputs["content"]), [_host(p) for p in styles],
             _config(tmp_path, SHARDS),

@@ -166,7 +166,7 @@ def run_battery(jobs: dict, *, mesh: Mesh) -> dict:
             paths, config = args
             image = main.style_transfer(paths, config, mesh=mesh, **kwargs)
             out[name] = {"image": _np(image)}
-            if config.output.log_loss and mesh.is_root:
+            if config.output.log_loss and mesh.writes:
                 out[name]["curve"] = _read_csv(Path(config.output.log_loss))
         elif kind == "sweep":
             result = blend_sweep.stylize_blend_sweep(
