@@ -14,6 +14,8 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
+from style_transfer_visualizer_tpu_torch.utils.trace import span
+
 if TYPE_CHECKING:
     from style_transfer_visualizer_tpu_torch.type_defs import LossHistory
 
@@ -133,7 +135,8 @@ class LossAccumulator:
         }
         if not self._track_history or self._count == 0:
             return empty
-        buf = self._buffer.cpu().numpy()
+        with span("stv.loop.read"):
+            buf = self._buffer.cpu().numpy()
         start = (self._write_index - self._count) % self._capacity
         rows = np.take(
             buf, (start + np.arange(self._count)) % self._capacity, axis=0,
@@ -175,8 +178,9 @@ class LossAccumulator:
             return None
         step_idx, style, content, total = self._pending
         # One transfer for all three scalars.
-        vals = torch.stack([style, content, total]).to(torch.float32)
-        style_f, content_f, total_f = vals.tolist()
+        with span("stv.loop.read"):
+            vals = torch.stack([style, content, total]).to(torch.float32)
+            style_f, content_f, total_f = vals.tolist()
         logged = LoggedLoss(
             step=step_idx,
             style_loss=style_f,

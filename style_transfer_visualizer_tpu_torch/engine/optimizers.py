@@ -54,6 +54,8 @@ from dataclasses import dataclass
 
 import torch
 
+from style_transfer_visualizer_tpu_torch.utils.trace import span
+
 TOLERANCE_GRAD = 1e-7
 TOLERANCE_CHANGE = 1e-9
 _CURVATURE_EPS = 1e-10
@@ -366,7 +368,10 @@ def lbfgs_step(
         do_insert = active & ~first & (ys > _CURVATURE_EPS)
         _insert_pair(st, s, y, ys, yy, do_insert)
 
-        direction = torch.where(first, -grad, direction_fn(grad, st, mesh))
+        with span("stv.step.direction"):
+            direction = torch.where(
+                first, -grad, direction_fn(grad, st, mesh),
+            )
         l1, gtd = _sums(mesh, grad.abs().sum(), torch.dot(grad, direction))
         t = torch.where(
             first,
@@ -602,10 +607,12 @@ def lbfgs_step_batched(
         do_insert = active & ~first & (ys > _CURVATURE_EPS)
         _insert_pair_batched(st, s, y, ys, yy, do_insert)
 
-        directions = torch.stack([
-            direction_fn(g, _style(st, i), mesh) for i, g in enumerate(grad)
-        ])
-        direction = torch.where(first[:, None], -grad, directions)
+        with span("stv.step.direction"):
+            directions = torch.stack([
+                direction_fn(g, _style(st, i), mesh)
+                for i, g in enumerate(grad)
+            ])
+            direction = torch.where(first[:, None], -grad, directions)
         l1, gtd = _sums(
             mesh, torch.stack([g.abs().sum() for g in grad]),
             _dots(grad, direction),

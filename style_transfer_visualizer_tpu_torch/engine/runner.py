@@ -75,6 +75,7 @@ from style_transfer_visualizer_tpu_torch.runtime.checkpoint import (
     save_checkpoint,
 )
 from style_transfer_visualizer_tpu_torch.utils.logging import logger
+from style_transfer_visualizer_tpu_torch.utils.trace import span, spanned
 
 # Upper bound on steps per chunk (the progress granularity).
 _MAX_CHUNK = 50
@@ -307,6 +308,7 @@ class OptimizationRunner:
         """Most recent host-synced loss row (None before first cadence)."""
         return self._latest_logged
 
+    @spanned("stv.loop")
     def run(self) -> tuple[torch.Tensor, LossHistory, float]:
         """Execute the loop; return (image, loss history, elapsed seconds)."""
         if self._progress_bar is None:
@@ -345,17 +347,21 @@ class OptimizationRunner:
         finally:
             self._cleanup()
 
-        if self.input_img.is_cuda:
-            torch.cuda.synchronize(self.input_img.device)
-        elapsed = time.perf_counter() - start_time
-        self._log_summary()
+        with span("stv.loop.final"):
+            if self.input_img.is_cuda:
+                torch.cuda.synchronize(self.input_img.device)
+            elapsed = time.perf_counter() - start_time
+            self._log_summary()
 
-        history: LossHistory
-        if self._accumulator is not None and self._accumulator.tracks_history:
-            history = self._accumulator.export_history()
-        else:
-            history = {}
-        return self._whole(self.input_img), history, elapsed
+            history: LossHistory
+            if (
+                self._accumulator is not None
+                and self._accumulator.tracks_history
+            ):
+                history = self._accumulator.export_history()
+            else:
+                history = {}
+            return self._whole(self.input_img), history, elapsed
 
     # ------------------------------------------------------------------
     # internals
@@ -493,11 +499,14 @@ class OptimizationRunner:
         ):
             return
         image, state = self.input_img, self.opt_state
-        if self._mesh is not None:
-            image = self._mesh.gather(image)
-            state = gather_state(self._mesh, state)
-        if self._writes:
-            save_checkpoint(self._checkpoint_path, step_idx, image, state)
+        with span("stv.loop.checkpoint"):
+            if self._mesh is not None:
+                image = self._mesh.gather(image)
+                state = gather_state(self._mesh, state)
+            if self._writes:
+                save_checkpoint(
+                    self._checkpoint_path, step_idx, image, state,
+                )
 
     def _after_record(
         self, step_idx: int, logged: LoggedLoss | None,
@@ -558,7 +567,8 @@ class OptimizationRunner:
                 lambda frame, m=metrics: self._deliver_frame(frame, m),
             )
         else:
-            self._deliver_frame(device_frame.cpu().numpy(), metrics)
+            with span("stv.frames.submit"):
+                self._deliver_frame(device_frame.cpu().numpy(), metrics)
 
     def _deliver_frame(self, img_np: np.ndarray, metrics: StepMetrics) -> None:
         if (

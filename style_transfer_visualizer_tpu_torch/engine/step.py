@@ -59,6 +59,7 @@ from style_transfer_visualizer_tpu_torch.ops.precision import (
 )
 from style_transfer_visualizer_tpu_torch.ops.tiled import tiled_total_loss
 from style_transfer_visualizer_tpu_torch.ops.tv import tv_loss
+from style_transfer_visualizer_tpu_torch.utils.trace import span, spanned
 
 HISTORY_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -568,10 +569,11 @@ class GraphedChunk:
         device (the CPU's dispatch, and the card's reference)."""
         *extra, k = rest
         auxes: list[StepAux] = []
-        for _ in range(k):
-            image, state, aux = self.update_fn(image, state, *extra)
-            auxes.append(aux)
-        return image, state, _stack_aux(auxes)
+        with span("stv.dispatch.eager"):
+            for _ in range(k):
+                image, state, aux = self.update_fn(image, state, *extra)
+                auxes.append(aux)
+            return image, state, _stack_aux(auxes)
 
     def __call__(self, image: torch.Tensor, state, *rest):
         """Run ``k`` (the last argument) steps; ``(image, state, aux)``."""
@@ -594,9 +596,10 @@ class GraphedChunk:
         if first is not None:
             buf[0].copy_(first)
             done = 1
-        for j in range(done, k):
-            entry.graph.replay()
-            buf[j].copy_(entry.packed)
+        with span("stv.dispatch.replay"):
+            for j in range(done, k):
+                entry.graph.replay()
+                buf[j].copy_(entry.packed)
         aux = StepAux(*(
             buf[:, i].to(dtype) for i, dtype in enumerate(entry.aux_dtypes)
         ))
@@ -666,12 +669,13 @@ class GraphedChunk:
         self._entry = entry
         return entry, first
 
+    @spanned("stv.dispatch.capture")
     def _capture(self, key, image, state, extra):
         device = image.device
         stream = _side_stream(device)
         current = torch.cuda.current_stream(device)
         stream.wait_stream(current)
-        with torch.cuda.stream(stream):
+        with span("stv.dispatch.warmup"), torch.cuda.stream(stream):
             # The warm-up: the run's next step, eagerly, on the stream
             # the capture will use.
             img, st, aux = self.update_fn(image, state, *extra)
@@ -682,32 +686,36 @@ class GraphedChunk:
         current.wait_stream(stream)
         for t in (img, first, *(getattr(st, f) for f in _state_fields(st))):
             t.record_stream(current)
-        # The capture allocates from the graph pool only, and while it
-        # captures the allocator cannot hand back the default pool's
-        # cached blocks: the warm-up's freed temporaries go back to the
-        # card first, so a step that fits once fits its capture too.
-        torch.cuda.empty_cache()
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph, pool=_pool(device), stream=stream):
-                new_img, new_st, new_aux = self.update_fn(
-                    img, dataclasses.replace(st), *extra,
+        with span("stv.dispatch.graph"):
+            # The capture allocates from the graph pool only, and while
+            # it captures the allocator cannot hand back the default
+            # pool's cached blocks: the warm-up's freed temporaries go
+            # back to the card first, so a step that fits once fits its
+            # capture too.
+            torch.cuda.empty_cache()
+            graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
+            try:
+                with torch.cuda.graph(
+                    graph, pool=_pool(device), stream=stream,
+                ):
+                    new_img, new_st, new_aux = self.update_fn(
+                        img, dataclasses.replace(st), *extra,
+                    )
+                    img.copy_(new_img)
+                    for f in _state_fields(st):
+                        src = getattr(new_st, f)
+                        dst = getattr(st, f)
+                        if src is not dst:
+                            dst.copy_(src)
+                    packed = _pack_aux(new_aux)
+            except Exception as exc:
+                msg = (
+                    "capturing the step in a CUDA graph failed; a CUDA "
+                    "step is never run eagerly instead"
                 )
-                img.copy_(new_img)
-                for f in _state_fields(st):
-                    src = getattr(new_st, f)
-                    dst = getattr(st, f)
-                    if src is not dst:
-                        dst.copy_(src)
-                packed = _pack_aux(new_aux)
-        except Exception as exc:
-            msg = (
-                "capturing the step in a CUDA graph failed; a CUDA step "
-                "is never run eagerly instead"
-            )
-            raise RuntimeError(msg) from exc
-        self.capture_seconds.append(time.perf_counter() - t0)
+                raise RuntimeError(msg) from exc
+            self.capture_seconds.append(time.perf_counter() - t0)
         return _Captured(
             key=key, extra=extra, graph=graph, image=img, state=st,
             packed=packed,

@@ -25,7 +25,8 @@ Every one of them takes ``config.output``'s checkpoints
 (``checkpoint_every``, ``checkpoint_path``, by default
 ``<output>/checkpoint.npz``), resumes from ``resume_from`` (the warm
 start is then skipped: the checkpoint's image replaces any start) and
-traces its step loop with ``torch.profiler`` into ``profile_dir``.
+traces its entry and step loop with ``torch.profiler`` into
+``profile_dir``.
 
 The single run's memory policy is the JAX package's, at the H100's
 thresholds (``constants.py``): ``tile_rows`` (:func:`_resolve_tile_rows`)
@@ -153,6 +154,7 @@ from style_transfer_visualizer_tpu_torch.runtime.validation import (
 )
 from style_transfer_visualizer_tpu_torch.type_defs import SaveOptions
 from style_transfer_visualizer_tpu_torch.utils.logging import logger
+from style_transfer_visualizer_tpu_torch.utils.trace import span, spanned
 from style_transfer_visualizer_tpu_torch.visualization.metrics import (
     plot_loss_curves,
 )
@@ -202,6 +204,7 @@ def check_spatial(config: StyleTransferConfig, mesh: Mesh | None) -> bool:
     return n_space > 1
 
 
+@spanned("stv.entry")
 def prepare_model_and_input(
     content: np.ndarray,
     style: np.ndarray,
@@ -297,48 +300,51 @@ def prepare_model_and_input(
             precision=precision,
         )
 
-    targets = targets_maybe_blended(
-        one_targets, style_img, content_layers, blend_imgs,
-    )
-    lap_target = (
-        lap_response(content_img, opt.lap_pool) if opt.lap_w else None
-    )
+    with span("stv.entry.targets"):
+        targets = targets_maybe_blended(
+            one_targets, style_img, content_layers, blend_imgs,
+        )
+        lap_target = (
+            lap_response(content_img, opt.lap_pool) if opt.lap_w else None
+        )
     # The warm start runs before the full-size step exists, so its
     # levels never share the card with the full-size optimizer state.
-    input_img = _initial_image(
-        params, content_img, style_img, config, generator,
-        blend_imgs=blend_imgs,
-    )
+    with span("stv.entry.start"):
+        input_img = _initial_image(
+            params, content_img, style_img, config, generator,
+            blend_imgs=blend_imgs,
+        )
     remat = resolve_single_remat(height, width, tile_rows, opt.remat)
     if remat and not opt.remat:
         logger.info(
             "Auto-enabling feature rematerialization for %dx%d input.",
             width, height,
         )
-    bundle = build_update_step(
-        params,
-        targets,
-        tuple(content_img.shape),
-        optimizer=opt.optimizer,
-        lr=opt.lr,
-        style_w=opt.style_w,
-        content_w=opt.content_w,
-        tv_w=opt.tv_w,
-        lap_w=opt.lap_w,
-        lap_pool=opt.lap_pool,
-        lap_target=lap_target,
-        style_layers=style_layers,
-        content_layers=content_layers,
-        style_weights=opt.style_weights_tuple(),
-        lbfgs_max_iter=opt.lbfgs_max_iter,
-        lbfgs_max_eval=opt.lbfgs_max_eval,
-        lbfgs_history_size=opt.lbfgs_history_size,
-        lbfgs_history_dtype=opt.lbfgs_history_dtype,
-        lbfgs_direction=opt.lbfgs_direction,
-        precision=precision,
-        remat=remat,
-        tile_rows=tile_rows,
-    )
+    with span("stv.entry.build"):
+        bundle = build_update_step(
+            params,
+            targets,
+            tuple(content_img.shape),
+            optimizer=opt.optimizer,
+            lr=opt.lr,
+            style_w=opt.style_w,
+            content_w=opt.content_w,
+            tv_w=opt.tv_w,
+            lap_w=opt.lap_w,
+            lap_pool=opt.lap_pool,
+            lap_target=lap_target,
+            style_layers=style_layers,
+            content_layers=content_layers,
+            style_weights=opt.style_weights_tuple(),
+            lbfgs_max_iter=opt.lbfgs_max_iter,
+            lbfgs_max_eval=opt.lbfgs_max_eval,
+            lbfgs_history_size=opt.lbfgs_history_size,
+            lbfgs_history_dtype=opt.lbfgs_history_dtype,
+            lbfgs_direction=opt.lbfgs_direction,
+            precision=precision,
+            remat=remat,
+            tile_rows=tile_rows,
+        )
     return bundle, input_img
 
 
@@ -366,43 +372,45 @@ def _prepare_spatial(
     precision = resolve_precision(config.hardware.precision)
     style_layers = tuple(opt.style_layers)
     loss_fn = spatial_loss(config, params, tuple(content_img.shape), mesh)
-    grams = targets_maybe_blended(
-        lambda s_img, _: compute_targets(
-            params, s_img, content_img, style_layers, (), precision,
-        ),
-        style_img, (), blend_imgs,
-    ).style_grams
-    start = None
-    if mesh.is_root:
-        start = _initial_image(
-            params, content_img, style_img, config, generator,
-            blend_imgs=blend_imgs,
-        )
-    input_img = mesh.shard(mesh.broadcast(start, like=content_img))
-    bundle = build_update_step(
-        params,
-        Targets(
-            style_grams=grams,
-            content_feats=sharded_content_feats(
-                config, params, content_img, mesh,
+    with span("stv.entry.targets"):
+        grams = targets_maybe_blended(
+            lambda s_img, _: compute_targets(
+                params, s_img, content_img, style_layers, (), precision,
             ),
-        ),
-        tuple(input_img.shape),
-        optimizer=opt.optimizer,
-        lr=opt.lr,
-        style_w=opt.style_w,
-        content_w=opt.content_w,
-        style_layers=style_layers,
-        content_layers=tuple(opt.content_layers),
-        lbfgs_max_iter=opt.lbfgs_max_iter,
-        lbfgs_max_eval=opt.lbfgs_max_eval,
-        lbfgs_history_size=opt.lbfgs_history_size,
-        lbfgs_history_dtype=opt.lbfgs_history_dtype,
-        lbfgs_direction=opt.lbfgs_direction,
-        precision=precision,
-        loss_fn=loss_fn,
-        mesh=mesh,
-    )
+            style_img, (), blend_imgs,
+        ).style_grams
+    with span("stv.entry.start"):
+        start = None
+        if mesh.is_root:
+            start = _initial_image(
+                params, content_img, style_img, config, generator,
+                blend_imgs=blend_imgs,
+            )
+        input_img = mesh.shard(mesh.broadcast(start, like=content_img))
+    with span("stv.entry.targets"):
+        content_feats = sharded_content_feats(
+            config, params, content_img, mesh,
+        )
+    with span("stv.entry.build"):
+        bundle = build_update_step(
+            params,
+            Targets(style_grams=grams, content_feats=content_feats),
+            tuple(input_img.shape),
+            optimizer=opt.optimizer,
+            lr=opt.lr,
+            style_w=opt.style_w,
+            content_w=opt.content_w,
+            style_layers=style_layers,
+            content_layers=tuple(opt.content_layers),
+            lbfgs_max_iter=opt.lbfgs_max_iter,
+            lbfgs_max_eval=opt.lbfgs_max_eval,
+            lbfgs_history_size=opt.lbfgs_history_size,
+            lbfgs_history_dtype=opt.lbfgs_history_dtype,
+            lbfgs_direction=opt.lbfgs_direction,
+            precision=precision,
+            loss_fn=loss_fn,
+            mesh=mesh,
+        )
     return bundle, input_img
 
 
@@ -616,19 +624,22 @@ def _checkpoint_path(
 
 
 @contextlib.contextmanager
-def _profiled(config: StyleTransferConfig, device: torch.device):
+def _profiled(config: StyleTransferConfig):
     """A ``torch.profiler`` trace into ``profile_dir``, when it is set.
 
-    The trace (host activity, and the device's kernels on a card) is
-    written when the block ends, as a Chrome/TensorBoard JSON file.
+    The trace (host activity with the ``stv.*`` spans, and the device's
+    kernels on a card) is written when the block ends, as a
+    Chrome/TensorBoard JSON file. Inside a block that already profiles
+    (the entry points wrap their entry and loop, the loops their own
+    steps for callers that prepared the run themselves) it adds nothing.
     """
     profile_dir = config.output.profile_dir
-    if not profile_dir:
+    if not profile_dir or torch.autograd._profiler_enabled():  # noqa: SLF001
         yield
         return
-    logger.info("Profiling optimization loop to %s", profile_dir)
+    logger.info("Profiling the run to %s", profile_dir)
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
+    if config.hardware.device.lower().startswith("cuda"):
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(
         activities=activities,
@@ -677,23 +688,23 @@ def run_style_transfer(
             config.hardware.spatial_shards, config.hardware.device,
             kwargs={"style_blend": style_blend},
         )
-    bundle, input_img = prepare_model_and_input(
-        content, style, config, style_blend=style_blend, mesh=mesh,
-    )
-    input_img, opt_state, start_step = _resume(
-        config, input_img, bundle.opt_state, mesh,
-    )
-    runner = OptimizationRunner(
-        bundle.update_fn, opt_state, input_img, config,
-        progress_bar=SilentProgress(),
-        chunked_update_fn=bundle.chunked_update_fn,
-        start_step=start_step,
-        checkpoint_path=_checkpoint_path(
-            config, Path(config.output.output),
-        ),
-        mesh=mesh,
-    )
-    with _profiled(config, input_img.device):
+    with _profiled(config):
+        bundle, input_img = prepare_model_and_input(
+            content, style, config, style_blend=style_blend, mesh=mesh,
+        )
+        input_img, opt_state, start_step = _resume(
+            config, input_img, bundle.opt_state, mesh,
+        )
+        runner = OptimizationRunner(
+            bundle.update_fn, opt_state, input_img, config,
+            progress_bar=SilentProgress(),
+            chunked_update_fn=bundle.chunked_update_fn,
+            start_step=start_step,
+            checkpoint_path=_checkpoint_path(
+                config, Path(config.output.output),
+            ),
+            mesh=mesh,
+        )
         image, history, _ = runner.run()
     final = maybe_restore_color(
         image_io.prepare_image_for_output(
@@ -765,26 +776,27 @@ def style_transfer(
                 reason, frame_estimate,
             )
 
-    bundle, input_img = prepare_model_and_input(
-        content, style, config, style_blend=blend_arrays, mesh=mesh,
-    )
     style_name = None
     if style_blend:
         # Blended outputs name every contributing style, in user order.
         style_name = "+".join(Path(path).stem for path, _ in style_blend)
-    result = run_with_artifacts(
-        bundle.update_fn,
-        bundle.chunked_update_fn,
-        bundle.opt_state,
-        input_img,
-        config,
-        content_path=Path(paths.content_path),
-        style_path=Path(paths.style_path),
-        style_name=style_name,
-        chroma_source=_chroma_source(content, config, input_img.device),
-        progress_bar=progress_bar,
-        mesh=mesh,
-    )
+    with _profiled(config):
+        bundle, input_img = prepare_model_and_input(
+            content, style, config, style_blend=blend_arrays, mesh=mesh,
+        )
+        result = run_with_artifacts(
+            bundle.update_fn,
+            bundle.chunked_update_fn,
+            bundle.opt_state,
+            input_img,
+            config,
+            content_path=Path(paths.content_path),
+            style_path=Path(paths.style_path),
+            style_name=style_name,
+            chroma_source=_chroma_source(content, config, input_img.device),
+            progress_bar=progress_bar,
+            mesh=mesh,
+        )
     return result.image
 
 
@@ -905,7 +917,7 @@ def run_with_artifacts(
     # failed GIF encode does not mislabel a fine MP4 (or vice versa).
     close_errors: dict[str, Exception] = {}
     try:
-        with _profiled(config, input_img.device):
+        with _profiled(config):
             input_img, loss_metrics, elapsed = runner.run()
         _maybe_append_final_segments(
             config.video,
@@ -1070,6 +1082,7 @@ def _check_batch_mesh(
         raise ValueError(msg)
 
 
+@spanned("stv.entry")
 def prepare_multi_style(
     content: np.ndarray,
     styles: list[np.ndarray],
@@ -1140,45 +1153,49 @@ def prepare_multi_style(
         )
     n_local = len(style_imgs)
     precision = resolve_precision(config.hardware.precision)
-    targets = multi_style_targets(
-        params, content_img, style_imgs,
-        tuple(opt.style_layers), tuple(opt.content_layers),
-        precision=precision,
-    )
+    with span("stv.entry.targets"):
+        targets = multi_style_targets(
+            params, content_img, style_imgs,
+            tuple(opt.style_layers), tuple(opt.content_layers),
+            precision=precision,
+        )
+        # One content image serves every style.
+        lap_target = (
+            lap_response(content_img, opt.lap_pool) if opt.lap_w else None
+        )
     # The warm start first, as in prepare_model_and_input.
-    images = _multi_initial_images(
-        params, content_img, style_imgs, config, generator,
-        first=first, n_drawn=n_styles,
-    )
+    with span("stv.entry.start"):
+        images = _multi_initial_images(
+            params, content_img, style_imgs, config, generator,
+            first=first, n_drawn=n_styles,
+        )
     _, height, width, _ = content_img.shape
     # Activations grow with pixels x styles a card.
     remat = opt.remat or _auto_remat_batched(
         int(height) * int(width), n_local,
     )
-    bundle = build_multi_style_update(
-        params, targets, tuple(content_img.shape), n_local,
-        optimizer=opt.optimizer,
-        lr=opt.lr,
-        style_w=opt.style_w,
-        content_w=opt.content_w,
-        tv_w=opt.tv_w,
-        lap_w=opt.lap_w,
-        lap_pool=opt.lap_pool,
-        # One content image serves every style.
-        lap_target=(
-            lap_response(content_img, opt.lap_pool) if opt.lap_w else None
-        ),
-        style_layers=tuple(opt.style_layers),
-        style_weights=opt.style_weights_tuple(),
-        content_layers=tuple(opt.content_layers),
-        lbfgs_max_iter=opt.lbfgs_max_iter,
-        lbfgs_max_eval=opt.lbfgs_max_eval,
-        lbfgs_history_size=opt.lbfgs_history_size,
-        lbfgs_history_dtype=opt.lbfgs_history_dtype,
-        lbfgs_direction=opt.lbfgs_direction,
-        precision=precision,
-        remat=remat,
-    )
+    with span("stv.entry.build"):
+        bundle = build_multi_style_update(
+            params, targets, tuple(content_img.shape), n_local,
+            optimizer=opt.optimizer,
+            lr=opt.lr,
+            style_w=opt.style_w,
+            content_w=opt.content_w,
+            tv_w=opt.tv_w,
+            lap_w=opt.lap_w,
+            lap_pool=opt.lap_pool,
+            lap_target=lap_target,
+            style_layers=tuple(opt.style_layers),
+            style_weights=opt.style_weights_tuple(),
+            content_layers=tuple(opt.content_layers),
+            lbfgs_max_iter=opt.lbfgs_max_iter,
+            lbfgs_max_eval=opt.lbfgs_max_eval,
+            lbfgs_history_size=opt.lbfgs_history_size,
+            lbfgs_history_dtype=opt.lbfgs_history_dtype,
+            lbfgs_direction=opt.lbfgs_direction,
+            precision=precision,
+            remat=remat,
+        )
     return bundle, images
 
 
@@ -1203,46 +1220,49 @@ def _prepare_dp_sp(
     opt = config.optimization
     precision = resolve_precision(config.hardware.precision)
     n_local = len(style_imgs)
-    grams = multi_style_targets(
-        params, content_img, style_imgs, tuple(opt.style_layers), (),
-        precision=precision,
-    ).style_grams
-    feats = sharded_content_feats(config, params, content_img, mesh)
-    start = None
-    if mesh.is_root:
-        first, _ = mesh.styles(n_styles)
-        start = _multi_initial_images(
-            params, content_img, style_imgs, config, generator,
-            first=first, n_drawn=n_styles,
+    with span("stv.entry.targets"):
+        grams = multi_style_targets(
+            params, content_img, style_imgs, tuple(opt.style_layers), (),
+            precision=precision,
+        ).style_grams
+        feats = sharded_content_feats(config, params, content_img, mesh)
+    with span("stv.entry.start"):
+        start = None
+        if mesh.is_root:
+            first, _ = mesh.styles(n_styles)
+            start = _multi_initial_images(
+                params, content_img, style_imgs, config, generator,
+                first=first, n_drawn=n_styles,
+            )
+        like = content_img.new_empty((n_local, *content_img.shape))
+        images = mesh.shard(mesh.broadcast(start, like=like), dim=2)
+    with span("stv.entry.build"):
+        bundle = build_dp_sp_update(
+            mesh, params,
+            Targets(
+                style_grams=grams,
+                content_feats={
+                    k: f.expand(n_local, *f.shape) for k, f in feats.items()
+                },
+            ),
+            tuple(content_img.shape), n_styles,
+            optimizer=opt.optimizer,
+            lr=opt.lr,
+            style_w=opt.style_w,
+            content_w=opt.content_w,
+            tv_w=opt.tv_w,
+            lap_w=opt.lap_w,
+            lap_pool=opt.lap_pool,
+            style_layers=tuple(opt.style_layers),
+            style_weights=opt.style_weights_tuple(),
+            content_layers=tuple(opt.content_layers),
+            precision=precision,
+            lbfgs_max_iter=opt.lbfgs_max_iter,
+            lbfgs_max_eval=opt.lbfgs_max_eval,
+            lbfgs_history_size=opt.lbfgs_history_size,
+            lbfgs_history_dtype=opt.lbfgs_history_dtype,
+            lbfgs_direction=opt.lbfgs_direction,
         )
-    like = content_img.new_empty((n_local, *content_img.shape))
-    images = mesh.shard(mesh.broadcast(start, like=like), dim=2)
-    bundle = build_dp_sp_update(
-        mesh, params,
-        Targets(
-            style_grams=grams,
-            content_feats={
-                k: f.expand(n_local, *f.shape) for k, f in feats.items()
-            },
-        ),
-        tuple(content_img.shape), n_styles,
-        optimizer=opt.optimizer,
-        lr=opt.lr,
-        style_w=opt.style_w,
-        content_w=opt.content_w,
-        tv_w=opt.tv_w,
-        lap_w=opt.lap_w,
-        lap_pool=opt.lap_pool,
-        style_layers=tuple(opt.style_layers),
-        style_weights=opt.style_weights_tuple(),
-        content_layers=tuple(opt.content_layers),
-        precision=precision,
-        lbfgs_max_iter=opt.lbfgs_max_iter,
-        lbfgs_max_eval=opt.lbfgs_max_eval,
-        lbfgs_history_size=opt.lbfgs_history_size,
-        lbfgs_history_dtype=opt.lbfgs_history_dtype,
-        lbfgs_direction=opt.lbfgs_direction,
-    )
     return bundle, images
 
 
@@ -1319,23 +1339,26 @@ def multi_style_transfer(
 
     content = image_io.load_image_to_host_array(content_path)
     styles = [image_io.load_image_to_host_array(p) for p in style_paths]
-    bundle, images = prepare_multi_style(content, styles, config, mesh=mesh)
-    logger.info(
-        "Multi-style run: %d styles in one stacked step.", len(styles),
-    )
-    output_path = setup_output_directory(config.output.output)
-    chroma_source = _chroma_source(content, config, images.device)
     style_names = [Path(p).stem for p in style_paths]
     content_name = Path(content_path).stem
-    images, _, close_errors = run_multi_style_loop(
-        bundle, images, config, output_path, style_names,
-        content_name=content_name,
-        content_path=Path(content_path),
-        style_paths=[Path(p) for p in style_paths],
-        chroma_source=chroma_source,
-        progress_bar=progress_bar,
-        mesh=mesh,
-    )
+    with _profiled(config):
+        bundle, images = prepare_multi_style(
+            content, styles, config, mesh=mesh,
+        )
+        logger.info(
+            "Multi-style run: %d styles in one stacked step.", len(styles),
+        )
+        output_path = setup_output_directory(config.output.output)
+        chroma_source = _chroma_source(content, config, images.device)
+        images, _, close_errors = run_multi_style_loop(
+            bundle, images, config, output_path, style_names,
+            content_name=content_name,
+            content_path=Path(content_path),
+            style_paths=[Path(p) for p in style_paths],
+            chroma_source=chroma_source,
+            progress_bar=progress_bar,
+            mesh=mesh,
+        )
     saved = []
     if mesh is None or mesh.writes:
         saved = _save_multi_style_outputs(
@@ -1527,6 +1550,7 @@ def resolve_batch_chunk(bundle, config: StyleTransferConfig) -> int:
     return dispatch_chunk(config.hardware.steps_per_dispatch, cadences)
 
 
+@spanned("stv.loop")
 def run_multi_style_loop(
     bundle: StepBundle,
     images: torch.Tensor,
@@ -1655,11 +1679,15 @@ def run_multi_style_loop(
     def maybe_checkpoint(step: int) -> None:
         if checkpoint_path is None or step % out_cfg.checkpoint_every:
             return
-        ckpt_images, ckpt_state = images, state
-        if mesh is not None:
-            ckpt_images, ckpt_state = whole(images), gather_state(mesh, state)
-        if writes:
-            save_checkpoint(checkpoint_path, step, ckpt_images, ckpt_state)
+        with span("stv.loop.checkpoint"):
+            ckpt_images, ckpt_state = images, state
+            if mesh is not None:
+                ckpt_images = whole(images)
+                ckpt_state = gather_state(mesh, state)
+            if writes:
+                save_checkpoint(
+                    checkpoint_path, step, ckpt_images, ckpt_state,
+                )
 
     csv_loggers: list[LossCSVLogger | None] = [None] * len(style_names)
     if out_cfg.log_loss and writes:
@@ -1713,7 +1741,7 @@ def run_multi_style_loop(
     close_errors: list[Exception] = []
     failed: set[str] = set()
     try:
-        with _profiled(config, images.device):
+        with _profiled(config):
             step = start_step
             while step < opt_cfg.steps:
                 # Chunks only while their ends stay on the cadence
@@ -1738,7 +1766,8 @@ def run_multi_style_loop(
                     if mesh is not None:
                         vals = mesh.gather_styles(vals, dim=2)
                     if writes:
-                        vals = vals.cpu().numpy()
+                        with span("stv.loop.read"):
+                            vals = vals.cpu().numpy()
                         for j in logged:
                             log_step(step + j + 1, vals[:, j])
                 step += k
@@ -1751,10 +1780,12 @@ def run_multi_style_loop(
         if frames_on and opt_cfg.steps % save_every:
             # Every timelapse ends on the finished image.
             submit_frames(images)
-        images = whole(images)
+        with span("stv.loop.final"):
+            images = whole(images)
+            if frame_stream is not None:
+                # FIFO: every frame lands before the outros are appended.
+                frame_stream.drain()
         if frame_stream is not None:
-            # FIFO: every frame lands before the outros are appended.
-            frame_stream.drain()
             media.append_outros(
                 _prepared_frames(
                     images, normalize=opt_cfg.normalize,

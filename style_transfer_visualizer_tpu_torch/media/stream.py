@@ -47,6 +47,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from style_transfer_visualizer_tpu_torch.utils.trace import spanned
+
 FrameCallback = Callable[[np.ndarray], None]
 _SENTINEL = None
 
@@ -98,6 +100,7 @@ class AsyncFrameStream:
         self._closed = False
         self._worker.start()
 
+    @spanned("stv.frames.submit")
     def submit(self, device_frame: torch.Tensor, deliver: FrameCallback):
         """Enqueue a frame for host delivery; never waits for the device.
 

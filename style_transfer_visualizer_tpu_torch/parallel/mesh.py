@@ -60,6 +60,7 @@ from style_transfer_visualizer_tpu_torch.constants import (
 from style_transfer_visualizer_tpu_torch.native import build
 from style_transfer_visualizer_tpu_torch.runtime.device import setup_device
 from style_transfer_visualizer_tpu_torch.utils.logging import logger
+from style_transfer_visualizer_tpu_torch.utils.trace import span
 
 if TYPE_CHECKING:
     from collections.abc import Callable
@@ -170,12 +171,15 @@ class Mesh:
         equal block of rows along ``dim``, bit for bit."""
         if self.size == 1:
             return block
-        shape = list(block.shape)
-        k = shape[dim]
-        shape[dim] = k * self.size
-        whole = torch.zeros(shape, dtype=block.dtype, device=block.device)
-        whole.narrow(dim, self.index * k, k).copy_(block)
-        return self.sum_bytes(whole)
+        with span("stv.parallel.gather"):
+            shape = list(block.shape)
+            k = shape[dim]
+            shape[dim] = k * self.size
+            whole = torch.zeros(
+                shape, dtype=block.dtype, device=block.device,
+            )
+            whole.narrow(dim, self.index * k, k).copy_(block)
+            return self.sum_bytes(whole)
 
     def gather_styles(
         self, block: torch.Tensor, dim: int = 0,
@@ -187,13 +191,16 @@ class Mesh:
         root fills its slot."""
         if self.style_size == 1:
             return block
-        shape = list(block.shape)
-        k = shape[dim]
-        shape[dim] = k * self.style_size
-        whole = torch.zeros(shape, dtype=block.dtype, device=block.device)
-        if self.is_root:
-            whole.narrow(dim, self.style_index * k, k).copy_(block)
-        return _sum_bytes(whole, self.world)
+        with span("stv.parallel.gather"):
+            shape = list(block.shape)
+            k = shape[dim]
+            shape[dim] = k * self.style_size
+            whole = torch.zeros(
+                shape, dtype=block.dtype, device=block.device,
+            )
+            if self.is_root:
+                whole.narrow(dim, self.style_index * k, k).copy_(block)
+            return _sum_bytes(whole, self.world)
 
     def any(self, *flags: bool) -> tuple[bool, ...]:
         """Each flag true on any rank of the row: one decision for

@@ -328,6 +328,14 @@ def test_halo_rows_are_the_neighbours_edges_bit_for_bit(ranks) -> None:
         assert np.array_equal(block.view(np.uint32), want.view(np.uint32))
 
 
+def test_sharded_loss_and_gradient_span_only_their_gathers(ranks) -> None:
+    """Under a profiler the sharded loss and gradient make no span per
+    halo exchange or sum over the ranks (dozens a step); the gather of
+    the rows to rank 0, where there are ranks to reach, is a span."""
+    n, out = ranks
+    assert set(out["spans"]) == ({"stv.parallel.gather"} if n > 1 else set())
+
+
 def test_exchange_backward_passes_gradcheck(ranks) -> None:
     _, out = ranks
     assert out["gradcheck"] is True

@@ -138,12 +138,28 @@ def _lbfgs_case(mesh: Mesh, case: dict) -> dict:
     return out
 
 
+def _span_names(mesh: Mesh, params, case: dict) -> list[str]:
+    """The ``stv.`` spans of one sharded loss and gradient, profiled
+    on the host."""
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU],
+    ) as prof:
+        _loss_case(mesh, params, case)
+    return sorted({
+        e.name() for e in prof.profiler.kineto_results.events()
+        if e.name().startswith("stv.")
+    })
+
+
 def function_battery(cases: dict, *, mesh: Mesh) -> dict:
     """Every function case of the spatial tests on this rank."""
     params = vgg19.params_from_numpy(cases["weights"], "cpu")
     out = {"size": mesh.size}
     for name, case in cases["loss"].items():
         out[f"loss/{name}"] = _loss_case(mesh, params, case)
+    out["spans"] = _span_names(
+        mesh, params, next(iter(cases["loss"].values())),
+    )
     for name, case in cases["targets"].items():
         out[f"targets/{name}"] = _targets_case(mesh, params, case)
     out["halos"] = _halos(mesh, cases["halo_x"])
