@@ -10,6 +10,7 @@
     python3 chip_smoke.py --spatial-cards
     python3 chip_smoke.py --batch-mesh
     python3 chip_smoke.py --batch-cards
+    python3 chip_smoke.py --lbfgs-ring
 
 The third form builds the kernels and runs only the kernel-mode check
 (phase 4b below) and what ``mixed`` moves to IEEE fp32 (the end of
@@ -27,7 +28,9 @@ kernel check (12f, 12g below); the eighth only the phase, with NCCL
 ranks one card each (it needs 4 cards). The ninth builds and runs only
 the batch-over-cards phase and its kernel check (12h, 12i below); the
 tenth only the phase, with NCCL ranks one card each (it needs 4
-cards), with 10-step runs for the rates. The second form runs two graphed A/Bs
+cards), with 10-step runs for the rates. The eleventh builds and runs
+only the L-BFGS ring kernels' check (17b below) and prints their JSON
+entries. The second form runs two graphed A/Bs
 alone, rounds interleaved, and checks nothing else:
 ``steps_per_dispatch`` 1 against 0 (one dispatch of 25) on the
 512x512 main path through the runner and on the S = 4 batch with a
@@ -39,7 +42,7 @@ Phases, one line each, in order; any failure raises and the script
 exits non-zero:
 
 1. card: name and power limit from ``nvidia-smi``;
-2. build: the four CUDA sources under
+2. build: the five CUDA sources under
    ``style_transfer_visualizer_tpu_torch/csrc/`` with ``nvcc`` for
    ``sm_90a``, with each library's count of ``HGMMA`` instructions
    (``wgmma`` on the tensor cores) from ``cuobjdump -sass`` where the
@@ -48,7 +51,9 @@ exits non-zero:
    TF32 kernels (``conv3x3_tf32``, ``gram``'s ``gram_tf32_kernel``)
    with ``HGMMA``, their registers, and no spills; ``gram``'s IEEE
    kernel (``gram_ieee_kernel``) with its registers, no spills, and no
-   ``HGMMA`` or ``HMMA`` in its own SASS;
+   ``HGMMA`` or ``HMMA`` in its own SASS; ``lbfgs_ring``'s two kernels
+   with their registers and no spills, the products kernel with
+   ``HMMA`` (``mma.sync``);
 3. conv check: the conv kernel against its plain PyTorch version at
    every conv shape of the 512x512 main path, of the objective phase's
    1024x1024 steps and of the batch phase's 512x512 steps at N = 4
@@ -278,6 +283,19 @@ exits non-zero:
    stage shapes at 1280x720 (720x1280 to 45x80) and the Gram at its
    five taps (P = 921,600 to 3,600) against their plain versions,
    timed (``at_720p``);
+17b. the L-BFGS ring's two kernels (``csrc/lbfgs_ring.cu``) on a full
+   bf16 ring of m = 100 wrapped past ``hist_pos``: at 512x512 (n =
+   786,432), at 512x512 with S = 4 (each style's views of the batched
+   ring) and at a 2 x 2 mesh rank's 1024x1024 shapes (2 styles of n =
+   1,572,864): each style's four products against the plain upcast
+   ones and the combination, given the same coefficients, against the
+   plain one, within 1e-4; timed beside the plain version and one
+   cuBLAS bf16 call on the same operands (``torch.mm`` of ``[S; Y]``
+   and ``[Y; g]``, ``torch.mv`` of ``[S; Y]^T``; bf16 outputs, the
+   concatenations not timed), against the bf16 bound (989 TFLOP/s or
+   3.35 TB/s); then the 512x512 graphed L-BFGS step under the profiler:
+   one run of each kernel a step (the profiler's count and the
+   kernels' own), and no cuBLAS sgemm in one direction alone;
 18. a 64x64 run held against the same run on the CPU (plain versions),
    then the same for Adam with every term above and a 2-step warm
    start at 32x32, then the same for a batch of 2 styles, then Adam
@@ -368,7 +386,7 @@ from style_transfer_visualizer_tpu_torch.engine.coarse import (
     resize_image,
     resolve_coarse_steps,
 )
-from style_transfer_visualizer_tpu_torch.engine import step
+from style_transfer_visualizer_tpu_torch.engine import optimizers, step
 from style_transfer_visualizer_tpu_torch.engine.runner import (
     OptimizationCallbacks,
     OptimizationRunner,
@@ -398,7 +416,12 @@ from style_transfer_visualizer_tpu_torch.models.vgg19 import (
 )
 from style_transfer_visualizer_tpu_torch.native import build
 from style_transfer_visualizer_tpu_torch.ops.color import RGB_TO_YIQ
-from style_transfer_visualizer_tpu_torch.ops import conv3x3, gram, tiled
+from style_transfer_visualizer_tpu_torch.ops import (
+    conv3x3,
+    gram,
+    lbfgs_ring,
+    tiled,
+)
 from style_transfer_visualizer_tpu_torch.ops.precision import (
     MODES,
     PRECISION_NAMES,
@@ -489,7 +512,11 @@ AB_ROUNDS = 3
 # tensor cores; one TF32 product; three).
 TIERS = PRECISION_NAMES
 NEW_MODES = ("ieee", "tf32")
-MODE_RATE = {"ieee": FP32_FLOPS, "tf32x3": TF32X3_FLOPS, "tf32": TF32_FLOPS}
+BF16_FLOPS = 989e12
+MODE_RATE = {
+    "ieee": FP32_FLOPS, "tf32x3": TF32X3_FLOPS, "tf32": TF32_FLOPS,
+    "bf16": BF16_FLOPS,
+}
 # Graph-timed calls a mode's timing replays (the IEEE convs take up to
 # tens of ms a call at 1024x1024 and N = 4).
 MODE_REPS = 2
@@ -637,6 +664,36 @@ def _check_ieee_build(kernel: build.BuiltKernel, sass: str | None) -> None:
     ]
     if not spills or any(spills):
         msg = f"conv3x3_ieee: spills in the ptxas report: {spills}"
+        raise AssertionError(msg)
+
+
+def _check_lbfgs_ring_build(
+    kernel: build.BuiltKernel, sass: str | None,
+) -> None:
+    """``lbfgs_ring``'s two kernels spill nothing, and the products
+    kernel runs ``mma.sync`` (``HMMA``) on the tensor cores; prints
+    each one's registers."""
+    funcs = _ptxas_functions(kernel.ptxas_log)
+    if not any("products" in name for name in funcs):
+        msg = "lbfgs_ring: no products kernel in the ptxas report"
+        raise AssertionError(msg)
+    for name, v in sorted(funcs.items()):
+        print(
+            f"  lbfgs_ring {name}: {v['registers']} registers, "
+            f"{v['spill']} bytes spilled",
+        )
+    spilled = [name for name, v in funcs.items() if v["spill"]]
+    if spilled:
+        msg = f"lbfgs_ring: kernels spill: {spilled}"
+        raise AssertionError(msg)
+    if sass is None:
+        return
+    products = [
+        text for name, text in _sass_functions(sass).items()
+        if "products" in name
+    ]
+    if not products or not all(re.search(r"\bHMMA", t) for t in products):
+        msg = "lbfgs_ring: no HMMA in the products kernel's SASS"
         raise AssertionError(msg)
 
 
@@ -3883,6 +3940,212 @@ def _check_720p_kernels(conv_rec, conv_720, gram_rec, gram_720) -> None:
     torch.cuda.empty_cache()
 
 
+# The L-BFGS ring's kernels (17b): (key, n, styles a step), m = 100.
+RING_M = 100
+RING_CASES = (
+    ("at_512", 3 * SIZE * SIZE, 1),
+    ("s4_512_per_style", 3 * SIZE * SIZE, BATCH_STYLES),
+    (BATCH_CARD_KEY + "_rank", 3 * OBJECTIVE_SIZE * OBJECTIVE_SIZE // 2, 2),
+)
+RING_SOURCE = f"{PACKAGE}/csrc/lbfgs_ring.cu"
+RING_REPLACES = (
+    "none: XLA's dot_general of the bf16 ring, "
+    "style_transfer_visualizer_tpu/engine/optimizers.py _compact_direction"
+)
+
+
+def _ring_batch(n: int, styles: int, gen: torch.Generator):
+    """A batched L-BFGS state of ``styles`` full bf16 rings of m = 100
+    wrapped past ``hist_pos`` (``y = s + 0.1 noise``) and their
+    gradients, on the card."""
+    state = optimizers.lbfgs_init_batched(
+        styles, n, RING_M, "cuda", torch.bfloat16,
+    )
+    for ring, extra in ((state.s_hist, None), (state.y_hist, state.s_hist)):
+        for i in range(styles):
+            noise = torch.randn(
+                (RING_M, n), generator=gen, device="cuda",
+            )
+            ring[i].copy_(noise if extra is None else extra[i] + 0.1 * noise)
+    state.hist_len.fill_(RING_M)
+    state.hist_pos.fill_(37)
+    state.h_diag.fill_(0.5)
+    grad = torch.randn((styles, n), generator=gen, device="cuda")
+    return state, grad
+
+
+def _check_lbfgs_ring() -> list[dict]:
+    """17b: both ring kernels against their plain versions at the
+    ``RING_CASES``, timed; returns their two JSON entries (``at_512``
+    the main record, the others under their keys)."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    recs = {
+        name: {
+            key: Record(name, RING_SOURCE, RING_REPLACES, "bf16")
+            for key, _, _ in RING_CASES
+        }
+        for name in ("lbfgs_ring_products", "lbfgs_ring_combine")
+    }
+    m = RING_M
+    # The main path's runs of each kernel a step, counted in the graphed
+    # 512 step; the other cases' counts follow from their shapes.
+    main_key = RING_CASES[0][0]
+    main_runs = _ring_in_the_step()
+    for key, n, styles in RING_CASES:
+        state, grads = _ring_batch(n, styles, gen)
+        prod_rec = recs["lbfgs_ring_products"][key]
+        comb_rec = recs["lbfgs_ring_combine"][key]
+        for i in range(styles):
+            st = optimizers._style(state, i)  # noqa: SLF001
+            ring = (st.s_hist, st.y_hist, grads[i])
+            sums = lbfgs_ring.products_kernel(*ring)
+            for name, ours, ref in zip(
+                ("sy", "yy", "p", "q"), sums,
+                lbfgs_ring.products_plain(*ring), strict=True,
+            ):
+                prod_rec.err(ours, ref, f"{key} style {i} {name}")
+            coeff = optimizers._compact_coefficients(  # noqa: SLF001
+                sums, st,
+            )
+            comb_rec.err(
+                lbfgs_ring.combine_kernel(*ring, *coeff, st.h_diag),
+                lbfgs_ring.combine_plain(*ring, *coeff, st.h_diag),
+                f"{key} style {i} combination",
+            )
+        st = optimizers._style(state, 0)  # noqa: SLF001
+        ring = (st.s_hist, st.y_hist, grads[0])
+        coeff = optimizers._compact_coefficients(  # noqa: SLF001
+            lbfgs_ring.products_kernel(*ring), st,
+        )
+        # One cuBLAS bf16 call on the same operands, bf16 out.
+        a16 = torch.cat([st.s_hist, st.y_hist])
+        b16 = torch.cat([st.y_hist, grads[0].to(torch.bfloat16)[None]])
+        c16 = torch.cat([coeff[0], -0.5 * coeff[1]]).to(torch.bfloat16)
+        per_style = (
+            main_runs if key == main_key
+            else 1 if key == "s4_512_per_style" else styles
+        )
+        prod = _times(
+            partial(lbfgs_ring.products_kernel, *ring),
+            partial(lbfgs_ring.products_plain, *ring),
+            partial(torch.mm, a16, b16.T),
+        )
+        prod_flops = 2.0 * 2 * m * (m + 1) * n
+        prod_bytes = 2.0 * 2 * m * n + 4.0 * n + 4.0 * (2 * m * m + 2 * m)
+        prod_rec.add(per_style, *prod, prod_flops, prod_bytes)
+        comb = _times(
+            partial(lbfgs_ring.combine_kernel, *ring, *coeff, st.h_diag),
+            partial(lbfgs_ring.combine_plain, *ring, *coeff, st.h_diag),
+            partial(torch.mv, a16.T, c16),
+        )
+        comb_flops = 2.0 * 2 * m * n
+        comb_bytes = 2.0 * 2 * m * n + 8.0 * n + 8.0 * m
+        comb_rec.add(per_style, *comb, comb_flops, comb_bytes)
+        print(
+            f"lbfgs ring {key} (n {n}, m {m}, {styles} styles, x"
+            f"{per_style} a step): products kernel_ms {prod[0]:.4f} "
+            f"plain_ms {prod[1]:.4f} library_ms {prod[2]:.4f} bound_ms "
+            f"{_bound_ms(prod_flops, prod_bytes, BF16_FLOPS):.4f} | "
+            f"combine kernel_ms {comb[0]:.4f} plain_ms {comb[1]:.4f} "
+            f"library_ms {comb[2]:.4f} bound_ms "
+            f"{_bound_ms(comb_flops, comb_bytes, BF16_FLOPS):.4f}",
+        )
+        del state, grads, a16, b16
+        torch.cuda.empty_cache()
+    return [
+        by_key[main_key].finish(
+            {"main path": main_runs},
+            {k: r for k, r in by_key.items() if k != main_key},
+        )
+        for by_key in recs.values()
+    ]
+
+
+def _ring_device_ops(run) -> dict[str, int]:
+    """The device kernels of ``run()`` under ``torch.profiler``: runs by
+    name."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA],
+    ) as prof:
+        run()
+        torch.cuda.synchronize()
+    return {
+        e.key: e.count for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    }
+
+
+def _ring_in_the_step(steps: int = 5) -> int:
+    """The ring kernels in the 512x512 graphed L-BFGS step, under the
+    profiler: one run of each a step (the profiler's count and the
+    kernels' own), and in one direction alone no cuBLAS sgemm, no gemv
+    of the ring and no copy of it. Returns each kernel's runs a step,
+    as the profiler counted them."""
+    content, style = _images(SIZE, 0)
+    bundle, image = prepare_model_and_input(
+        content, style, _config(steps, "cuda"),
+    )
+    state = bundle.opt_state
+    # The eager warm-up step and the capture, then replays only.
+    image, state, _ = bundle.chunked_update_fn(image, state, 2)
+    lbfgs_ring.launches.reset()
+    holder = {}
+
+    def replays():
+        holder["out"] = bundle.chunked_update_fn(image, state, steps)
+
+    ops = _ring_device_ops(replays)
+
+    def runs(part: str) -> int:
+        return sum(c for name, c in ops.items() if part in name)
+
+    seen = (runs("lbfgs_ring_products_kernel"),
+            runs("lbfgs_ring_combine_kernel"))
+    own = lbfgs_ring.launches.launched()
+    per_step = seen[0] // steps
+    if (seen != (per_step * steps,) * 2 or own != 2 * seen[0]
+            or per_step != 1):
+        msg = (
+            f"lbfgs ring in the step: profiler {seen}, kernels' own {own} "
+            f"over {steps} replayed steps"
+        )
+        raise AssertionError(msg)
+    state = holder["out"][1]
+    grad = state.prev_grad.detach().clone()
+    direction = _ring_device_ops(
+        lambda: optimizers._compact_direction(grad, state),  # noqa: SLF001
+    )
+    ring_ops = {
+        name: c for name, c in direction.items()
+        if re.search(r"sgemm|gemm|direct_copy|gemv", name)
+    }
+    big = [name for name in ring_ops if "sgemm" in name]
+    if big:
+        msg = f"lbfgs ring: a cuBLAS sgemm in the direction: {big}"
+        raise AssertionError(msg)
+    print(
+        f"lbfgs ring in the 512 graphed step: {seen[0]} products and "
+        f"{seen[1]} combine runs in {steps} replayed steps (profiler), "
+        f"{own} counted by the kernels; one direction's device ops "
+        f"{sum(direction.values())}, of which cuBLAS and copies "
+        f"{ring_ops} (the m x m stage's)",
+    )
+    return per_step
+
+
+def _lbfgs_ring_only(card: str) -> int:
+    """``--lbfgs-ring``: build, and 17b alone, with its JSON entries."""
+    print(f"card: {card}")
+    _build_phase()
+    t0 = time.perf_counter()
+    entries = _check_lbfgs_ring()
+    print(f"phase seconds: lbfgs ring kernels {time.perf_counter() - t0:.1f}")
+    print(json.dumps({"kernels": entries}))
+    print(f"card: {card}")
+    return 0
+
+
 def _small_pipeline_reference() -> None:
     """The three pipelines at 64x64 on the card against the CPU.
 
@@ -5657,7 +5920,9 @@ def _build_phase() -> None:
     tensor-core libraries must hold ``wgmma``, the IEEE conv and the
     IEEE Gram kernel none (nor ``HMMA``), and neither the IEEE kernels
     nor the TF32 kernels spill (:func:`_check_ieee_build`,
-    :func:`_check_ieee_gram_build`, :func:`_check_tf32_build`)."""
+    :func:`_check_ieee_gram_build`, :func:`_check_tf32_build`); the
+    ring's kernels spill nothing and its products run ``mma.sync``
+    (:func:`_check_lbfgs_ring_build`)."""
     t0 = time.perf_counter()
     built = build.build_all()
     print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
@@ -5665,10 +5930,12 @@ def _build_phase() -> None:
         sass = _sass(kernel.library)
         hgmma = None if sass is None else sass.count("HGMMA")
         print(f"  {kernel.name}: HGMMA instructions in SASS: {hgmma}")
-        # The IEEE conv runs on the CUDA cores; the other two libraries
-        # hold tensor-core kernels.
+        # The IEEE conv runs on the CUDA cores; the ring's products use
+        # mma.sync; the other libraries hold wgmma kernels.
         if kernel.name == "conv3x3_ieee":
             _check_ieee_build(kernel, sass)
+        elif kernel.name == "lbfgs_ring":
+            _check_lbfgs_ring_build(kernel, sass)
         elif hgmma == 0:
             msg = f"{kernel.name}: no wgmma (HGMMA) in the built library"
             raise AssertionError(msg)
@@ -5806,6 +6073,8 @@ def main(argv: list[str] | None = None) -> int:
         return _batch_cards_only(card)
     if args == ["--batch-cards"]:
         return _batch_cards_only(card, share_card=False)
+    if args == ["--lbfgs-ring"]:
+        return _lbfgs_ring_only(card)
     print(f"card: {card}")
     start = time.perf_counter()
     seconds: dict[str, float] = {}
@@ -5919,6 +6188,7 @@ def main(argv: list[str] | None = None) -> int:
         "720p kernels", _check_720p_kernels,
         conv_rec, conv_extra["at_720p"], gram_rec, gram_extra["at_720p"],
     )
+    ring_entries = timed("lbfgs ring kernels", _check_lbfgs_ring)
     timed("small references", lambda: (
         _small_reference(), _small_batch_reference(),
         _small_pipeline_reference(),
@@ -5942,6 +6212,7 @@ def main(argv: list[str] | None = None) -> int:
         entry["launches"] = by_tier[entry["launches_tier"]]
         entry["launches_by_tier"] = by_tier
     kernels += _mode_entries(mode_recs)
+    kernels += ring_entries
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({

@@ -47,7 +47,12 @@ RESOLUTION_FULL_HD = (1920, 1080)
 # 24,338,109,440; 4096x4096: 48,642,290,688; 4864x4864: 68,365,087,744)
 # and its reserved peak 1.20-1.27 times that; 5120x5120 runs out of
 # memory. Of a pixel's 2,866 B, the ring holds 1,200 and the step's
-# activations about 1,600.
+# activations about 1,600. These were measured while the direction still
+# upcast the bf16 ring to fp32 in blocks of ops/lbfgs_ring.UPCAST_COLUMNS
+# columns (up to 3.4 GB at m = 100); on the card it now runs as two
+# kernels over the bf16 ring (50-201 MB above it up to 4096x4096), so the
+# thresholds below may switch to bands and remat earlier than memory
+# requires, by up to that block. Not yet measured again.
 
 # Content of at least this many pixels is evaluated in bands: 21 MP
 # predicts 60.7 GB allocated, 77.1 GB reserved at 1.27x (91% of the

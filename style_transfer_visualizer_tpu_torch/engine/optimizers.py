@@ -54,6 +54,7 @@ from dataclasses import dataclass
 
 import torch
 
+from style_transfer_visualizer_tpu_torch.ops import lbfgs_ring
 from style_transfer_visualizer_tpu_torch.utils.trace import span
 
 TOLERANCE_GRAD = 1e-7
@@ -202,69 +203,28 @@ def _two_loop(
     return r
 
 
-#: Ring columns upcast to fp32 at a time by :func:`_compact_direction`:
-#: 2 x m x 4,194,304 floats (3.4 GB at m = 100), whatever the image.
-UPCAST_COLUMNS = 1 << 22
+def _compact_coefficients(
+    sums: tuple[torch.Tensor, ...], state: LbfgsState,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The compact direction's ring coefficients, fp32 in slot order.
 
-
-def _column_blocks(n: int) -> list[slice]:
-    return [slice(lo, min(lo + UPCAST_COLUMNS, n))
-            for lo in range(0, n, UPCAST_COLUMNS)]
-
-
-def _compact_direction(
-    grad: torch.Tensor,
-    state: LbfgsState,
-    mesh=None,
-) -> torch.Tensor:
-    """Compact-representation direction (Byrd-Nocedal-Schnabel 1994).
-
-    The same -H^{-1} g as :func:`_two_loop`, as ring contractions and
-    two m-by-m triangular solves. The JAX package multiplies the
-    (possibly bf16) ring with f32 accumulation; here the ring is
-    upcast to f32 before each product, and ``g`` and the combination
-    coefficients are rounded to the ring's type first, as there.
-
-    The upcast goes ``UPCAST_COLUMNS`` columns of the ring at a time,
-    the m-by-m and m-vector products summed over the blocks in order:
-    a whole fp32 copy of the ring (2 x m x n floats, twice the bf16
-    ring itself) would set the run's peak memory. Up to
-    ``UPCAST_COLUMNS`` pixels x channels it is one block, the products
-    of the whole ring. With ``mesh`` the four products are each rank's
-    partials, summed over the ranks in one collective; the small
-    solves then run alike on every rank.
+    From the ring's four products ``sums = (S Y^T, Y Y^T, S g, Y g)``
+    (slot order; on a mesh already summed over the ranks): ``(w, u)``
+    of ``H g = gamma g + S w - gamma Y u``, with ``u = R^{-1} p`` and
+    ``w = R^{-T} ((D + gamma Y^T Y) u - gamma q)`` in time order and
+    slots past ``hist_len`` masked.
     """
+    sy, yy, p, q = sums
     m = state.rho.shape[0]
     num = state.hist_len
-    ring_dtype = state.s_hist.dtype
-    g32 = grad.to(ring_dtype).float()
-    blocks = _column_blocks(grad.shape[0])
-
-    # sy[a, b] = s_a . y_b, in slot order.
-    sums = None
-    for cols in blocks:
-        s32 = state.s_hist[:, cols].float()
-        y32 = state.y_hist[:, cols].float()
-        part = (s32 @ y32.T, y32 @ y32.T, s32 @ g32[cols], y32 @ g32[cols])
-        sums = part if sums is None else tuple(
-            a + b for a, b in zip(sums, part, strict=True)
-        )
-        del s32, y32
-    if mesh is not None and mesh.size > 1:
-        packed = mesh.all_sum(torch.cat([t.reshape(-1) for t in sums]))
-        sums = tuple(
-            part.reshape(t.shape) for part, t in zip(
-                packed.split([t.numel() for t in sums]), sums, strict=True,
-            )
-        )
-    sy, yy, p, q = sums
+    device = sy.device
 
     # Time order (oldest pair first); slots past hist_len are masked.
-    ar = torch.arange(m, device=grad.device)
+    ar = torch.arange(m, device=device)
     idx = (state.hist_pos - num + ar) % m
     valid = ar < num
     vv = valid[:, None] & valid[None, :]
-    zero = torch.zeros((), dtype=torch.float32, device=grad.device)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
     sy_t = sy[idx][:, idx]
     yy_t = torch.where(vv, yy[idx][:, idx], zero)
     p_t = torch.where(valid, p[idx], zero)
@@ -275,8 +235,6 @@ def _compact_direction(
     d_diag = torch.where(valid, torch.diagonal(sy_t), zero)
     gamma = state.h_diag
 
-    # H g = gamma g + S w - gamma Y u with u = R^{-1} p and
-    # w = R^{-T} ((D + gamma Y^T Y) u - gamma q).
     u = torch.linalg.solve_triangular(r_mat, p_t[:, None], upper=True)[:, 0]
     rhs = d_diag * u + gamma * (yy_t @ u) - gamma * q_t
     w = torch.linalg.solve_triangular(
@@ -284,14 +242,50 @@ def _compact_direction(
     )[:, 0]
 
     # Back to slot order for the final ring combination.
-    coeff_s = torch.zeros_like(w).index_copy(0, idx, w).to(ring_dtype).float()
-    coeff_y = torch.zeros_like(u).index_copy(0, idx, u).to(ring_dtype).float()
-    parts = []
-    for cols in blocks:
-        s_part = coeff_s @ state.s_hist[:, cols].float()
-        y_part = coeff_y @ state.y_hist[:, cols].float()
-        parts.append(-(gamma * grad[cols] + s_part - gamma * y_part))
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
+    coeff_s = torch.zeros_like(w).index_copy(0, idx, w)
+    coeff_y = torch.zeros_like(u).index_copy(0, idx, u)
+    return coeff_s, coeff_y
+
+
+def _compact_direction(
+    grad: torch.Tensor,
+    state: LbfgsState,
+    mesh=None,
+) -> torch.Tensor:
+    """Compact-representation direction (Byrd-Nocedal-Schnabel 1994).
+
+    The same -H^{-1} g as :func:`_two_loop`, as ring contractions and
+    two m-by-m triangular solves (:func:`_compact_coefficients`). The
+    JAX package multiplies the (possibly bf16) ring with f32
+    accumulation, ``g`` and the combination coefficients rounded to the
+    ring's type first. The two passes over the ring (the four products,
+    then the combination) are ``ops/lbfgs_ring.py``'s: on the card with
+    a bf16 ring its two kernels, which read the ring as stored;
+    otherwise (a CPU tensor, an fp32 ring) its plain versions, which
+    upcast the ring to f32 in blocks. With ``mesh`` the four products
+    are each rank's partials, summed over the ranks in one collective;
+    the small solves then run alike on every rank.
+    """
+    if lbfgs_ring.on_kernels(grad, state.s_hist):
+        products = lbfgs_ring.products_kernel
+        combine = lbfgs_ring.combine_kernel
+    else:
+        products = lbfgs_ring.products_plain
+        combine = lbfgs_ring.combine_plain
+
+    # sy[a, b] = s_a . y_b, in slot order.
+    sums = products(state.s_hist, state.y_hist, grad)
+    if mesh is not None and mesh.size > 1:
+        packed = mesh.all_sum(torch.cat([t.reshape(-1) for t in sums]))
+        sums = tuple(
+            part.reshape(t.shape) for part, t in zip(
+                packed.split([t.numel() for t in sums]), sums, strict=True,
+            )
+        )
+    coeff_s, coeff_y = _compact_coefficients(sums, state)
+    return combine(
+        state.s_hist, state.y_hist, grad, coeff_s, coeff_y, state.h_diag,
+    )
 
 
 _DIRECTION_METHODS = {

@@ -22,8 +22,11 @@ the whole and remat peaks: bytes = a + b x pixels. ``--ceilings`` runs
 larger sizes instead, whole and rematerialized, and 8K UHD in 2 bands,
 to find where each stops fitting. ``--direction`` times the L-BFGS
 compact direction (``engine.optimizers._compact_direction``) at
-2048x2048, 3840x2160 and 4096x4096 with its ring upcast in blocks of
-``UPCAST_COLUMNS`` columns and in one block, with the peak of each.
+2048x2048, 3840x2160 and 4096x4096 on the card's path (the two kernels
+of ``csrc/lbfgs_ring.cu``, which read the bf16 ring as stored), and on
+the plain path (a CPU run's, or an fp32 ring's) with its ring upcast in
+blocks of ``ops.lbfgs_ring.UPCAST_COLUMNS`` columns and in one block,
+with the peak of each.
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -48,6 +51,7 @@ from style_transfer_visualizer_tpu_torch.models.features import (
 from style_transfer_visualizer_tpu_torch.models.vgg19 import (
     init_random_params,
 )
+from style_transfer_visualizer_tpu_torch.ops import lbfgs_ring
 from style_transfer_visualizer_tpu_torch.ops.precision import (
     resolve_precision,
 )
@@ -181,9 +185,23 @@ def run_case(case: tuple) -> dict:
 DIRECTION_SIZES = ((2048, 2048), (2160, 3840), (4096, 4096))
 
 
+def _plain_direction(grad, state):
+    """The compact direction on the plain path (the ring upcast in
+    ``lbfgs_ring.UPCAST_COLUMNS`` blocks), as a CPU run or an fp32 ring
+    takes it."""
+    coeff = optimizers._compact_coefficients(  # noqa: SLF001
+        lbfgs_ring.products_plain(state.s_hist, state.y_hist, grad), state,
+    )
+    return lbfgs_ring.combine_plain(
+        state.s_hist, state.y_hist, grad, *coeff, state.h_diag,
+    )
+
+
 def _direction_line(height: int, width: int) -> str:
-    """The compact direction's device ms and peak at one image size,
-    the ring upcast in ``UPCAST_COLUMNS`` blocks and in one block."""
+    """The compact direction's device ms and peak at one image size:
+    the card's path (the two kernels of ``csrc/lbfgs_ring.cu``), then
+    the plain path with the ring upcast in ``UPCAST_COLUMNS`` blocks
+    and in one block."""
     n = 3 * height * width
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(0)
@@ -196,11 +214,18 @@ def _direction_line(height: int, width: int) -> str:
     state.hist_len.fill_(100)
     state.h_diag.fill_(0.5)
     grad = torch.randn((n,), generator=gen, device=device)
+
+    def card():
+        return optimizers._compact_direction(grad, state)  # noqa: SLF001
+
+    def plain():
+        return _plain_direction(grad, state)
+
     out = []
-    default = optimizers.UPCAST_COLUMNS
-    for columns in (default, n):
-        optimizers.UPCAST_COLUMNS = columns
-        direction = optimizers._compact_direction(grad, state)  # noqa: SLF001
+    default = lbfgs_ring.UPCAST_COLUMNS
+    for fn, columns in ((card, default), (plain, default), (plain, n)):
+        lbfgs_ring.UPCAST_COLUMNS = columns
+        direction = fn()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
@@ -208,24 +233,26 @@ def _direction_line(height: int, width: int) -> str:
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(5):
-            direction = optimizers._compact_direction(  # noqa: SLF001
-                grad, state,
-            )
+            direction = fn()
         end.record()
         torch.cuda.synchronize()
         out.append((
             start.elapsed_time(end) / 5,
             torch.cuda.max_memory_allocated() - before, direction,
         ))
-    optimizers.UPCAST_COLUMNS = default
-    (ms_b, peak_b, d_b), (ms_1, peak_1, d_1) = out
+    lbfgs_ring.UPCAST_COLUMNS = default
+    (ms_k, peak_k, d_k), (ms_b, peak_b, d_b), (ms_1, peak_1, d_1) = out
     diff = float((d_b - d_1).abs().max() / d_1.abs().max())
+    diff_k = float((d_k - d_b).norm() / d_b.norm())
     blocks = -(-n // default)
     return (
         f"direction {width}x{height} (n {n}, m 100, bf16 ring): "
-        f"{blocks} blocks of {default} columns {ms_b:.3f} ms, peak above "
-        f"the ring {peak_b}; one block {ms_1:.3f} ms, peak {peak_1}; "
-        f"largest difference over the largest magnitude {diff:.3g}"
+        f"kernels {ms_k:.3f} ms, peak above the ring {peak_k}; plain "
+        f"{blocks} blocks of {default} columns {ms_b:.3f} ms, peak "
+        f"{peak_b}; one block {ms_1:.3f} ms, peak {peak_1}; largest "
+        f"difference over the largest magnitude, blocks against one "
+        f"{diff:.3g}; kernels against blocks, norm of the difference "
+        f"over the norm {diff_k:.3g}"
     )
 
 
@@ -266,7 +293,7 @@ def main(argv: list[str] | None = None) -> int:
     )
     parser.add_argument(
         "--direction", action="store_true",
-        help="time the L-BFGS direction blocked and in one block",
+        help="time the L-BFGS direction: kernels, plain in blocks, whole",
     )
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():

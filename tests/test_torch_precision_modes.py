@@ -265,7 +265,9 @@ def test_mode_counters() -> None:
 
 
 def test_csrc_builds_every_mode_source() -> None:
-    assert build.SOURCES == ("conv3x3", "conv3x3_ieee", "conv3x3_tf32", "gram")
+    assert build.SOURCES == (
+        "conv3x3", "conv3x3_ieee", "conv3x3_tf32", "gram", "lbfgs_ring",
+    )
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file()
 
