@@ -7,7 +7,8 @@ the seed changes only what is drawn. Image ``index`` of a run with
 seed ``seed`` draws from ``SeedSequence([seed, index])``: its content
 and styles from the first number, the optimizer's starting image from
 the second (the port's ``optimization.seed``). The weights draw from
-``SeedSequence([seed])``, on the device, in one call.
+``SeedSequence([seed])``, on the device, in one call, as the
+configuration's family (``port_bench/families``) lays them out.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F  # noqa: N812
 
-from port_bench.reference.objective import CONV, layer_table
+from port_bench import families
 
 #: Keep seeds to 63 bits: ``torch.Generator.manual_seed`` takes them,
 #: and so does the port's ``optimization.seed``.
@@ -35,28 +36,10 @@ def weights_seed(seed: int) -> int:
     return int(words[0]) & _SEED_MASK
 
 
-def make_weights(
-    config: dict, seed: int, device: torch.device,
-) -> dict[int, tuple[torch.Tensor, torch.Tensor]]:
-    """He-normal ``(3, 3, C_in, C_out)`` kernels and small biases for
-    every conv up to the deepest tap, drawn on ``device`` in one call."""
-    table = layer_table(config["cfg"])
-    last = max(*config["style_layers"], *config["content_layers"])
-    convs = [
-        (idx, c_in, c_out)
-        for idx, (kind, c_in, c_out) in enumerate(table[: last + 1])
-        if kind == CONV
-    ]
-    sizes = [n for _, ci, co in convs for n in (9 * ci * co, co)]
-    gen = torch.Generator(device=device).manual_seed(weights_seed(seed))
-    draws = torch.randn(sum(sizes), generator=gen, device=device)
-    parts = iter(torch.split(draws, sizes))
-    weights = {}
-    for idx, c_in, c_out in convs:
-        w = next(parts).reshape(3, 3, c_in, c_out) * (2.0 / (9 * c_in)) ** 0.5
-        b = next(parts) * config["bias_std"]
-        weights[idx] = (w, b)
-    return weights
+def make_weights(config: dict, seed: int, device: torch.device) -> dict:
+    """The weights of ``config``'s architecture, drawn on ``device`` by
+    its family's ``make_weights``."""
+    return families.load(config).make_weights(config, seed, device)
 
 
 def _field(gen, device, height: int, width: int, cells: int, noise: float):

@@ -4,9 +4,12 @@ A cell is an entry of ``BENCHMARK.json``'s ``workloads``: a
 configuration (``port_bench/configs/<config>.json``) under a traffic
 mix (``port_bench/traffic/<traffic>.json``), with its limits
 (``port_bench/limits/<cell>.json``); each metric is read by
-``port_bench/metrics/<name before the first dot>.py``. The harness
-finds all of them by name, so a cell, a configuration or a metric is
-added by adding files and entries.
+``port_bench/metrics/<name before the first dot>.py``, and what
+depends on a configuration's architecture (weights, the port's
+parameters, the reference's objective, kernel counters, step FLOPs) by
+its family, ``port_bench/families/<family>.py``. The harness finds
+all of them by name, so a cell, a configuration, an architecture or a
+metric is added by adding files and entries.
 
 The window drives the port's own entry, image after image, each a new
 content and style draw of the mix's sizes: ``main.prepare_model_and_input``
@@ -33,8 +36,7 @@ from pathlib import Path
 
 import torch
 
-from port_bench import generate, trace
-from port_bench.reference import objective as ref
+from port_bench import families, generate, trace
 from port_bench.reference import optimizers as ref_optim
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -66,6 +68,11 @@ def load_cell(name: str, root: Path = ROOT) -> dict:
         msg = f"no workload {name!r} in BENCHMARK.json"
         raise RunError(msg)
     work = works[name]
+    config = _json(root / "port_bench" / "configs" / f"{work['config']}.json")
+    try:
+        families.load(config)
+    except LookupError as exc:
+        raise RunError(str(exc)) from None
     end_to_end = [
         m for m in bench["end_to_end"] if name in m.get("workloads", [name])
     ]
@@ -77,7 +84,7 @@ def load_cell(name: str, root: Path = ROOT) -> dict:
     return {
         "name": name,
         "chips": work["chips"],
-        "config": _json(root / "port_bench" / "configs" / f"{work['config']}.json"),
+        "config": config,
         "traffic": _json(root / "port_bench" / "traffic" / f"{work['traffic']}.json"),
         "limits": _json(root / "port_bench" / "limits" / f"{name}.json"),
         "end_to_end": end_to_end,
@@ -181,11 +188,6 @@ class _Images:
     """Runs one image of the cell's mix through the port's entry."""
 
     def __init__(self, spec: dict, device, mesh) -> None:
-        from style_transfer_visualizer_tpu_torch.models.vgg19 import (  # noqa: PLC0415
-            flip_stencil,
-            pack_stencil,
-        )
-
         self.spec = spec
         self.cell = spec["cell"]
         self.config = self.cell["config"]
@@ -193,18 +195,12 @@ class _Images:
         self.device = device
         self.mesh = mesh
         self.writes = mesh is None or mesh.writes
-        self.params = {}
-        for idx, (w, b) in generate.make_weights(
-            self.config, spec["seed"], device,
-        ).items():
-            w9 = w.reshape(9, w.shape[2], w.shape[3]).contiguous()
-            w9_flip = flip_stencil(w9)
-            wk_hi, wk_lo = pack_stencil(w9)
-            wkf_hi, wkf_lo = pack_stencil(w9_flip)
-            self.params[idx] = {
-                "w9": w9, "w9_flip": w9_flip, "b": b, "wk_hi": wk_hi,
-                "wk_lo": wk_lo, "wkf_hi": wkf_hi, "wkf_lo": wkf_lo,
-            }
+        self.family = families.load(self.config)
+        self.params = self.family.port_params(
+            self.config,
+            self.family.make_weights(self.config, spec["seed"], device),
+            device,
+        )
 
     def _port_config(self, index: int, steps: int, csv_path):
         from style_transfer_visualizer_tpu_torch.config import (  # noqa: PLC0415
@@ -215,27 +211,27 @@ class _Images:
             VideoConfig,
         )
 
-        cfg, mix = self.config, self.traffic
+        model, mix = self.config, self.traffic
         _, start_seed = generate.image_seeds(self.spec["seed"], index)
         mesh = mix.get("mesh") or {"space": 1}
         config = StyleTransferConfig(
             optimization=OptimizationConfig(
                 steps=steps,
-                style_w=cfg["style_w"],
-                content_w=cfg["content_w"],
-                lr=cfg["lr"],
-                init_method=cfg["init_method"],
+                style_w=model["style_w"],
+                content_w=model["content_w"],
+                lr=model["lr"],
+                init_method=model["init_method"],
                 seed=start_seed,
                 normalize=True,
-                style_layers=list(cfg["style_layers"]),
-                content_layers=list(cfg["content_layers"]),
-                model=cfg["architecture"],
-                optimizer=cfg["optimizer"],
-                lbfgs_max_iter=cfg["lbfgs_max_iter"],
-                lbfgs_max_eval=cfg["lbfgs_max_eval"],
-                lbfgs_history_size=cfg["lbfgs_history_size"],
-                lbfgs_history_dtype=cfg["lbfgs_history_dtype"],
-                lbfgs_direction=cfg["lbfgs_direction"],
+                style_layers=list(model["style_layers"]),
+                content_layers=list(model["content_layers"]),
+                model=model["architecture"],
+                optimizer=model["optimizer"],
+                lbfgs_max_iter=model["lbfgs_max_iter"],
+                lbfgs_max_eval=model["lbfgs_max_eval"],
+                lbfgs_history_size=model["lbfgs_history_size"],
+                lbfgs_history_dtype=model["lbfgs_history_dtype"],
+                lbfgs_direction=model["lbfgs_direction"],
                 coarse_steps=mix["coarse_steps"],
             ),
             hardware=HardwareConfig(
@@ -254,7 +250,7 @@ class _Images:
                 plot_losses=False,
             ),
         )
-        _override(config, cfg.get("port", {}))
+        _override(config, model.get("port", {}))
         _override(config, mix.get("port", {}))
         if csv_path is not None and config.output.log_every != 1:
             msg = "a loss CSV the check reads needs log_every 1"
@@ -390,19 +386,6 @@ def direction_gap(config: dict, state, mesh=None) -> float | None:
     return worst
 
 
-def _kernel_counts() -> tuple[int, int]:
-    from style_transfer_visualizer_tpu_torch.ops import conv3x3, gram  # noqa: PLC0415
-
-    return conv3x3.launches.launched(), gram.launches.launched()
-
-
-def _reset_counts() -> None:
-    from style_transfer_visualizer_tpu_torch.ops import conv3x3, gram  # noqa: PLC0415
-
-    conv3x3.launches.reset()
-    gram.launches.reset()
-
-
 def window(spec: dict, mesh=None) -> dict:
     """Set-up and the measured window on this process's device; on a
     mesh, world rank 0 returns every rank's readings."""
@@ -414,6 +397,7 @@ def window(spec: dict, mesh=None) -> dict:
         torch.cuda.set_device(device)
         build.build_all()
     images = _Images(spec, device, mesh)
+    counters = images.family.launch_counters() if spec["trace"] else {}
     images.run(generate.WARMUP_INDEX, spec["cell"]["traffic"]["warmup_steps"])
     state = None
     tracing = spec["trace"] and device.type == "cuda"
@@ -431,13 +415,17 @@ def window(spec: dict, mesh=None) -> dict:
         index = len(records)
         if spec["trace"] and index == 0:
             if tracing:
-                _reset_counts()
+                for counter in counters.values():
+                    counter.reset()
             with torch.profiler.profile(activities=activities) as prof:
                 with torch.profiler.record_function(trace.SPAN):
                     state, record = images.run(index)
                     _sync(device)
             closed_s = time.perf_counter() - record["t_end"]
-            counted = _kernel_counts() if tracing else (0, 0)
+            counted = {
+                name: counter.launched() if tracing else 0
+                for name, counter in counters.items()
+            }
         else:
             state, record = images.run(index)
         records.append(record)
@@ -469,9 +457,7 @@ def window(spec: dict, mesh=None) -> dict:
             if device.type == "cuda" else 0
         ),
         "summary": summary,
-        "counted": None if counted is None else {
-            "conv": counted[0], "gram": counted[1],
-        },
+        "counted": counted,
         "forbidden": forbidden_modules(),
         "closed_s": closed_s,
     }
@@ -486,8 +472,9 @@ def window(spec: dict, mesh=None) -> dict:
 
 
 class View:
-    """What a metric's reader gets: the window's timings and, in a
-    traced run, each rank's trace summary and kernel counts."""
+    """What a metric's reader gets: the window's timings, each rank's
+    peak of allocated device bytes and, in a traced run, each rank's
+    trace summary and kernel counts."""
 
     def __init__(self, cell: dict, result: dict, chips: int) -> None:
         first = result["ranks"][0]
@@ -497,6 +484,7 @@ class View:
         self.setup_s = first["setup_s"]
         self.window_s = first["window_s"]
         self.records = first["records"]
+        self.peaks = [r["peak"] for r in result["ranks"]]
         self.traced_steps = self.traffic["steps"]
         self.ranks = [
             r for r in result["ranks"] if r["summary"] is not None
@@ -544,10 +532,8 @@ def check(cell: dict, seed: int, records: list[dict], device) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     config, mix, limits = cell["config"], cell["traffic"], cell["limits"]
     steps = limits["steps"]
-    weights = {
-        idx: (w.permute(3, 2, 0, 1).contiguous(), b)
-        for idx, (w, b) in generate.make_weights(config, seed, device).items()
-    }
+    family = families.load(config)
+    weights = family.make_weights(config, seed, device)
     height, width = mix["content"]
     n_styles = len(mix["styles"])
     shape = (1, height, width, 3)
@@ -562,7 +548,7 @@ def check(cell: dict, seed: int, records: list[dict], device) -> dict:
             generator=gen, device=device,
         ).reshape(-1, *shape)
         for s, style in enumerate(styles):
-            objective = ref.Objective(
+            objective = family.objective(
                 config, weights, torch.from_numpy(content).to(device),
                 torch.from_numpy(style).to(device),
             )

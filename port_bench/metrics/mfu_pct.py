@@ -1,14 +1,14 @@
 """``mfu_pct``: the whole step's share of the cell's peak over one
 traced image.
 
-The frozen step FLOPs (``yardstick.flops``, the port's
-``utils/flops.py``) of every image the cell holds, times the steps in
-the traced span, over the span's wall time (the longest rank's) and
-the TF32 peak of the cell's chips. It bounds every kernel's roofline
-from above: a kernel taken off the path leaves its own share silent,
-not this one.
+The frozen step FLOPs of the cell's family (its ``step_flops``; for
+VGG ``yardstick.flops``, the port's ``utils/flops.py``) of every image
+the cell holds, times the steps in the traced span, over the span's
+wall time (the longest rank's) and the TF32 peak of the cell's chips.
+It bounds every kernel's roofline from above: a kernel taken off the
+path leaves its own share silent, not this one.
 """
-from port_bench.yardstick.flops import step_flops
+from port_bench import families
 from port_bench.yardstick.peaks import TF32_FLOPS
 
 
@@ -17,7 +17,7 @@ def read(view):
         return None
     height, width = view.traffic["content"]
     work = (
-        step_flops(view.config, height, width)
+        families.load(view.config).step_flops(view.config, height, width)
         * len(view.traffic["styles"]) * view.traced_steps
     )
     span = max(e["summary"]["span_s"] for e in view.ranks)

@@ -1,8 +1,10 @@
 """``nonkernel_device_ms``: device milliseconds a step in every device
-operation that is neither a hand-written kernel of ``csrc/`` nor NCCL:
-the L-BFGS ring's products, the Gram backward, pooling, elementwise
-passes, Adam, copies and sets. Over the traced image, divided by its
-steps; on a mesh the worst rank's.
+operation that is neither a conv or Gram kernel (the names below) nor
+NCCL: the L-BFGS direction, its two hand-written kernels of
+``csrc/lbfgs_ring.cu`` (``lbfgs_ring_products_kernel``,
+``lbfgs_ring_combine_kernel``) included, the Gram backward, pooling,
+elementwise passes, Adam, copies and sets. Over the traced image,
+divided by its steps; on a mesh the worst rank's.
 """
 PORT_KERNELS = (
     "conv3x3_tc_kernel", "conv3x3_tf32_kernel", "conv3x3_ieee_kernel",

@@ -1,21 +1,25 @@
 """The frozen yardstick against the port's own counts.
 
-The FLOPs equal ``utils/flops.py``'s at the four cells' shapes, and
-the launches worked out from the shapes equal the conv and Gram calls
-the port's entry makes on the CPU (the same code path that launches
-the kernels on the card) at each one-card cell's rehearsal sizes.
+The FLOPs equal ``utils/flops.py``'s at the four cells' shapes, as
+each cell's family gives them and as ``mfu_pct`` reads them, and the
+launches worked out from the shapes equal the conv and Gram calls the
+port's entry makes on the CPU (the same code path that launches the
+kernels on the card) at each one-card cell's rehearsal sizes. A cell
+whose family is missing is refused as the run's own error.
 """
 from __future__ import annotations
 
 import json
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
 
-from port_bench import harness
+from port_bench import families, harness
 from port_bench.yardstick import flops as frozen
 from port_bench.yardstick.launches import image_launches
+from port_bench.yardstick.peaks import TF32_FLOPS
 
 ROOT = Path(__file__).resolve().parents[2]
 CELLS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
@@ -30,10 +34,60 @@ def test_step_flops_equal_the_ports(name) -> None:
     config, mix = cell["config"], cell["traffic"]
     arch = get_architecture(config["architecture"])
     height, width = mix["content"]
-    assert frozen.step_flops(config, height, width) == flops.step_flops(
+    ports = flops.step_flops(
         arch.layer_table, height, width, tuple(config["style_layers"]),
         tuple(config["content_layers"]),
     )
+    assert frozen.step_flops(config, height, width) == ports
+    assert families.load(config).step_flops(config, height, width) == ports
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_mfu_pct_reads_the_frozen_step_flops(name) -> None:
+    """``mfu_pct`` takes its count from the cell's family: the same
+    number as the frozen VGG count, over a traced span of 2 s."""
+    cell = harness.load_cell(name)
+    config, mix = cell["config"], cell["traffic"]
+    view = SimpleNamespace(
+        config=config, traffic=mix, chips=cell["chips"],
+        traced_steps=mix["steps"],
+        ranks=[{"summary": {"kernels": {"k": (1, 1.0)}, "span_s": 2.0}}],
+    )
+    work = (
+        frozen.step_flops(config, *mix["content"]) * len(mix["styles"])
+        * mix["steps"]
+    )
+    want = 100.0 * work / (2.0 * cell["chips"] * TF32_FLOPS)
+    read = harness._reader(cell["root"], "mfu_pct.single")
+    assert read(view) == want
+
+
+@pytest.mark.parametrize("family", ["no_such_family", "../families/vgg", 7, "lacking"])
+def test_a_cell_of_an_unknown_family_is_a_run_error(family, tmp_path, monkeypatch) -> None:
+    """Refused when the cell is loaded, before any set-up: a family with
+    no file, a name that leaves ``port_bench/families``, a name that is
+    no string, and a file that lacks one of the five functions."""
+    (tmp_path / "lacking.py").write_text(
+        "def make_weights(config, seed, device):\n    return {}\n",
+    )
+    monkeypatch.setattr(families, "DIR", tmp_path)
+    config = json.loads((ROOT / "port_bench/configs/vgg19-lbfgs.json").read_text())
+    config["family"] = family
+    for folder, data in (
+        ("configs/odd.json", config),
+        ("traffic/512-timelapse.json", {}),
+        ("limits/odd.512-timelapse.json", {}),
+    ):
+        path = tmp_path / "port_bench" / folder
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(data))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps({
+        "workloads": [{"name": "odd.512-timelapse", "config": "odd",
+                       "traffic": "512-timelapse", "chips": 1}],
+        "end_to_end": [], "per_layer": [],
+    }))
+    with pytest.raises(harness.RunError, match="family"):
+        harness.load_cell("odd.512-timelapse", tmp_path)
 
 
 def test_the_cells_step_flops() -> None:
